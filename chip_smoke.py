@@ -9,9 +9,11 @@ path's shapes, then drives the main path: a seeded zipf stream (vocab
 5000, s 1.2) of 2**17-event batches through the pinned pool, the H2D
 stager and `bundle_ingest_step` at the production sketch geometry with
 every plane on (count-min 4 x 2**16, HLL p 14, entropy 2**12, top-k 128,
-invertible 3 x 2**12, DDSketch 2048 buckets). The same stream folded by
-the plain composition `bundle_update` on the card must give the same
-bundle, leaf by leaf. Every kernel must have launched during that run.
+invertible 3 x 2**12, DDSketch 2048 buckets). The same stream is also
+folded by the plain composition `bundle_update` on the card, whose
+entropy update is K1. Both bundles must equal, leaf by leaf, the same
+fold on the CPU, where no kernel runs. The launch counts are set to 0
+just before each of the two card runs and read just after it.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails. The last line of standard output is
@@ -190,8 +192,16 @@ def main() -> int:
         except Exception as e:  # reported by the consumer below
             producer_error.append(e)
 
-    K.histogram.launches = 0
-    K.fused_planes.launches = 0
+    def reset_launches() -> None:
+        K.histogram.launches = 0
+        K.fused_planes.launches = 0
+
+    def read_launches() -> dict[str, int]:
+        torch.cuda.synchronize()
+        return {"K1": K.histogram.launches, "K2": K.fused_planes.launches}
+
+    # path 1, staged ingest: pool -> stager -> bundle_ingest_step (K2)
+    reset_launches()
     producer_thread = threading.Thread(target=producer, daemon=True)
     producer_thread.start()
     t_start = None
@@ -206,37 +216,61 @@ def main() -> int:
         stager.fence(fence)
     torch.cuda.synchronize()
     e2e_s = time.perf_counter() - t_start
+    ingest_launches = read_launches()
     stop.set()
     producer_thread.join(timeout=10)
     require(not producer_thread.is_alive() and not producer_error, f"producer: {producer_error}")
     stager.drain()
     e2e_ev_s = steps * batch / e2e_s
+    log(f"[main] ingest: {total_steps} batches x {batch} events staged and ingested; "
+        f"launches K2={ingest_launches['K2']} K1={ingest_launches['K1']}")
+    require(ingest_launches == {"K1": 0, "K2": total_steps},
+            f"ingest launched {ingest_launches}, expected K2 once a step and no K1")
 
-    # the same stream folded by the plain composition on the card
-    plain = S.bundle_init(**prod, device=dev)
-    rsrc = ZipfFoldedSource(args.seed)
-    blk = np.empty((LANES, batch), np.uint32)
+    def plain_fold(device, on_block=None):
+        """The same stream folded by the plain composition `bundle_update`."""
+        out = S.bundle_init(**prod, device=device)
+        rsrc = ZipfFoldedSource(args.seed)
+        blk = np.empty((LANES, batch), np.uint32)
+        for i in range(total_steps):
+            fill_block(rsrc, blk, i)
+            t = torch.from_numpy(blk.view(np.int32)).to(device)
+            S.bundle_update(out, t[HH], t[DISTINCT], t[2], t[WEIGHTS], values=t[VALUES])
+            if on_block is not None:
+                on_block(blk)
+        return out
+
+    # path 2, the plain composition on the card: its entropy update is K1
+    reset_launches()
+    composed = plain_fold(dev)
+    compose_launches = read_launches()
+    log(f"[main] plain composition on the card: launches K1={compose_launches['K1']} "
+        f"K2={compose_launches['K2']}")
+    require(compose_launches == {"K1": total_steps, "K2": 0},
+            f"bundle_update launched {compose_launches}, expected K1 once a step and no K2")
+    launches = {"K1": compose_launches["K1"], "K2": ingest_launches["K2"]}
+
+    # the reference: the same fold on the CPU, where every wrapper takes its
+    # plain version, so no kernel enters the comparison
     exact_hh, exact_distinct, weight_sum = [], [], 0
-    for i in range(total_steps):
-        fill_block(rsrc, blk, i)
-        t = torch.from_numpy(blk.view(np.int32)).to(dev)
-        S.bundle_update(plain, t[HH], t[DISTINCT], t[2], t[WEIGHTS], values=t[VALUES])
-        live = blk[WEIGHTS] != 0
-        exact_hh.append(np.repeat(blk[HH], blk[WEIGHTS]))
-        exact_distinct.append(blk[DISTINCT][live])
-        weight_sum += int(blk[WEIGHTS].sum(dtype=np.int64))
-    torch.cuda.synchronize()
-    launches = {"K1": K.histogram.launches, "K2": K.fused_planes.launches}
-    log(f"[main] {total_steps} batches x {batch} events staged and ingested; "
-        f"launches K2={launches['K2']} (ingest), K1={launches['K1']} (plain fold)")
-    require(launches["K2"] == total_steps, f"K2 launched {launches['K2']} times "
-                                           f"for {total_steps} steps")
-    require(launches["K1"] > 0, "K1 was not launched on the path")
 
-    for i, (a, b) in enumerate(zip(S.bundle_to_numpy(bundle), S.bundle_to_numpy(plain))):
-        require(a.dtype == b.dtype and np.array_equal(a, b),
-                f"main path vs plain fold: leaf {i} differs")
-    log("[main] the ingested bundle equals the plain fold, leaf by leaf")
+    def tally(blk: np.ndarray) -> None:
+        nonlocal weight_sum
+        exact_hh.append(np.repeat(blk[HH], blk[WEIGHTS]))
+        exact_distinct.append(blk[DISTINCT][blk[WEIGHTS] != 0])
+        weight_sum += int(blk[WEIGHTS].sum(dtype=np.int64))
+
+    reset_launches()
+    t0 = time.perf_counter()
+    reference = plain_fold(torch.device("cpu"), tally)
+    log(f"[main] reference fold on the CPU in {time.perf_counter() - t0:.1f} s")
+    require(read_launches() == {"K1": 0, "K2": 0}, "the CPU reference launched a kernel")
+    ref_leaves = S.bundle_to_numpy(reference)
+    for name, b in (("ingested", bundle), ("composed", composed)):
+        for i, (x, y) in enumerate(zip(S.bundle_to_numpy(b), ref_leaves)):
+            require(x.dtype == y.dtype and np.array_equal(x, y),
+                    f"{name} bundle vs the CPU reference: leaf {i} differs")
+    log("[main] the ingested and the composed bundle each equal the CPU reference, leaf by leaf")
 
     events, drops, distinct_est, ent_bits, overflow, keys, counts = S.decode_digest(
         S.bundle_digest(bundle))

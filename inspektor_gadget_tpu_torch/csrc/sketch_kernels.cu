@@ -1,13 +1,17 @@
 // Hand-written Hopper (sm_90a) kernels for the sketch-ingest path.
 //
-// K1 ig_hist         replaces inspektor_gadget_tpu/ops/pallas_kernels.py:61
-//                    pallas_histogram (body _hist_kernel :39)
-// K2 ig_fused_planes replaces inspektor_gadget_tpu/ops/pallas_kernels.py:296
-//                    fused_sketch_planes (body _fused_kernel :142)
+// One entry, ig_fused_planes, launched with a table of (plane, bucket
+// tile) jobs, serves both kernels of the path:
+// K1 (one hashed-histogram plane) replaces
+//    inspektor_gadget_tpu/ops/pallas_kernels.py:61 pallas_histogram
+//    (body _hist_kernel :39)
+// K2 (every sketch plane)         replaces
+//    inspektor_gadget_tpu/ops/pallas_kernels.py:296 fused_sketch_planes
+//    (body _fused_kernel :142)
 //
-// Both are built by nvcc into a plain-C shared library and launched
-// through ctypes (inspektor_gadget_tpu_torch/ops/kernels.py), on the
-// caller's stream; each entry returns cudaGetLastError().
+// It is built by nvcc into a plain-C shared library and launched through
+// ctypes (inspektor_gadget_tpu_torch/ops/kernels.py), on the caller's
+// stream; it returns cudaGetLastError().
 //
 // What bounds them on the card: they read each 4-byte lane once and write
 // each delta bucket once, so the floor is bytes over the memory rate, a
@@ -114,8 +118,8 @@ __device__ __forceinline__ void flush_max(const uint32_t* tile, int width,
   }
 }
 
-// The hashed-histogram plane, shared by K1 (all of it) and K2 (count-min
-// rows and the entropy row): rows [begin, end) of the batch add their
+// The hashed-histogram plane (K1's one plane; K2's count-min rows and
+// entropy row): rows [begin, end) of the batch add their
 // weight into bucket fmix32(key*mult+salt) >> shift when it falls in the
 // tile [lo, lo+width); out points at the plane's bucket 0.
 __device__ void hashed_hist_tile(uint32_t* tile, const uint32_t* __restrict__ keys,
@@ -179,18 +183,6 @@ int rows_per_block(int n, int n_jobs, int tile) {
   return (n + chunks - 1) / chunks;
 }
 
-__global__ void __launch_bounds__(kThreads)
-hist_kernel(const uint32_t* __restrict__ keys, const int32_t* __restrict__ w,
-            uint32_t* out, int n, int width, uint32_t mult, uint32_t salt,
-            int shift, int rows) {
-  extern __shared__ uint32_t tile[];
-  const int lo = blockIdx.y * kTileMax;
-  const int tw = min(kTileMax, width - lo);
-  const int begin = blockIdx.x * rows;
-  const int end = min(n, begin + rows);
-  hashed_hist_tile(tile, keys, w, begin, end, mult, salt, shift, lo, tw, out);
-}
-
 // jobs: (n_jobs, 8) int32 rows of kind, lane, mult, salt, shift, lo,
 // width, plane offset in `out`.
 __global__ void __launch_bounds__(kThreads)
@@ -246,24 +238,6 @@ fused_planes_kernel(Batch batch, const int32_t* __restrict__ jobs,
 }
 
 }  // namespace
-
-extern "C" int ig_hist(const void* keys, const void* weights, void* out, int n,
-                       int log2_width, unsigned int mult, unsigned int salt,
-                       void* stream) {
-  const int width = 1 << log2_width;
-  const int tile = width < kTileMax ? width : kTileMax;
-  const int tiles = (width + tile - 1) / tile;
-  const int rows = rows_per_block(n, tiles, tile);
-  const size_t smem = (size_t)tile * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n + rows - 1) / rows, tiles);
-  hist_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)keys, (const int32_t*)weights, (uint32_t*)out, n, width,
-      mult, salt, 32 - log2_width, rows);
-  return (int)cudaGetLastError();
-}
 
 extern "C" int ig_fused_planes(const void* hh, const void* distinct, const void* dist,
                                const void* values, const void* weights,

@@ -7,6 +7,8 @@ the reference's signature around it) replaces
 ``inspektor_gadget_tpu/ops/pallas_kernels.py:296``
 (``fused_sketch_planes``). The kernels themselves, and the note on what
 bounds them and how they are built, are in ``csrc/sketch_kernels.cu``.
+Both launch its one entry, ``ig_fused_planes``, with a table of (plane,
+bucket tile) jobs: K1 with its one histogram plane, K2 with every plane.
 
 For a CUDA tensor a wrapper launches its kernel or raises; for a CPU
 tensor it computes the plain version, which the tests hold against the
@@ -92,9 +94,7 @@ class _Library:
             if self._lib is None:
                 self.path = self.build()
                 lib = ctypes.CDLL(str(self.path))
-                vp, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-                lib.ig_hist.argtypes = [vp, vp, vp, i, i, u, u, vp]
-                lib.ig_hist.restype = i
+                vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
                 lib.ig_fused_planes.argtypes = [vp, vp, vp, vp, vp, vp, i, i,
                                                 f, f, f, i, vp, i, vp]
                 lib.ig_fused_planes.restype = i
@@ -133,6 +133,52 @@ def _on_cpu(*xs: torch.Tensor) -> bool:
                      "its plain version CPU tensors")
 
 
+# -- the one kernel entry: a table of (plane, bucket tile) jobs ---------------
+
+@dataclass(frozen=True)
+class Plane:
+    kind: int
+    lane: int
+    mult: int
+    salt: int
+    log2_width: int  # hashed planes: bucket bits; 0 for the quantile row
+    width: int
+    offset: int      # first bucket of the plane in the flat delta buffer
+
+
+@functools.lru_cache(maxsize=64)
+def _job_table(planes: tuple[Plane, ...], dev: torch.device) -> tuple[torch.Tensor, int]:
+    """The kernel's (n_jobs, 8) int32 job rows on `dev` — one per (plane,
+    bucket tile) — and the widest tile."""
+    rows = []
+    for pl in planes:
+        for lo in range(0, pl.width, TILE):
+            rows.append((pl.kind, pl.lane, pl.mult, pl.salt, 32 - pl.log2_width,
+                         lo, min(TILE, pl.width - lo), pl.offset))
+    table = np.array(rows, dtype=np.int64)
+    table = np.where(table >= 1 << 31, table - (1 << 32), table).astype(np.int32)
+    return torch.from_numpy(table).to(dev), int(max(r[6] for r in rows))
+
+
+def _launch_planes(planes: tuple[Plane, ...], lanes, w: torch.Tensor,
+                   vals: torch.Tensor | None, n: int, dev: torch.device, ilg: float,
+                   neg_off: float, min_value: float, qt_buckets: int) -> torch.Tensor:
+    """Zero the flat int32 delta buffer of `planes` and launch
+    ig_fused_planes on it (no launch for an empty batch)."""
+    last = planes[-1]
+    out = torch.zeros(last.offset + last.width, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    jobs, max_tile = _job_table(planes, dev)
+    lib = LIBRARY.get()
+    with torch.cuda.device(dev):
+        _check(lib.ig_fused_planes(
+            *(x.data_ptr() for x in lanes), vals.data_ptr() if vals is not None else None,
+            w.data_ptr(), jobs.data_ptr(), jobs.shape[0], max_tile, ilg, neg_off,
+            min_value, qt_buckets, out.data_ptr(), n, _stream(dev)), "ig_fused_planes")
+    return out
+
+
 # -- K1: hashed weighted histogram --------------------------------------------
 
 def histogram_plain(keys: torch.Tensor, weights: torch.Tensor, *, log2_width: int,
@@ -156,14 +202,10 @@ def histogram(keys: torch.Tensor, weights: torch.Tensor, *, log2_width: int,
     n = keys.shape[0]
     k = _kernel_lane(keys, n, dev, "keys")
     w = _kernel_lane(weights.to(torch.int32), n, dev, "weights")
-    out = torch.zeros(1 << log2_width, dtype=torch.int32, device=dev)
-    if n == 0:
-        return out
-    lib = LIBRARY.get()
-    with torch.cuda.device(dev):
-        _check(lib.ig_hist(k.data_ptr(), w.data_ptr(), out.data_ptr(), n, log2_width,
-                           mult & MASK32, salt & MASK32, _stream(dev)), "ig_hist")
-    histogram.launches += 1
+    plane = Plane(HIST, LANE_HH, mult & MASK32, salt & MASK32, log2_width, 1 << log2_width, 0)
+    out = _launch_planes((plane,), (k, k, k), w, None, n, dev, 0.0, 0.0, 0.0, 0)
+    if n:
+        histogram.launches += 1
     return out
 
 
@@ -171,17 +213,6 @@ histogram.launches = 0
 
 
 # -- K2: every sketch plane in one pass ---------------------------------------
-
-@dataclass(frozen=True)
-class Plane:
-    kind: int
-    lane: int
-    mult: int
-    salt: int
-    log2_width: int  # hashed planes: bucket bits; 0 for the quantile row
-    width: int
-    offset: int      # first bucket of the plane in the flat delta buffer
-
 
 @dataclass(frozen=True)
 class FusedGeometry:
@@ -250,20 +281,6 @@ def fused_planes_plain(hh: torch.Tensor, distinct: torch.Tensor, dist: torch.Ten
     return bits32(out & MASK32)
 
 
-@functools.lru_cache(maxsize=64)
-def _job_table(geom: FusedGeometry, dev: torch.device) -> tuple[torch.Tensor, int]:
-    """The kernel's (n_jobs, 8) int32 job rows on `dev` — one per (plane,
-    bucket tile) — and the widest tile."""
-    rows = []
-    for pl in geom.planes:
-        for lo in range(0, pl.width, TILE):
-            rows.append((pl.kind, pl.lane, pl.mult, pl.salt, 32 - pl.log2_width,
-                         lo, min(TILE, pl.width - lo), pl.offset))
-    table = np.array(rows, dtype=np.int64)
-    table = np.where(table >= 1 << 31, table - (1 << 32), table).astype(np.int32)
-    return torch.from_numpy(table).to(dev), int(max(r[6] for r in rows))
-
-
 def fused_planes(hh: torch.Tensor, distinct: torch.Tensor, dist: torch.Tensor,
                  weights: torch.Tensor, values: torch.Tensor | None,
                  geom: FusedGeometry) -> torch.Tensor:
@@ -280,19 +297,11 @@ def fused_planes(hh: torch.Tensor, distinct: torch.Tensor, dist: torch.Tensor,
              ((hh, "hh"), (distinct, "distinct"), (dist, "dist"))]
     w = _kernel_lane(weights.to(torch.int32), n, dev, "weights")
     vals = _kernel_lane(values, n, dev, "values") if geom.qt_buckets else None
-    out = torch.zeros(geom.total, dtype=torch.int32, device=dev)
-    if n == 0:
-        return out
-    jobs, max_tile = _job_table(geom, dev)
     ilg, off = bucket_constants(geom.qt_alpha, geom.qt_min_value)
-    lib = LIBRARY.get()
-    with torch.cuda.device(dev):
-        _check(lib.ig_fused_planes(
-            *(x.data_ptr() for x in lanes), vals.data_ptr() if vals is not None else None,
-            w.data_ptr(), jobs.data_ptr(), jobs.shape[0], max_tile, ilg, -off,
-            float(np.float32(geom.qt_min_value)), geom.qt_buckets, out.data_ptr(), n,
-            _stream(dev)), "ig_fused_planes")
-    fused_planes.launches += 1
+    out = _launch_planes(geom.planes, lanes, w, vals, n, dev, ilg, -off,
+                         float(np.float32(geom.qt_min_value)), geom.qt_buckets)
+    if n:
+        fused_planes.launches += 1
     return out
 
 

@@ -105,7 +105,7 @@ def test_job_table_tiles_every_plane_exactly(geom):
     """The kernel's (plane, bucket tile) jobs cover each plane's buckets
     once, no tile is wider than the shared-memory tile, and no plane is
     padded to the widest."""
-    jobs, max_tile = K._job_table(geom, torch.device("cpu"))
+    jobs, max_tile = K._job_table(geom.planes, torch.device("cpu"))
     jobs = jobs.numpy()
     assert max_tile <= K.TILE and jobs.shape[1] == 8
     covered = np.zeros(geom.total, np.int64)
@@ -116,6 +116,22 @@ def test_job_table_tiles_every_plane_exactly(geom):
     widths = [pl.width for pl in geom.planes]
     assert geom.total == sum(widths)
     assert len(geom.planes) == geom.depth + 2 + 3 * geom.inv_rows + (1 if geom.qt_buckets else 0)
+
+
+@pytest.mark.parametrize("log2_width", [12, 16, 17])
+def test_job_table_of_one_histogram_plane(log2_width):
+    """K1's launch: one histogram plane split into shared-memory tiles,
+    the row hash's multiplier and salt carried as int32 bit patterns."""
+    mult, salt = int(_row_multiplier(3)), 0xDEADBEEF
+    plane = K.Plane(K.HIST, K.LANE_HH, mult, salt, log2_width, 1 << log2_width, 0)
+    jobs, max_tile = K._job_table((plane,), torch.device("cpu"))
+    jobs = jobs.numpy()
+    assert max_tile == min(K.TILE, 1 << log2_width)
+    assert jobs.shape == (max(1, (1 << log2_width) // K.TILE), 8)
+    assert (jobs[:, 0] == K.HIST).all() and (jobs[:, 4] == 32 - log2_width).all()
+    assert (jobs[:, 2].view(np.uint32) == mult).all() and (jobs[:, 3].view(np.uint32) == salt).all()
+    assert list(jobs[:, 5]) == list(range(0, 1 << log2_width, K.TILE))
+    assert jobs[:, 6].sum() == 1 << log2_width
 
 
 def test_wrappers_refuse_mixed_devices_and_missing_values():

@@ -243,6 +243,24 @@ def test_bucket_index_matches_on_gamma_boundaries(min_value):
     assert np.array_equal(got, want.astype(np.int64))
 
 
+@pytest.mark.parametrize("min_value,kind", [(1.0, "ns"), (1e-9, "seconds")])
+def test_bucket_index_sweep_matches_jax(min_value, kind):
+    """A dense sweep: every uint32 value below 2**20 and 2**20 random ones
+    (the bundle's value lane), or 2**21 random positive float32 bit
+    patterns (latencies in seconds)."""
+    st = r_dd.dd_init(alpha=0.01, n_buckets=2048, min_value=min_value)
+    rng = np.random.default_rng(41)
+    if kind == "ns":
+        vals = np.concatenate([np.arange(1 << 20, dtype=np.uint32),
+                               rng.integers(0, 2**32, 1 << 20, dtype=np.uint32)])
+    else:
+        vals = rng.integers(0, 0x7F800000, 1 << 21, dtype=np.uint32).view(np.float32)
+    want = np.asarray(jax.jit(lambda v: r_dd._bucket_index(st, v))(vals))
+    got = p_dd.bucket_index(torch.from_numpy(vals.view(np.int32) if kind == "ns" else vals),
+                            alpha=0.01, min_value=min_value, n_buckets=2048).numpy()
+    assert np.array_equal(got, want.astype(np.int64))
+
+
 def test_xla_logf_is_bit_identical_to_jax_log():
     rng = np.random.default_rng(23)
     x = np.concatenate([np.arange(1, 1 << 16, dtype=np.float32),
