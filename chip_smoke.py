@@ -3,17 +3,31 @@
 
     python3 chip_smoke.py [--seed S]
 
-Builds the port's CUDA kernels from ``inspektor_gadget_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card at the main
-path's shapes, then drives the main path: a seeded zipf stream (vocab
-5000, s 1.2) of 2**17-event batches through the pinned pool, the H2D
-stager and `bundle_ingest_step` at the production sketch geometry with
-every plane on (count-min 4 x 2**16, HLL p 14, entropy 2**12, top-k 128,
-invertible 3 x 2**12, DDSketch 2048 buckets). The same stream is also
-folded by the plain composition `bundle_update` on the card, whose
-entropy update is K1. Both bundles must equal, leaf by leaf, the same
-fold on the CPU, where no kernel runs. The launch counts are set to 0
-just before each of the two card runs and read just after it.
+Builds the port's CUDA kernels from ``inspektor_gadget_tpu_torch/csrc``
+(one nvcc per source, all started together), holds each against its
+plain PyTorch version on the card at the main paths' shapes, then drives
+the two main paths.
+
+The sketch-ingest path: a seeded zipf stream (vocab 5000, s 1.2) of
+2**17-event batches through the pinned pool, the H2D stager and
+`bundle_ingest_step` at the production sketch geometry with every plane
+on (count-min 4 x 2**16, HLL p 14, entropy 2**12, top-k 128, invertible
+3 x 2**12, DDSketch 2048 buckets) (K2). The same stream is also folded
+by the plain composition `bundle_update` on the card, whose entropy
+update is K1. Both bundles must equal, leaf by leaf, the same fold on
+the CPU, where no kernel runs.
+
+The anomaly plane: 8 harvest ticks (one optimizer step, then a score of
+every container) of each scorer family at the operator's widths on 128
+containers fed by a seeded zipf event stream: ae and vae on 4096-bucket
+count vectors (hidden 256, latent 64), seq (vocab 512, d_model 128, 4
+heads, 2 layers, window 256) on the operator's token matrix with
+``attn="flash"`` (K3). The seq scores must agree with the same ticks
+through ``attn="full"`` on the card and through the plain path on the
+CPU, from the same weights.
+
+The launch counts are set to 0 just before each card run of a path and
+read just after it.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails. The last line of standard output is
@@ -36,9 +50,16 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor, f32 CUDA cores
 SRC = "inspektor_gadget_tpu_torch/csrc/sketch_kernels.cu"
+K3_SRC = "inspektor_gadget_tpu_torch/csrc/flash_attention.cu"
+BF16_STEP = 2.0 ** -7  # one bf16 rounding step, relative
+CONTAINERS, SILENT = 128, 4  # containers a node runs; of them, ones with under 4 events
+TICKS = 8
+SEQ_WINDOW = 256
 SLEEP_CYCLES = 40_000_000  # ~20 ms at the H100's ~2 GHz SM clock
 
 
@@ -89,6 +110,101 @@ def require(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+def k3_bound(shape, dtype: torch.dtype, causal: bool) -> tuple[float, str]:
+    """K3's least time on the card (ms) and what sets it: q, k, v read
+    once and o written once over the memory rate, or the causal (or full)
+    attention's operations over the peak rate for the inputs' type."""
+    b, t, h, d = shape
+    nbytes = 4 * b * t * h * d * torch.empty((), dtype=dtype).element_size()
+    ops = 2 * b * h * d * t * (t + 1) if causal else 4 * b * h * d * t * t
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k3_inputs(shape, dtype: torch.dtype, gen: torch.Generator, dev: torch.device):
+    """q, k, v as the seq model hands them to K3: strided views of one
+    [B, T, 3, H, D] qkv tensor."""
+    b, t, h, d = shape
+    qkv = torch.randn(b, t, 3, h, d, generator=gen, device=dev).to(dtype)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+
+def k3_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """Max abs error of K3 against its plain version. Tolerance: 2e-4
+    (float32, as the JAX tests hold the reference); one bf16 rounding
+    step of the plain value (bfloat16: both round one f32 result once)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if want.dtype == torch.bfloat16:
+        ok = bool((err <= BF16_STEP * w.abs() + 1e-6).all())
+    else:
+        ok = bool((err <= 2e-4 + 2e-4 * w.abs()).all())
+    require(ok and got.shape == want.shape and got.dtype == want.dtype,
+            f"K3 {what}: max abs err {float(err.max())}")
+    return float(err.max())
+
+
+class ContainerStream:
+    """Per-container event data as the tpusketch operator accumulates it
+    (``inspektor_gadget_tpu/operators/tpusketch.py:1518-1538``): each
+    container's token window (seq, last `window` tokens) and its event
+    count vector over `dim` buckets (ae, vae). Events are a seeded zipf
+    key stream (s 1.2, 5000 ranks, offset per container) over CONTAINERS
+    containers of skewed activity; SILENT of them send one event in all,
+    so they stay under the 4 tokens a seq window needs."""
+
+    def __init__(self, seed: int, vocab: int, dim: int, window: int) -> None:
+        self.rng = np.random.default_rng(seed)
+        self.vocab, self.dim, self.window = vocab, dim, window
+        self.windows: dict[int, list[int]] = {}
+        self.counts: dict[int, np.ndarray] = {}
+        active = CONTAINERS - SILENT
+        p = 1.0 / np.arange(1, active + 1) ** 0.8
+        self.p = p / p.sum()
+        self.ticks = 0
+
+    def tick(self, events: int = CONTAINERS * 64):
+        """One harvest interval of events -> (seq token matrix, its ready
+        rows, ae/vae count matrix)."""
+        from inspektor_gadget_tpu_torch.models import seq_window_matrix, tokens_from_keys
+        ns = self.rng.choice(CONTAINERS - SILENT, events, p=self.p)
+        ranks = np.minimum(self.rng.zipf(1.2, events), 5000).astype(np.uint64)
+        if self.ticks == 0:
+            ns = np.concatenate([ns, np.arange(CONTAINERS - SILENT, CONTAINERS)])
+            ranks = np.concatenate([ranks, np.ones(SILENT, np.uint64)])
+        self.ticks += 1
+        keys = ranks + np.uint64(31) * ns.astype(np.uint64)
+        toks = tokens_from_keys(keys, self.vocab)
+        buckets = (keys % np.uint64(self.dim)).astype(np.int64)
+        for c in np.unique(ns):
+            sel = ns == c
+            seq = self.windows.setdefault(int(c), [])
+            seq.extend(int(t) for t in toks[sel])
+            if len(seq) > self.window:
+                del seq[:-self.window]
+            vec = self.counts.setdefault(int(c), np.zeros(self.dim, np.float32))
+            np.add.at(vec, buckets[sel], 1.0)
+        mat, n_ready = seq_window_matrix(self.windows.values(), self.window)
+        return mat, n_ready, np.stack(list(self.counts.values()))
+
+
+def run_ticks(scorer, batches, attn: str = "flash"):
+    """harvest_tick over `batches` -> (losses, per-tick scores as numpy,
+    per-tick seconds on the host clock, ending in a synchronize)."""
+    from inspektor_gadget_tpu_torch.models import harvest_tick
+    losses, scores, secs = [], [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        loss, sc = harvest_tick(scorer, batch, attn)
+        if scorer.device.type == "cuda":
+            torch.cuda.synchronize(scorer.device)
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        scores.append(sc.float().cpu().numpy())
+    return losses, scores, secs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -97,8 +213,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
 
+    from inspektor_gadget_tpu_torch import models as M
     from inspektor_gadget_tpu_torch.device import device_report
+    from inspektor_gadget_tpu_torch.native import build_all
     from inspektor_gadget_tpu_torch.ops import kernels as K
+    from inspektor_gadget_tpu_torch.parallel import flash_attention as FA
     from inspektor_gadget_tpu_torch.ops import sketches as S
     from inspektor_gadget_tpu_torch.ops.hashing import _row_multiplier, hashed_bucket
     from inspektor_gadget_tpu_torch.sources import H2DStager, PinnedBufferPool, ZipfFoldedSource
@@ -118,12 +237,14 @@ def main() -> int:
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    K.LIBRARY.get()
+    build_all([K.LIBRARY, FA.LIBRARY])
     build_s = time.perf_counter() - t0
-    log(f"[build] {K.LIBRARY.path.name} in {build_s:.1f} s (nvcc {K.LIBRARY.build_seconds:.1f} s)")
-    for line in K.LIBRARY.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    for lib in (K.LIBRARY, FA.LIBRARY):
+        log(f"[build] {lib.path.name} (nvcc {lib.build_seconds:.1f} s)")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {line.strip()}")
+    log(f"[build] both in {build_s:.1f} s")
     report["build_s"] = build_s
 
     src = ZipfFoldedSource(args.seed + 1)
@@ -136,7 +257,7 @@ def main() -> int:
     host[VALUES, : batch // 2] = np.clip(edge, 0, 2**32 - 1).astype(np.uint32)
     lanes = torch.from_numpy(host.view(np.int32)).to(dev)
     hh, distinct, dist, w, values = (lanes[j] for j in range(LANES))
-    errs = {"K1": 0, "K2": 0}
+    errs = {"K1": 0, "K2": 0, "K3": 0.0}
 
     # -- 3. K1 against its plain version --------------------------------------
     for lw in (12, 16):
@@ -195,10 +316,12 @@ def main() -> int:
     def reset_launches() -> None:
         K.histogram.launches = 0
         K.fused_planes.launches = 0
+        FA.flash_attention.launches = 0
 
     def read_launches() -> dict[str, int]:
         torch.cuda.synchronize()
-        return {"K1": K.histogram.launches, "K2": K.fused_planes.launches}
+        return {"K1": K.histogram.launches, "K2": K.fused_planes.launches,
+                "K3": FA.flash_attention.launches}
 
     # path 1, staged ingest: pool -> stager -> bundle_ingest_step (K2)
     reset_launches()
@@ -224,7 +347,7 @@ def main() -> int:
     e2e_ev_s = steps * batch / e2e_s
     log(f"[main] ingest: {total_steps} batches x {batch} events staged and ingested; "
         f"launches K2={ingest_launches['K2']} K1={ingest_launches['K1']}")
-    require(ingest_launches == {"K1": 0, "K2": total_steps},
+    require(ingest_launches == {"K1": 0, "K2": total_steps, "K3": 0},
             f"ingest launched {ingest_launches}, expected K2 once a step and no K1")
 
     def plain_fold(device, on_block=None):
@@ -246,7 +369,7 @@ def main() -> int:
     compose_launches = read_launches()
     log(f"[main] plain composition on the card: launches K1={compose_launches['K1']} "
         f"K2={compose_launches['K2']}")
-    require(compose_launches == {"K1": total_steps, "K2": 0},
+    require(compose_launches == {"K1": total_steps, "K2": 0, "K3": 0},
             f"bundle_update launched {compose_launches}, expected K1 once a step and no K2")
     launches = {"K1": compose_launches["K1"], "K2": ingest_launches["K2"]}
 
@@ -264,7 +387,8 @@ def main() -> int:
     t0 = time.perf_counter()
     reference = plain_fold(torch.device("cpu"), tally)
     log(f"[main] reference fold on the CPU in {time.perf_counter() - t0:.1f} s")
-    require(read_launches() == {"K1": 0, "K2": 0}, "the CPU reference launched a kernel")
+    require(read_launches() == {"K1": 0, "K2": 0, "K3": 0},
+            "the CPU reference launched a kernel")
     ref_leaves = S.bundle_to_numpy(reference)
     for name, b in (("ingested", bundle), ("composed", composed)):
         for i, (x, y) in enumerate(zip(S.bundle_to_numpy(b), ref_leaves)):
@@ -311,6 +435,98 @@ def main() -> int:
     log(f"[main] end-to-end {e2e_ev_s:.0f} events/s over {steps} batches "
         f"(pool hits {pool.hits}, misses {pool.misses}); device-only {device_ev_s:.0f} events/s")
 
+    # -- 6. K3 against its plain version ----------------------------------------
+    # the plain versions' float32 matmuls run in full f32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    op_shape = (CONTAINERS, SEQ_WINDOW - 1, 4, 32)  # the operator's window, scored as T=255
+    long_shape = (16, 4095, 4, 32)
+    k3_cases = [("operator window", op_shape, torch.bfloat16, True)]
+    k3_cases += [(f"test shape {sh}", sh, torch.float32, c) for sh, c in (  # tests/test_flash_attention.py
+        ((2, 256, 4, 32), True), ((1, 200, 2, 16), False), ((2, 128, 1, 128), True),
+        ((1, 384, 2, 64), True))]
+    k3_cases.append(("long window", long_shape, torch.bfloat16, True))
+    for name, shape, dtype, causal in k3_cases:
+        q, k, v = k3_inputs(shape, dtype, gen, dev)
+        got = FA.flash_attention(q, k, v, causal=causal)
+        want = FA.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = k3_err(got, want, name)
+        errs["K3"] = max(errs["K3"], err)
+        log(f"[K3] {name} {shape} {str(dtype)[6:]} causal={causal}: max abs err {err:.3g}")
+    gshape = (4, SEQ_WINDOW - 1, 4, 32)
+    q, k, v = (x.detach().requires_grad_() for x in k3_inputs(gshape, torch.float32, gen, dev))
+    g_out = torch.randn(gshape, generator=gen, device=dev)
+    grads = torch.autograd.grad(FA.flash_attention(q, k, v), (q, k, v), g_out)
+    plain_grads = torch.autograd.grad(FA.flash_attention_plain(q, k, v), (q, k, v), g_out)
+    grad_err = max(float((a - b).abs().max()) for a, b in zip(grads, plain_grads))
+    require(all(torch.allclose(a, b, rtol=2e-3, atol=2e-3) for a, b in zip(grads, plain_grads)),
+            f"K3 gradients vs autograd through the plain version: max abs err {grad_err}")
+    log(f"[K3] gradients {gshape} f32 vs autograd through the plain version: "
+        f"max abs err {grad_err:.3g} (tolerance 2e-3)")
+
+    # -- 7. the anomaly plane: harvest ticks of the three scorer families -------
+    stream = ContainerStream(args.seed + 3, vocab=512, dim=4096, window=SEQ_WINDOW)
+    data = [stream.tick() for _ in range(TICKS)]
+    seq_cfg = M.SeqConfig(vocab=512)  # the operator's at entropy-log2-width 12 (tpusketch.py:622)
+    families = {  # tpusketch.py:617, :625
+        "ae": lambda d: M.ae_init(M.AEConfig(input_dim=4096, hidden_dim=256, latent_dim=64),
+                                  seed=args.seed, device=d),
+        "vae": lambda d: M.vae_init(M.VAEConfig(input_dim=4096, hidden_dim=256, latent_dim=64),
+                                    seed=args.seed, device=d),
+        "seq": lambda d: M.seq_init(seq_cfg, seed=args.seed, device=d),
+    }
+    mat, n_ready, count_mat = data[-1]
+    log(f"[anomaly] {TICKS} ticks of {CONTAINERS * 64} events over {len(stream.counts)} "
+        f"containers: seq matrix {mat.shape} with {n_ready} ready rows, "
+        f"{int((mat[:n_ready] < 0).any(axis=1).sum())} of them short; counts {count_mat.shape}")
+    ticks: dict = {}
+    for fam, init in families.items():
+        batches = [d[0] for d in data] if fam == "seq" else [d[2] for d in data]
+        reset_launches()
+        losses, scores, secs = run_ticks(init(dev), batches, "flash")
+        launched = read_launches()
+        want_k3 = seq_cfg.n_layers * 2 * TICKS if fam == "seq" else 0  # train forward + score
+        require(launched == {"K1": 0, "K2": 0, "K3": want_k3},
+                f"{fam} ticks launched {launched}, expected K3 {want_k3} and no K1, K2")
+        for (m_i, r_i, c_i), sc in zip(data, scores):
+            rows = m_i.shape[0] if fam == "seq" else c_i.shape[0]
+            require(sc.shape == (rows,) and np.isfinite(sc).all(), f"{fam} scores {sc.shape}")
+            if fam == "seq":
+                require((sc[:r_i] > 0).all() and (sc[r_i:] == 0).all(),
+                        "seq: ready rows score > 0, filler rows 0")
+        cpu_losses, cpu_scores, cpu_secs = run_ticks(init("cpu"), batches, "flash")
+        vs_cpu = max(float(np.abs(a - b).max()) for a, b in zip(scores, cpu_scores))
+        rel_cpu = max(float((np.abs(a - b) / np.abs(b).clip(min=1e-6)).max())
+                      for a, b in zip(scores, cpu_scores))
+        entry = {"losses": losses, "cpu_losses": cpu_losses, "tick_s": secs,
+                 "cpu_tick_s": cpu_secs, "launches": launched, "max_abs_vs_cpu": vs_cpu,
+                 "max_rel_vs_cpu": rel_cpu, "first_scores": scores[0][:8].tolist(),
+                 "last_scores": scores[-1][:8].tolist()}
+        if fam == "seq":
+            # bf16 activations, 8 AdamW steps: 0.05 nats (0.8% of ln 512) per container
+            require(vs_cpu <= 0.05, f"seq scores, card vs CPU: max abs diff {vs_cpu}")
+            reset_launches()
+            _, full_scores, full_secs = run_ticks(init(dev), batches, "full")
+            require(read_launches()["K3"] == 0, "attn='full' launched K3")
+            vs_full = max(float(np.abs(a - b).max()) for a, b in zip(scores, full_scores))
+            require(vs_full <= 0.05, f"seq scores, flash vs full on the card: max abs diff {vs_full}")
+            entry.update(max_abs_vs_full=vs_full, full_tick_s=full_secs)
+            log(f"[anomaly] seq: flash vs full on the card max abs diff {vs_full:.3g}, "
+                f"card vs CPU {vs_cpu:.3g} (tolerance 0.05 nats)")
+        else:
+            # bf16 matmuls on two devices, 8 Adam steps: 5% of each score
+            require(rel_cpu <= 5e-2, f"{fam} scores, card vs CPU: max rel diff {rel_cpu}")
+            log(f"[anomaly] {fam}: card vs CPU max rel diff {rel_cpu:.3g} (tolerance 5e-2)")
+        entry["tick_ms_median"] = statistics.median(secs[1:]) * 1e3
+        log(f"[anomaly] {fam}: loss {losses[0]:.5g} -> {losses[-1]:.5g}; tick "
+            f"{secs[0] * 1e3:.2f} ms first, {entry['tick_ms_median']:.2f} ms median of the rest "
+            f"(CPU {statistics.median(cpu_secs[1:]) * 1e3:.1f} ms); launches {launched}")
+        ticks[fam] = entry
+    launches["K3"] = ticks["seq"]["launches"]["K3"]
+    report["anomaly_ticks"] = ticks
+
     # -- per-kernel times at the main path's shapes -----------------------------
     geom = bundle.geometry()
     ent_lw = prod["entropy_log2_width"]
@@ -345,6 +561,25 @@ def main() -> int:
     flat_idx, flat_val = torch.cat(flat_idx), torch.cat(flat_val)
     k2_lib = time_cuda(lambda: torch.zeros(geom.total, dtype=torch.int64, device=dev)
                        .scatter_add_(0, flat_idx, flat_val))
+    q, k, v = k3_inputs(op_shape, torch.bfloat16, gen, dev)
+    k3_ms = time_cuda(lambda: FA.flash_attention(q, k, v))
+    k3_plain = time_cuda(lambda: FA.flash_attention_plain(q, k, v), per_round=2, warm=2)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    k3_lib = time_cuda(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True))
+    k3_bound_ms, k3_bound_by = k3_bound(op_shape, torch.bfloat16, True)
+    q, k, v = k3_inputs(long_shape, torch.bfloat16, gen, dev)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    long_bound = k3_bound(long_shape, torch.bfloat16, True)
+    report["k3_long_window"] = {
+        "shape": long_shape, "ms": time_cuda(lambda: FA.flash_attention(q, k, v), per_round=2),
+        "plain_ms": time_cuda(lambda: FA.flash_attention_plain(q, k, v), rounds=5, per_round=1,
+                              warm=1),
+        "library_ms": time_cuda(lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                                        is_causal=True)),
+        "bound_ms": long_bound[0], "bound_by": long_bound[1]}
+    log(f"[time] K3 long window {long_shape}: " + ", ".join(
+        f"{key} {val:.4f}" if isinstance(val, float) else f"{key} {val}"
+        for key, val in report["k3_long_window"].items()))
     k1_bytes = batch * 4 * 2 + (1 << ent_lw) * 4
     k2_bytes = batch * 4 * 5 + geom.total * 4
     kernels = [
@@ -358,6 +593,11 @@ def main() -> int:
          "launches": launches["K2"], "max_abs_err": errs["K2"], "ms": k2_ms,
          "plain_ms": k2_plain, "bound_ms": k2_bytes / HBM_BYTES_PER_S * 1e3,
          "bound_by": "bytes", "library_ms": k2_lib},
+        {"name": "K3 flash attention (seq scorer, causal, operator window)", "route": "cuda",
+         "source": K3_SRC, "replaces": "inspektor_gadget_tpu/parallel/flash_attention.py:86",
+         "launches": launches["K3"], "max_abs_err": errs["K3"], "ms": k3_ms,
+         "plain_ms": k3_plain, "bound_ms": k3_bound_ms, "bound_by": k3_bound_by,
+         "library_ms": k3_lib},
     ]
     for kinfo in kernels:
         log(f"[time] {kinfo['name']}: {kinfo['ms']:.4f} ms, plain {kinfo['plain_ms']:.4f} ms, "

@@ -16,37 +16,25 @@ JAX package and ``chip_smoke.py`` holds the kernel against on the card.
 Each wrapper counts its launches in a plain integer attribute,
 ``histogram.launches`` and ``fused_planes.launches``.
 
-The library is built at first use with nvcc from the package's own
-sources into ``build/kernels/`` at the repository root (named by a hash
-of source and flags, so an edited source is rebuilt) and loaded with
-ctypes.
+The library is built at first use by ``native.CudaLibrary`` and loaded
+with ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 from dataclasses import dataclass
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..native import CudaLibrary, check, on_cpu, stream
 from .hashing import MASK32, _row_multiplier, bits32, hashed_bucket, row_salt, u32
 from .hll import hll_index_rank
 from .invertible import inv_lane_values, inv_row_hash
 from .quantiles import bucket_constants, bucket_index
 
-CSRC = Path(__file__).resolve().parents[1] / "csrc" / "sketch_kernels.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 TILE = 16384  # buckets per shared-memory tile; csrc kTileMax
 
 # plane kinds and key lanes, as csrc/sketch_kernels.cu numbers them
@@ -54,64 +42,16 @@ HIST, HLL, INV_COUNT, INV_KEYSUM, INV_FPSUM, QUANT = range(6)
 LANE_HH, LANE_DISTINCT, LANE_DIST, LANE_VALUES = range(4)
 
 
-# -- build and bind -----------------------------------------------------------
+# -- bind ----------------------------------------------------------------------
 
-class _Library:
-    """The built library, loaded once per process."""
-
-    def __init__(self) -> None:
-        self._mu = threading.Lock()
-        self._lib: ctypes.CDLL | None = None
-        self.path: Path | None = None
-        self.build_log = ""
-        self.build_seconds = 0.0
-
-    def build(self) -> Path:
-        """Compile csrc/sketch_kernels.cu with nvcc (once per source and
-        flag set) and return the library's path."""
-        src = CSRC.read_bytes()
-        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = BUILD_DIR / f"libsketch_kernels-{digest}.so"
-        if out.exists():
-            return out
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not os.path.exists(nvcc):
-            raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC)],
-                              capture_output=True, text=True)
-        self.build_seconds = time.perf_counter() - t0
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{self.build_log}")
-        os.replace(tmp, out)
-        return out
-
-    def get(self) -> ctypes.CDLL:
-        with self._mu:
-            if self._lib is None:
-                self.path = self.build()
-                lib = ctypes.CDLL(str(self.path))
-                vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-                lib.ig_fused_planes.argtypes = [vp, vp, vp, vp, vp, vp, i, i,
-                                                f, f, f, i, vp, i, vp]
-                lib.ig_fused_planes.restype = i
-                self._lib = lib
-            return self._lib
+def _bind(lib) -> None:
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ig_fused_planes.argtypes = [vp, vp, vp, vp, vp, vp, i, i, f, f, f, i, vp, i, vp]
+    lib.ig_fused_planes.restype = i
 
 
-LIBRARY = _Library()
-
-
-def _check(code: int, what: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"{what}: CUDA error {code}")
-
-
-def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+# -fmad=false: the DDSketch bucket must not be contracted (see the source)
+LIBRARY = CudaLibrary("sketch_kernels.cu", _bind, ("-fmad=false",))
 
 
 def _kernel_lane(x: torch.Tensor, n: int, dev: torch.device, name: str) -> torch.Tensor:
@@ -121,16 +61,6 @@ def _kernel_lane(x: torch.Tensor, n: int, dev: torch.device, name: str) -> torch
     if x.shape != (n,):
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected ({n},)")
     return bits32(x).contiguous()
-
-
-def _on_cpu(*xs: torch.Tensor) -> bool:
-    devs = {x.device.type for x in xs if x is not None}
-    if devs == {"cpu"}:
-        return True
-    if devs == {"cuda"}:
-        return False
-    raise ValueError(f"tensors on {sorted(devs)}: a kernel takes CUDA tensors, "
-                     "its plain version CPU tensors")
 
 
 # -- the one kernel entry: a table of (plane, bucket tile) jobs ---------------
@@ -172,10 +102,10 @@ def _launch_planes(planes: tuple[Plane, ...], lanes, w: torch.Tensor,
     jobs, max_tile = _job_table(planes, dev)
     lib = LIBRARY.get()
     with torch.cuda.device(dev):
-        _check(lib.ig_fused_planes(
+        check(lib.ig_fused_planes(
             *(x.data_ptr() for x in lanes), vals.data_ptr() if vals is not None else None,
             w.data_ptr(), jobs.data_ptr(), jobs.shape[0], max_tile, ilg, neg_off,
-            min_value, qt_buckets, out.data_ptr(), n, _stream(dev)), "ig_fused_planes")
+            min_value, qt_buckets, out.data_ptr(), n, stream(dev)), "ig_fused_planes")
     return out
 
 
@@ -196,7 +126,7 @@ def histogram(keys: torch.Tensor, weights: torch.Tensor, *, log2_width: int,
     """K1: (n,) uint32 keys + (n,) int32 weights -> (2**log2_width,) int32
     histogram. CUDA tensors launch the kernel, CPU tensors take
     `histogram_plain`."""
-    if _on_cpu(keys, weights):
+    if on_cpu(keys, weights):
         return histogram_plain(keys, weights, log2_width=log2_width, mult=mult, salt=salt)
     dev = keys.device
     n = keys.shape[0]
@@ -289,7 +219,7 @@ def fused_planes(hh: torch.Tensor, distinct: torch.Tensor, dist: torch.Tensor,
     `fused_planes_plain`."""
     if geom.qt_buckets and (values is None or values.is_floating_point()):
         raise ValueError("the quantile plane needs the uint32 value lane")
-    if _on_cpu(hh, distinct, dist, weights, values if geom.qt_buckets else None):
+    if on_cpu(hh, distinct, dist, weights, values if geom.qt_buckets else None):
         return fused_planes_plain(hh, distinct, dist, weights, values, geom)
     dev = hh.device
     n = hh.shape[0]

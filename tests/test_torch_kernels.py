@@ -18,7 +18,9 @@ import torch
 
 from inspektor_gadget_tpu.ops.pallas_kernels import fused_sketch_planes as ref_fused
 from inspektor_gadget_tpu.ops.pallas_kernels import xla_histogram
+from inspektor_gadget_tpu_torch import native
 from inspektor_gadget_tpu_torch.ops import kernels as K
+from inspektor_gadget_tpu_torch.parallel import flash_attention as FA
 from inspektor_gadget_tpu_torch.ops.hashing import _row_multiplier
 
 
@@ -144,3 +146,32 @@ def test_wrappers_refuse_mixed_devices_and_missing_values():
     meta = torch.zeros(16, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         K.histogram(meta, x, log2_width=6)
+
+
+LIBRARIES = {"sketch_kernels.cu": K.LIBRARY, "flash_attention.cu": FA.LIBRARY}
+
+
+def test_every_cuda_source_has_its_own_library():
+    sources = sorted(p.name for p in native.CSRC_DIR.glob("*.cu"))
+    assert sources == sorted(LIBRARIES)
+    assert all(lib.source.name == name for name, lib in LIBRARIES.items())
+    paths = {lib.library_path() for lib in LIBRARIES.values()}
+    assert len(paths) == len(LIBRARIES)
+
+
+@pytest.mark.parametrize("name", sorted(LIBRARIES))
+def test_library_path_follows_the_source_hash(name, tmp_path, monkeypatch):
+    """A library is named by its source's and flags' hash: an edited
+    source gets a new library, built anew at first use."""
+    lib = LIBRARIES[name]
+    path = lib.library_path()
+    assert path.parent == native.BUILD_DIR and path.name.startswith(f"lib{lib.source.stem}-")
+    copy = tmp_path / name
+    copy.write_bytes(lib.source.read_bytes())
+    monkeypatch.setattr(lib, "source", copy)
+    assert lib.library_path() == path
+    copy.write_bytes(copy.read_bytes() + b"\n// edited\n")
+    edited = lib.library_path()
+    assert edited != path
+    monkeypatch.setattr(lib, "flags", lib.flags + ("-lineinfo",))
+    assert lib.library_path() not in (path, edited)
