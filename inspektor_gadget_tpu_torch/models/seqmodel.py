@@ -16,6 +16,7 @@ steps the scorer's own AdamW and returns the same scorer.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -43,8 +44,6 @@ class SeqConfig:
     lr: float = 1e-3
     dtype: torch.dtype = torch.bfloat16
     n_experts: int = 0        # MoE feed-forward: not ported (raises)
-    capacity_factor: float = 2.0
-    balance_coef: float = 0.01
 
 
 class SeqLayer(nn.Module):
@@ -102,12 +101,17 @@ def _ln(x: torch.Tensor, p: Norm) -> torch.Tensor:
     return ((x32 - mu) * torch.rsqrt(var + 1e-6) * p.g + p.b).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _frequencies(half: int, device: torch.device) -> torch.Tensor:
+    """The encoding's f32 frequencies, computed once on the CPU (the same
+    values on every device) and kept on `device`."""
+    step = torch.tensor(math.log(10000.0), dtype=torch.float32) / max(half - 1, 1)
+    return torch.exp(-torch.arange(half, dtype=torch.float32) * step).to(device)
+
+
 def _sincos_positions(pos: torch.Tensor, d: int) -> torch.Tensor:
     """Sinusoidal encoding, f32, in the reference's order of operations."""
-    half = d // 2
-    step = torch.tensor(math.log(10000.0), dtype=torch.float32) / max(half - 1, 1)
-    freqs = torch.exp(-torch.arange(half, dtype=torch.float32) * step).to(pos.device)
-    ang = pos[:, None].float() * freqs[None, :]
+    ang = pos[:, None].float() * _frequencies(d // 2, pos.device)[None, :]
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 

@@ -43,21 +43,23 @@ def seq_window_matrix(windows: Iterable[Sequence[int]], window: int) -> tuple[np
     return mat, len(ready)
 
 
-def harvest_tick(scorer: Scorer, batch, attn: str = "flash") -> tuple[torch.Tensor, torch.Tensor]:
+def harvest_tick(scorer: Scorer, batch, attn: str = "flash",
+                 eps: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """One tick: one optimizer step on `batch`, then every row's score.
     Returns (the loss before the step, the scores).
 
     `batch` is, for ae and vae, the (containers, input_dim) event-count
     matrix (normalised here, as the operator does) and, for seq, the
     token matrix of `seq_window_matrix`, whose attention goes through
-    `attn` (``flash``: K3 on the card)."""
+    `attn` (``flash``: K3 on the card). `eps` is the VAE's step noise
+    (default: the next draw of its generator)."""
     batch = torch.as_tensor(batch, device=scorer.device)
     if isinstance(scorer, SeqScorer):
         scorer, loss = seq_train_step(scorer, batch, attn)
         return loss, seq_score(scorer, batch, attn)
     x = normalize_counts(batch)
     if isinstance(scorer, VAEScorer):
-        scorer, loss = vae_train_step(scorer, x)
+        scorer, loss = vae_train_step(scorer, x, eps)
         return loss, vae_score(scorer, x)
     scorer, loss = ae_train_step(scorer, x)
     return loss, ae_score(scorer, x)

@@ -3,10 +3,10 @@
 
 Score = negative ELBO (reconstruction error + KL to the unit Gaussian).
 Same interface as the AE scorer. The reparameterisation noise comes from
-the scorer's own CPU ``torch.Generator`` (the one that drew the weights,
-so a seed fixes both) and is moved to the scorer's device, which gives
-the same noise on every device. `vae_elbo_terms`, `vae_loss` and
-`vae_train_step` also take the noise as a tensor.
+the scorer's own ``torch.Generator`` on the scorer's device, seeded from
+the weights' generator (so a seed fixes both), and is drawn where it is
+used; the card's and the CPU's draws differ. `vae_elbo_terms`,
+`vae_loss` and `vae_train_step` also take the noise as a tensor.
 """
 
 from __future__ import annotations
@@ -59,10 +59,13 @@ class VAEScorer:
 
 def vae_init(cfg: VAEConfig = VAEConfig(), seed: int = 0,
              device: str | torch.device = "cuda") -> VAEScorer:
+    dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
-    model = VAEModel(cfg, gen).to(resolve_device(device))
+    model = VAEModel(cfg, gen).to(dev)
+    noise = torch.Generator(device=dev)
+    noise.manual_seed(int(torch.randint(2**62, (), generator=gen)))
     opt = torch.optim.Adam(model.parameters(), lr=cfg.learning_rate)
-    return VAEScorer(model=model, opt=opt, gen=gen, steps=0, config=cfg)
+    return VAEScorer(model=model, opt=opt, gen=noise, steps=0, config=cfg)
 
 
 def vae_encode(model: VAEModel, x: torch.Tensor, cfg: VAEConfig):
@@ -107,7 +110,8 @@ def vae_train_step(scorer: VAEScorer, x: torch.Tensor,
     or, by default, the next draw of the scorer's generator; returns the
     scorer, stepped in place, and the loss before it."""
     if eps is None:
-        eps = torch.randn(x.shape[0], scorer.config.latent_dim, generator=scorer.gen)
+        eps = torch.randn(x.shape[0], scorer.config.latent_dim, generator=scorer.gen,
+                          device=scorer.device)
     scorer.opt.zero_grad(set_to_none=True)
     loss = vae_loss(scorer.model, x, eps.to(x.device), scorer.config)
     loss.backward()

@@ -26,7 +26,7 @@ import ctypes
 import torch
 
 from ..native import CudaLibrary, check, on_cpu, stream
-from .ring_attention import _NEG, _block_update, _finish
+from .ring_attention import full_attention, streaming_attention
 
 BLOCK = 128  # the reference's block; the plain version's key block
 CHUNK = 128  # query rows per backward recompute (the reference's chunk)
@@ -50,18 +50,7 @@ def flash_attention_plain(q, k, v, causal: bool = True, block: int = BLOCK,
     and scaled, then a streaming softmax over key blocks of `block`."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    t = q.shape[1]
-    qs = q.transpose(1, 2).float() * scale  # [B,H,T,D]
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    pos = torch.arange(t, device=q.device)
-    o = torch.zeros(qs.shape, dtype=torch.float32, device=q.device)
-    m = torch.full(qs.shape[:3], _NEG, dtype=torch.float32, device=q.device)
-    l = torch.zeros(qs.shape[:3], dtype=torch.float32, device=q.device)
-    for c0 in range(0, t, block):
-        sl = slice(c0, c0 + block)
-        o, m, l = _block_update(qs, kt[:, :, sl], vt[:, :, sl], o, m, l, pos, pos[sl],
-                                causal, 1.0)
-    return _finish(o, l, q.dtype).transpose(1, 2)
+    return streaming_attention(q.float() * scale, k, v, causal, block, 1.0, q.dtype)
 
 
 def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
@@ -92,18 +81,6 @@ def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     return out
 
 
-def _recompute_chunk(qc, k, v, c0: int, causal: bool, scale: float) -> torch.Tensor:
-    """The reference's ``_recompute_ref`` body for query rows c0.. of
-    `qc`: scores scaled after the dot, the softmax, then p·v, in f32."""
-    s = torch.einsum("bqhd,bkhd->bhqk", qc.float(), k.float()) * scale
-    if causal:
-        pos_q = c0 + torch.arange(qc.shape[1], device=qc.device)
-        pos_k = torch.arange(k.shape[1], device=qc.device)
-        s = torch.where(pos_q[:, None] >= pos_k[None, :], s, _NEG)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(qc.dtype)
-
-
 class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, block: int, scale: float):
@@ -128,7 +105,8 @@ class _Flash(torch.autograd.Function):
                 qc = q[:, c0:c1].detach().requires_grad_()
                 kc = k[:, :n_k].detach().requires_grad_()
                 vc = v[:, :n_k].detach().requires_grad_()
-                out = _recompute_chunk(qc, kc, vc, c0, ctx.causal, ctx.scale)
+                # the reference's _recompute_ref: scores scaled after the dot
+                out = full_attention(qc, kc, vc, ctx.causal, ctx.scale, q_offset=c0)
                 gq, gk, gv = torch.autograd.grad(out, (qc, kc, vc), g[:, c0:c1])
                 dq[:, c0:c1] = gq
                 dk[:, :n_k] += gk

@@ -8,7 +8,8 @@ with ``preferred_element_type=float32``.
 
 - `full_attention`: materialised [T, T] scores.
 - `blockwise_attention`: streaming softmax over KV chunks,
-  O(T·chunk) memory.
+  O(T·chunk) memory (`streaming_attention`, which K3's plain version
+  shares).
 
 ``ring_attention`` and ``ulysses_attention`` shard the sequence over a
 mesh axis; they wait for the port of the training-side parallelism
@@ -40,31 +41,42 @@ def _finish(o, l, dtype):
     return (o / torch.clamp(l, min=1e-30)[..., None]).to(dtype)
 
 
-def full_attention(q, k, v, causal: bool = True, scale: float | None = None):
-    """Materialised-scores reference. Layout [B, T, H, D]."""
+def full_attention(q, k, v, causal: bool = True, scale: float | None = None,
+                   q_offset: int = 0):
+    """Materialised-scores reference. Layout [B, T, H, D]; q may be the
+    rows from `q_offset` on of a longer sequence (causal masking counts
+    positions from there), and k, v any prefix of its keys."""
     scale = scale or q.shape[-1] ** -0.5
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
-        t = q.shape[1]
-        s = torch.where(torch.ones(t, t, dtype=torch.bool, device=q.device).tril(), s, _NEG)
+        pos_q = q_offset + torch.arange(q.shape[1], device=q.device)
+        pos_k = torch.arange(k.shape[1], device=q.device)
+        s = torch.where(pos_q[:, None] >= pos_k[None, :], s, _NEG)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def streaming_attention(q, k, v, causal: bool, chunk: int, scale: float, dtype):
+    """Streaming softmax over KV chunks of `chunk` keys, the last one
+    possibly short. Layout [B, T, H, D]; the output is cast to `dtype`."""
+    b, t, h, d = q.shape
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # [B,H,T,D]
+    pos = torch.arange(t, device=q.device)
+    o = torch.zeros(b, h, t, d, dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, t), _NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros(b, h, t, dtype=torch.float32, device=q.device)
+    for c0 in range(0, t, chunk):
+        sl = slice(c0, c0 + chunk)
+        o, m, l = _block_update(qt, kt[:, :, sl], vt[:, :, sl], o, m, l, pos, pos[sl],
+                                causal, scale)
+    return _finish(o, l, dtype).transpose(1, 2)
 
 
 def blockwise_attention(q, k, v, causal: bool = True, chunk: int = 128,
                         scale: float | None = None):
     """Streaming softmax over KV chunks of `chunk` keys. Layout
     [B, T, H, D]; T must be divisible by `chunk`, as in the reference."""
-    b, t, h, d = q.shape
+    t = q.shape[1]
     if t % chunk:
         raise ValueError(f"T={t} is not divisible by chunk={chunk}")
-    scale = scale or d ** -0.5
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # [B,H,T,D]
-    pos_q = torch.arange(t, device=q.device)
-    o = torch.zeros(b, h, t, d, dtype=torch.float32, device=q.device)
-    m = torch.full((b, h, t), _NEG, dtype=torch.float32, device=q.device)
-    l = torch.zeros(b, h, t, dtype=torch.float32, device=q.device)
-    for c0 in range(0, t, chunk):
-        o, m, l = _block_update(qt, kt[:, :, c0:c0 + chunk], vt[:, :, c0:c0 + chunk],
-                                o, m, l, pos_q, pos_q[c0:c0 + chunk], causal, scale)
-    return _finish(o, l, q.dtype).transpose(1, 2)
+    return streaming_attention(q, k, v, causal, chunk, scale or q.shape[-1] ** -0.5, q.dtype)
