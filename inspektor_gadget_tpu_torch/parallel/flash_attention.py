@@ -6,10 +6,16 @@ Layout [B, T, H, D], as in the reference. For CUDA tensors it launches
 ``ig_flash_attention`` (``csrc/flash_attention.cu``, which also says what
 bounds it and how it is built) and counts the launch in
 ``flash_attention.launches``; for CPU tensors it computes
-`flash_attention_plain`. Any T; on the card D is 16, 32, 64 or 128, in
-float32 or bfloat16. The kernel reads q, k and v through their strides
-(the seq model's are views of one qkv tensor), so nothing is copied; the
-last dim must have unit stride.
+`flash_attention_plain`. Any T; on the card D is 16, 32, 64 or 128.
+bfloat16 inputs go to the tensor-core kernel, float32 inputs to the
+CUDA-core one. The kernels read q, k and v through their strides (the
+seq model's are views of one qkv tensor), so nothing is copied; the last
+dim must have unit stride, and for bfloat16 every row must start on 16
+bytes (`check_kernel_inputs`): the wrapper raises, it never copies.
+
+The bfloat16 kernel rounds the softmax weights P to bfloat16 before
+P·V, where the reference keeps them in f32; `k3_tolerance` states how
+far that may move its output.
 
 Differentiable, as the reference's ``custom_vjp``: the forward is the
 kernel (or the plain version), the backward is the reference's
@@ -32,6 +38,8 @@ BLOCK = 128  # the reference's block; the plain version's key block
 CHUNK = 128  # query rows per backward recompute (the reference's chunk)
 KERNEL_D = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BF16_STEP = 2.0 ** -7  # one bfloat16 rounding step, relative
+P_ROUND = 2.0 ** -8  # bfloat16 rounding to nearest, relative: the unit roundoff
 
 
 def _bind(lib) -> None:
@@ -53,20 +61,63 @@ def flash_attention_plain(q, k, v, causal: bool = True, block: int = BLOCK,
     return streaming_attention(q.float() * scale, k, v, causal, block, 1.0, q.dtype)
 
 
+def k3_tolerance(want: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+    """How far K3's bfloat16 output may lie from `want`, its plain
+    version's, elementwise: for output (b, i, h, d)
+
+        2^-7·|want| + 2^-8·max_{j seen by row i} max_d |v[b, j, h, d]| + 1e-6
+
+    - 2^-7·|want|: one bfloat16 rounding step of the output; the two
+      sides round different f32 values, which may straddle a step.
+    - 2^-8·max|v|: the tensor cores take P·V with P rounded to bfloat16
+      (the denominator sums the f32 weights). Rounding to nearest moves a
+      weight in (0, 1] by at most 2^-8 of itself (8 significant bits), so
+      the weighted mean of v moves by at most 2^-8·max|v| over the keys
+      the row sees (all keys, or keys j <= i when causal).
+    - 1e-6: bf16 products are exact in f32; the f32 sum order, the scale
+      applied after the product and exp2 for exp move the rest by ~1e-7
+      relative."""
+    vmax = v.float().abs().amax(dim=-1, keepdim=True)  # [B, T, H, 1]
+    vmax = vmax.cummax(dim=1).values if causal else vmax.amax(dim=1, keepdim=True)
+    return BF16_STEP * want.float().abs() + P_ROUND * vmax + 1e-6
+
+
+def check_kernel_inputs(metas) -> None:
+    """Raise ValueError for q, k, v that K3 does not take. `metas` holds
+    (shape, strides, data pointer, dtype, device) of q, k and v, so the
+    checks need no tensor on the card. Every input: one [B, T, H, D]
+    shape, one type (float32 or bfloat16), one device, D in `KERNEL_D`,
+    unit stride over D. bfloat16 (the tensor-core kernel's cp.async
+    copies 16-byte row chunks): every data pointer 16-byte aligned and
+    every batch, time and head stride of a dim longer than 1 a multiple
+    of 8 elements. Nothing is copied to make an input fit."""
+    (shape, _, _, dtype, device), *rest = metas
+    if any(tuple(m[0]) != tuple(shape) for m in rest) or len(shape) != 4:
+        raise ValueError(f"q, k, v shapes differ or are not [B, T, H, D]: "
+                         f"{[tuple(m[0]) for m in metas]}")
+    if any(m[3] != dtype for m in rest) or dtype not in _DTYPES:
+        raise ValueError(f"K3 takes float32 or bfloat16 q, k, v of one type, "
+                         f"got {[m[3] for m in metas]}")
+    if shape[-1] not in KERNEL_D:
+        raise ValueError(f"K3 takes head dims {KERNEL_D}, got {shape[-1]}")
+    if any(m[4] != device for m in rest):
+        raise ValueError(f"q, k, v on {[m[4] for m in metas]}")
+    if any(m[1][-1] != 1 for m in metas):
+        raise ValueError("K3 needs unit stride over the head dim")
+    if dtype == torch.bfloat16:
+        for name, (_, strides, ptr, _, _) in zip("qkv", metas):
+            if ptr % 16 or any(n > 1 and st % 8 for n, st in zip(shape[:3], strides[:3])):
+                raise ValueError(
+                    f"K3 bfloat16 needs 16-byte aligned rows: {name} at {ptr:#x} with "
+                    f"strides {tuple(strides)} (pointer % 16 == 0, batch, time and head "
+                    f"strides multiples of 8)")
+
+
 def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     """K3 on the card: a contiguous [B, T, H, D] output in q's type."""
+    check_kernel_inputs([(x.shape, x.stride(), x.data_ptr(), x.dtype, x.device)
+                         for x in (q, k, v)])
     b, t, h, d = q.shape
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v shapes differ: {q.shape}, {k.shape}, {v.shape}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
-        raise ValueError(f"K3 takes float32 or bfloat16 q, k, v of one type, "
-                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in KERNEL_D:
-        raise ValueError(f"K3 takes head dims {KERNEL_D}, got {d}")
-    if q.device != k.device or q.device != v.device:
-        raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
-    if any(x.stride(-1) != 1 for x in (q, k, v)):
-        raise ValueError("K3 needs unit stride over the head dim")
     dev = q.device
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=dev)
     if b * t * h == 0:

@@ -9,9 +9,16 @@ there. Tolerances: float32 outputs within 2e-4 and gradients within
 2e-3, as the JAX tests hold the reference; bfloat16 outputs within one
 bfloat16 rounding step (2^-7 relative), since both sides compute in
 float32 and round once.
+
+The bfloat16 kernel runs on the tensor cores and rounds the softmax
+weights to bfloat16 before P·V. Its bound, `FA.k3_tolerance`, is held
+here against an emulation of the kernel's numerics in torch on the CPU
+(`_k3_bf16_emulation`), and shown to catch a faulty emulation.
 """
 
 from __future__ import annotations
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -162,3 +169,96 @@ def test_flash_refuses_mixed_devices_and_kernel_shapes():
     with pytest.raises(ValueError):
         FA._launch(*[torch.zeros(1, 8, 1, 16, dtype=torch.float16, device="meta")] * 3,
                    True, 1.0)
+
+
+def _k3_bf16_emulation(q, k, v, causal: bool, shift: int = 0, rescale: bool = True):
+    """The bfloat16 kernel's numerics in torch: bf16 Q·K^T into f32, the
+    scale (folded with log2 e, for exp2) applied after the product, 64-key
+    tiles, the running max and denominator in f32 rescaled once a tile,
+    P rounded to bf16 before P·V. `shift` moves the causal mask by that
+    many keys and `rescale=False` drops the rescale: two faults the
+    tolerance must catch."""
+    b, t, h, d = q.shape
+    c = d ** -0.5 * math.log2(math.e)
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))  # [B, H, T, D], exact
+    m = torch.full((b, h, t), -1e30)
+    l = torch.zeros(b, h, t)
+    o = torch.zeros(b, h, t, d)
+    rows = torch.arange(t)[:, None]
+    for k0 in range(0, t, 64):
+        s = (qf @ kf[:, :, k0:k0 + 64].transpose(-1, -2)) * c
+        if causal:
+            s = torch.where(torch.arange(k0, min(k0 + 64, t)) <= rows + shift, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp2(m - m_new) if rescale else torch.ones_like(m)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * corr + p.sum(dim=-1)
+        o = o * corr[..., None] + p.bfloat16().float() @ vf[:, :, k0:k0 + 64]
+        m = m_new
+    return (o / l.clamp(min=1e-30)[..., None]).to(torch.bfloat16).transpose(1, 2)
+
+
+def _bf16_qkv(shape, seed):
+    return _torch(_qkv(shape, seed), torch.bfloat16)
+
+
+def _within_k3_tolerance(got, want, v, causal) -> bool:
+    return bool(((got.float() - want.float()).abs() <= FA.k3_tolerance(want, v, causal)).all())
+
+
+@pytest.mark.parametrize("shape,causal", [((2, 255, 4, 32), True), ((1, 200, 2, 16), False),
+                                          ((1, 384, 2, 64), True)])
+def test_k3_bf16_emulation_within_tolerance(shape, causal):
+    q, k, v = _bf16_qkv(shape, 10)
+    want = FA.flash_attention_plain(q, k, v, causal=causal)
+    got = _k3_bf16_emulation(q, k, v, causal)
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _within_k3_tolerance(got, want, v, causal)
+
+
+@pytest.mark.parametrize("shape,causal,fault", [
+    ((2, 255, 4, 32), True, "mask shifted"),
+    ((2, 255, 4, 32), True, "no rescale"),
+    ((1, 200, 2, 16), False, "no rescale"),
+    ((1, 384, 2, 64), True, "mask shifted"),
+    ((1, 384, 2, 64), True, "no rescale"),
+])
+def test_k3_tolerance_catches_a_fault(shape, causal, fault):
+    """The tolerance is no blanket: a causal mask one key too wide, or a
+    softmax that never rescales its running sums, falls outside it."""
+    q, k, v = _bf16_qkv(shape, 10)
+    want = FA.flash_attention_plain(q, k, v, causal=causal)
+    got = _k3_bf16_emulation(q, k, v, causal, shift=int(fault == "mask shifted"),
+                             rescale=fault != "no rescale")
+    assert not _within_k3_tolerance(got, want, v, causal)
+
+
+def _metas(*xs):
+    return [(x.shape, x.stride(), x.data_ptr(), x.dtype, x.device) for x in xs]
+
+
+@pytest.mark.parametrize("d", FA.KERNEL_D)
+def test_flash_accepts_the_seq_models_qkv_views(d):
+    """The seq model hands K3 views of one [B, T, 3, H, D] qkv tensor
+    (models/seqmodel.py seq_apply): their rows start on 16 bytes."""
+    qkv = torch.zeros(2, 255, 3, 4, d, dtype=torch.bfloat16)
+    FA.check_kernel_inputs(_metas(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]))
+
+
+@pytest.mark.parametrize("case", ["time stride 20", "pointer off 16 bytes", "float32 any rows"])
+def test_flash_bf16_refuses_rows_off_16_bytes(case):
+    """The bfloat16 kernel copies rows by 16-byte cp.async: a time stride
+    that is not a multiple of 8 elements, or a data pointer off 16 bytes,
+    is refused (never copied); the float32 kernel reads any row."""
+    if case == "time stride 20":
+        x = torch.zeros(1, 8, 1, 20, dtype=torch.bfloat16)[..., :16]
+    elif case == "pointer off 16 bytes":
+        x = torch.zeros(1, 8, 1, 24, dtype=torch.bfloat16)[..., 4:20]
+    else:
+        x = torch.zeros(1, 8, 1, 20)[..., 2:18]
+    assert x.stride(-1) == 1
+    if x.dtype == torch.float32:
+        FA.check_kernel_inputs(_metas(x, x, x))
+        return
+    with pytest.raises(ValueError, match="16-byte"):
+        FA.check_kernel_inputs(_metas(x, x, x))
