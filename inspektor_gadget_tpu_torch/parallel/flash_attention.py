@@ -39,7 +39,7 @@ CHUNK = 128  # query rows per backward recompute (the reference's chunk)
 KERNEL_D = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BF16_STEP = 2.0 ** -7  # one bfloat16 rounding step, relative
-P_ROUND = 2.0 ** -8  # bfloat16 rounding to nearest, relative: the unit roundoff
+P_ROUND = 2.0 ** -9  # the weights P rounded to bfloat16, relative to max|v|
 
 
 def _bind(lib) -> None:
@@ -65,15 +65,20 @@ def k3_tolerance(want: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Ten
     """How far K3's bfloat16 output may lie from `want`, its plain
     version's, elementwise: for output (b, i, h, d)
 
-        2^-7·|want| + 2^-8·max_{j seen by row i} max_d |v[b, j, h, d]| + 1e-6
+        2^-7·|want| + 2^-9·max_{j seen by row i} max_d |v[b, j, h, d]| + 1e-6
 
     - 2^-7·|want|: one bfloat16 rounding step of the output; the two
       sides round different f32 values, which may straddle a step.
-    - 2^-8·max|v|: the tensor cores take P·V with P rounded to bfloat16
+    - 2^-9·max|v|: the tensor cores take P·V with P rounded to bfloat16
       (the denominator sums the f32 weights). Rounding to nearest moves a
-      weight in (0, 1] by at most 2^-8 of itself (8 significant bits), so
-      the weighted mean of v moves by at most 2^-8·max|v| over the keys
-      the row sees (all keys, or keys j <= i when causal).
+      weight by at most 2^-8 of itself (8 significant bits), so the
+      weighted mean of v moves by at most 2^-8·sum(p·|v|)/sum(p). Where
+      v has one sign that is 2^-8·|want|; where its signs cancel (|want|
+      near 0) each sign holds at most half the weight, and the move
+      reaches 2^-8·max|v| only if every weight rounds toward the sign of
+      its v. The weights round independently, so the bound takes half
+      that worst case. max|v| is over the keys the row sees: all keys,
+      or keys j <= i when causal.
     - 1e-6: bf16 products are exact in f32; the f32 sum order, the scale
       applied after the product and exp2 for exp move the rest by ~1e-7
       relative."""

@@ -233,6 +233,21 @@ def test_k3_tolerance_catches_a_fault(shape, causal, fault):
     assert not _within_k3_tolerance(got, want, v, causal)
 
 
+@pytest.mark.parametrize("causal,row_vmax", [(True, [2.0, 2.0, 8.0]), (False, [8.0, 8.0, 8.0])])
+def test_k3_tolerance_takes_max_v_over_the_keys_a_row_sees(causal, row_vmax):
+    """2^-7·|want| + 2^-9·max|v| + 1e-6, max|v| over every dim of the keys
+    row i sees: keys j <= i when causal, all keys otherwise."""
+    v = torch.zeros(1, 3, 1, 2)
+    v[0, 0, 0] = torch.tensor([1.0, -2.0])
+    v[0, 1, 0] = torch.tensor([0.5, 0.25])
+    v[0, 2, 0] = torch.tensor([0.0, 8.0])
+    want = torch.tensor([1.0, -4.0, 0.0]).reshape(1, 3, 1, 1).expand(1, 3, 1, 2)
+    tol = FA.k3_tolerance(want.bfloat16(), v.bfloat16(), causal)
+    expect = 2.0 ** -7 * want.abs() + 2.0 ** -9 * torch.tensor(row_vmax).reshape(1, 3, 1, 1) + 1e-6
+    assert tol.shape == want.shape
+    torch.testing.assert_close(tol, expect, rtol=0, atol=0)
+
+
 def _metas(*xs):
     return [(x.shape, x.stride(), x.data_ptr(), x.dtype, x.device) for x in xs]
 
