@@ -6,7 +6,13 @@
 Builds the port's CUDA kernels from ``inspektor_gadget_tpu_torch/csrc``
 (one nvcc per source, all started together), holds each against its
 plain PyTorch version on the card at the main paths' shapes, then drives
-the two main paths.
+the two main paths. K1 and K2 are also held, with torch.equal, on
+stress inputs: one hot key in every row, weights near 2**31 that wrap,
+n = 100003 and n = 33 with lanes that are rows of one (5, n) tensor (so
+rows 1-4 start off 16 bytes), count-min rows of 2**18 and 2**20, HLL p
+16; their launch plans (blocks, cluster size, shared memory a block,
+cudaOccupancyMaxActiveClusters) and ptxas' registers and spills are
+logged.
 
 The sketch-ingest path: a seeded zipf stream (vocab 5000, s 1.2) of
 2**17-event batches through the pinned pool, the H2D stager and
@@ -61,35 +67,10 @@ K3_SRC = "inspektor_gadget_tpu_torch/csrc/flash_attention.cu"
 CONTAINERS, SILENT = 128, 4  # containers a node runs; of them, ones with under 4 events
 TICKS = 8
 SEQ_WINDOW = 256
-SLEEP_CYCLES = 40_000_000  # ~20 ms at the H100's ~2 GHz SM clock
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def time_cuda(fn, rounds: int = 21, per_round: int = 10, warm: int = 3) -> float:
-    """Device milliseconds per call of `fn`: the median over `rounds` of
-    CUDA-event time across `per_round` back-to-back calls, divided by
-    `per_round`. Each round first parks the stream in a 20 ms device
-    sleep, so the host has queued every call before the first starts and
-    the events time the device's work, not the host's launch pace (a
-    call whose host side is slower than its device side is timed at the
-    host's pace all the same)."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
-        a.record()
-        for _ in range(per_round):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / per_round)
-    return statistics.median(times)
 
 
 def fill_block(src, block: np.ndarray, i: int) -> None:
@@ -233,7 +214,7 @@ def main() -> int:
         return 2
 
     from inspektor_gadget_tpu_torch import models as M
-    from inspektor_gadget_tpu_torch.device import device_report
+    from inspektor_gadget_tpu_torch.device import device_report, time_cuda
     from inspektor_gadget_tpu_torch.native import build_all
     from inspektor_gadget_tpu_torch.ops import kernels as K
     from inspektor_gadget_tpu_torch.parallel import flash_attention as FA
@@ -282,16 +263,35 @@ def main() -> int:
     hh, distinct, dist, w, values = (lanes[j] for j in range(LANES))
     errs = {"K1": 0, "K2": 0, "K3": 0.0}
 
+    def stress_lanes(n: int, kind: str) -> torch.Tensor:
+        """A (5, n) batch on the card whose lanes are rows of one tensor
+        (for odd n, rows 1-4 start off 16 bytes): the zipf stream, one
+        hot key in every row, or weights near 2**31 that wrap."""
+        blk = ZipfFoldedSource(args.seed + 7).generate(n, valid=n - n // 9)
+        if kind == "hot key":
+            blk[HH] = blk[2] = blk[HH, 0]
+            blk[DISTINCT] = blk[DISTINCT, 0]
+        elif kind == "weights near 2**31":
+            blk[WEIGHTS] = rng.choice(np.array([2**31 - 1, 2**31, 2**31 - 3, 1], np.uint32), n)
+        return torch.from_numpy(blk.view(np.int32)).to(dev)
+
+    stress = [(f"{kind}, n {n}", n, kind) for n, kind in (
+        (batch, "hot key"), (batch, "weights near 2**31"), (100003, "zipf"), (33, "zipf"),
+        (100003, "hot key"))]
+
     # -- 3. K1 against its plain version --------------------------------------
-    for lw in (12, 16):
-        mult = int(_row_multiplier(0))
-        got = K.histogram(dist, w, log2_width=lw, mult=mult, salt=0)
-        want = K.histogram_plain(dist, w, log2_width=lw, mult=mult, salt=0)
+    mult = int(_row_multiplier(0))
+    k1_cases = [(f"log2 width {lw}", lw, lanes) for lw in (12, 16)]
+    k1_cases += [(f"log2 width {lw}, {name}", lw, stress_lanes(n, kind))
+                 for lw in (12, 16, 17) for name, n, kind in stress]
+    for name, lw, t in k1_cases:
+        got = K.histogram(t[2], t[WEIGHTS], log2_width=lw, mult=mult, salt=0)
+        want = K.histogram_plain(t[2], t[WEIGHTS], log2_width=lw, mult=mult, salt=0)
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
         errs["K1"] = max(errs["K1"], err)
-        require(torch.equal(got, want), f"K1 at log2 width {lw}: max abs err {err}")
-        log(f"[K1] log2 width {lw}: equal to the plain version ({int(got.sum())} weight)")
+        require(torch.equal(got, want), f"K1 at {name}: max abs err {err}")
+        log(f"[K1] {name}: equal to the plain version ({int(got.sum())} weight)")
 
     # -- 4. K2 against its plain version --------------------------------------
     full = S.bundle_init(**prod, device=dev).geometry()
@@ -299,15 +299,32 @@ def main() -> int:
     plane_sets = {"base": dataclasses.replace(full, qt_buckets=0, **no_inv),
                   "+invertible": dataclasses.replace(full, qt_buckets=0),
                   "+quantiles": dataclasses.replace(full, **no_inv), "both": full}
-    for name, geom in plane_sets.items():
-        got = K.fused_planes(hh, distinct, dist, w, values, geom)
-        want = K.fused_planes_plain(hh, distinct, dist, w, values, geom)
+    k2_cases = [(name, geom, lanes) for name, geom in plane_sets.items()]
+    k2_cases += [(name, full, stress_lanes(n, kind)) for name, n, kind in stress]
+    k2_cases += [(f"count-min log2 width {lw}", dataclasses.replace(full, log2_width=lw), lanes)
+                 for lw in (18, 20)]
+    k2_cases.append(("HLL p 16", dataclasses.replace(full, hll_p=16), lanes))
+    for name, geom, t in k2_cases:
+        got = K.fused_planes(t[HH], t[DISTINCT], t[2], t[WEIGHTS], t[VALUES], geom)
+        want = K.fused_planes_plain(t[HH], t[DISTINCT], t[2], t[WEIGHTS], t[VALUES], geom)
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
         errs["K2"] = max(errs["K2"], err)
-        require(torch.equal(got, want), f"K2 plane set {name}: max abs err {err}")
-        log(f"[K2] {name}: {len(geom.planes)} planes, {geom.total} buckets, "
+        require(torch.equal(got, want), f"K2 {name}: max abs err {err}")
+        log(f"[K2] {name}: {len(geom.planes)} planes, {geom.total} buckets, n {t.shape[1]}, "
             f"equal to the plain version")
+
+    # the launch plans of the main paths' shapes
+    ent_plane = K.Plane(K.HIST, K.LANE_HH, mult, 0, prod["entropy_log2_width"],
+                        1 << prod["entropy_log2_width"], 0)
+    report["plans"] = {}
+    for name, planes in (("K1", (ent_plane,)), ("K2", full.planes)):
+        plan = K.launch_plan(planes, batch)
+        info = dict(plan.summary(), max_active_clusters=K.plan_occupancy(plan))
+        report["plans"][name] = info
+        log(f"[plan] {name} at batch {batch}: {info}")
+    require(report["plans"]["K2"]["cluster"] > 1,
+            "K2's production plan launches no thread block cluster")
 
     # -- 5. the main path --------------------------------------------------------
     warm, steps = 4, 64

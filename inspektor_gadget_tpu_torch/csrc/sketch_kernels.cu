@@ -1,45 +1,77 @@
 // Hand-written Hopper (sm_90a) kernels for the sketch-ingest path.
 //
-// One entry, ig_fused_planes, launched with a table of (plane, bucket
-// tile) jobs, serves both kernels of the path:
+// One entry, ig_fused_planes, serves both kernels of the path:
 // K1 (one hashed-histogram plane) replaces
 //    inspektor_gadget_tpu/ops/pallas_kernels.py:61 pallas_histogram
 //    (body _hist_kernel :39)
 // K2 (every sketch plane)         replaces
 //    inspektor_gadget_tpu/ops/pallas_kernels.py:296 fused_sketch_planes
 //    (body _fused_kernel :142)
-//
 // It is built by nvcc into a plain-C shared library and launched through
 // ctypes (inspektor_gadget_tpu_torch/ops/kernels.py), on the caller's
-// stream; it returns cudaGetLastError().
+// stream, with a launch plan that ops/kernels.py builds (`launch_plan`);
+// it returns the CUDA error of the launch.
 //
-// What bounds them on the card: they read each 4-byte lane once and write
-// each delta bucket once, so the floor is bytes over the memory rate, a
-// few microseconds at the production geometry. What they actually wait
-// on is atomic traffic: every event adds into one bucket per plane, and
-// the zipf key streams the system sees send a large share of the events
-// to a few buckets.
+// What bounds them on the card. Each lane of 4-byte keys is read once and
+// each bucket of the output written once: 2.6 MB in and 1.3 MB out for K2
+// at the production geometry (batch 2^17; count-min 4 x 2^16, entropy
+// 2^12, HLL 2^14, invertible 3 x 3 x 2^12, DDSketch 2048), about 1.2 us of
+// memory. What they wait on instead (sketch_probe.py, on an H100 SXM):
+// fixed costs of ~9 us a call (launch, zeroing and scanning the tiles,
+// two cluster barriers, the tiles' reduction), the lanes read again by
+// every group that needs them (22.5 MB from L2), and ~0.3M device
+// atomics in the flush. Atomic contention is not among them: a block's
+// shared-memory atomics run as fast at the zipf stream's buckets (its top
+// key is 21% of it) as at uniform ones.
 //
-// Design. The TPU kernel tallied with a one-hot matrix product on the MXU
-// in f32. That is not carried over: under TF32 the f32 tallies stop being
-// exact integers, and bit-identity with the reference is the contract.
-// Here every plane accumulates in integer atomics (atomicAdd on uint32,
-// which wraps mod 2^32 by itself, atomicMax for HLL ranks). Integer
-// atomics commute, so the result is exact and the same from run to run in
-// whatever order the blocks run. Each block owns one (plane, bucket tile)
-// job and one slice of the batch: it zeroes a shared-memory tile, tallies
-// the slice into it with shared-memory atomics (contention on a hot
-// bucket stays inside the SM), then flushes the nonzero buckets to device
-// memory with one global atomic each. A tile is at most 16384 buckets
-// (64 KB): the entropy (4096), HLL (16384), invertible (4096) and DDSketch
-// (2048) planes fit in one; a 65536-wide count-min row is split into four
-// tiles, each a job of its own that reads the whole slice and keeps the
-// keys that hash into its range. Re-reading a lane four times costs L2
-// traffic only (a 2^17-row lane is 512 KB), and it keeps every plane on
-// the same shared-memory path instead of sending the widest rows to
-// global atomics, where the hot zipf buckets would serialise in L2.
-// Narrow planes write only their own width; nothing is padded to the
-// widest plane as the TPU grid did.
+// Why no tensor cores. The TPU kernel tallied with a one-hot product on
+// the MXU in f32. A one-hot product on the tensor cores is exact only in
+// int8, and the weights lane is int32; in f16/bf16/TF32, or f32
+// accumulation, the tallies stop being exact integers, and bit-identity
+// with the reference is the contract (GPU and TPU nodes merge each
+// other's sketches). Every plane accumulates in integer atomics instead:
+// atomicAdd on uint32 wraps mod 2^32 by itself, atomicMax takes HLL
+// ranks. They commute, so the result is exact and the same in whatever
+// order the blocks run.
+//
+// The layout (ops/kernels.py LaunchPlan), chosen by measurement:
+// - Groups. The planes' buckets, in the flat buffer's order, are cut into
+//   groups of one 16384-bucket tile (64 KB, 3 blocks an SM): four a
+//   count-min row, four for the other 12 planes at the production
+//   geometry. A block holds its group's tile whole in shared memory and
+//   hashes each of its rows once per segment (plane range) of the group;
+//   the three lanes of an invertible row share one hash.
+// - Rows. Each group's rows are cut into slices so that blocks carry about
+//   equal work; a cluster of 2 blocks takes a slice, a block half of it in
+//   4-row units: 16-byte loads where the lane's view starts on 16 bytes,
+//   4-byte loads where not (rows of a (5, n) tensor with odd n) and for
+//   the ragged tail. A key lane is loaded when the first segment of the
+//   group that reads it comes up, which keeps the kernel at 40 registers,
+//   3 blocks of 512 threads an SM. The clusters walk the (group, slice)
+//   items, as many clusters as the card runs at once.
+// - Tally. One shared-memory atomic a row and segment, into the block's
+//   own tile.
+// - Flush. After a cluster barrier the two blocks add their tiles
+//   together through distributed shared memory, each half the buckets,
+//   and add the nonzero sums into the zeroed output with one device
+//   atomic each (atomicMax on the HLL range).
+// Why not one group spread over a cluster's blocks, every row hashed
+// once per plane and added into the owning block through distributed
+// shared memory, equal keys of a warp combined first by __match_any_sync
+// and __reduce_add_sync (the layout tried first): on this card an atomic
+// into another block's shared memory ran at 1/6 to 1/7 the rate of one
+// into the block's own, and combining a warp's equal keys first cost
+// 6-9x the atomics it saved (sketch_probe.py's atomic rates); that
+// kernel took 0.085 ms. Clusters of 1 and 4 and tiles of 8192 and 32768
+// buckets were slower than this layout too (PERF.md).
+// Per call at the production geometry on chip_smoke.py's timing input
+// (`python -m inspektor_gadget_tpu_torch.sketch_probe --counts`): K2
+// reads 22.5 MB of lanes (mostly from L2), makes 3.1M key hashes and
+// 1.87M shared-memory atomics, reads 3.1M words of the other block's
+// tile, and makes 0.32M device atomics, over 394 blocks (197 clusters of
+// 2, 65.7 KB of shared memory a block); K1 (entropy, 2^12) reads 1.0 MB,
+// hashes 131K keys, makes 117K shared-memory and 33K device atomics over
+// 256 blocks (128 clusters of 2, 16.4 KB a block).
 //
 // Numerics. Hashes are uint32 integer arithmetic, identical everywhere.
 // The DDSketch bucket must equal the reference's float32 computation bit
@@ -50,28 +82,39 @@
 // the library is built with -fmad=false so nvcc adds no contraction of
 // its own, and never with --use_fast_math.
 
+#include <cooperative_groups.h>
 #include <cstdint>
+#include <mutex>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kTileMax = 16384;
+constexpr int kMinBlocks = 3;      // blocks an SM: 3 x 64 KB tiles, registers capped to fit
+constexpr int kMaxCluster = 8;
+constexpr int kMaxSmem = 232448;    // shared memory a block may use on sm_90
+constexpr int kMaxSegments = 64;    // segments of one group
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
-// job kinds (kept in step with ops/kernels.py)
+// plane kinds and table layouts (kept in step with ops/kernels.py)
 constexpr int kHist = 0;
 constexpr int kHll = 1;
 constexpr int kInvCount = 2;
 constexpr int kInvKeysum = 3;
 constexpr int kInvFpsum = 4;
 constexpr int kQuant = 5;
+constexpr int kClusterFields = 8;  // first segment, segments, first row, end row,
+                                   // group's first bucket in out, group's buckets,
+                                   // HLL range [lo, hi) in the group
+constexpr int kSegmentFields = 8;  // kind, lane, mult, salt, shift, lo, width, base
 
 constexpr uint32_t kFpSalt = 0x7F4A7C15u;
 
 struct Batch {
   const uint32_t* lane[4];  // hh, distinct, dist, values
   const int32_t* w;
-  int n;
 };
 
 struct QuantParams {
@@ -88,52 +131,6 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   h *= 0xC2B2AE35u;
   h ^= h >> 16;
   return h;
-}
-
-__device__ __forceinline__ uint32_t hashed_bucket(uint32_t key, uint32_t mult,
-                                                  uint32_t salt, int shift) {
-  return fmix32(key * mult + salt) >> shift;
-}
-
-__device__ __forceinline__ void zero_tile(uint32_t* tile, int width) {
-  for (int b = threadIdx.x; b < width; b += blockDim.x) tile[b] = 0u;
-  __syncthreads();
-}
-
-__device__ __forceinline__ void flush_add(const uint32_t* tile, int width,
-                                          uint32_t* out) {
-  __syncthreads();
-  for (int b = threadIdx.x; b < width; b += blockDim.x) {
-    const uint32_t v = tile[b];
-    if (v) atomicAdd(out + b, v);
-  }
-}
-
-__device__ __forceinline__ void flush_max(const uint32_t* tile, int width,
-                                          uint32_t* out) {
-  __syncthreads();
-  for (int b = threadIdx.x; b < width; b += blockDim.x) {
-    const uint32_t v = tile[b];
-    if (v) atomicMax(out + b, v);
-  }
-}
-
-// The hashed-histogram plane (K1's one plane; K2's count-min rows and
-// entropy row): rows [begin, end) of the batch add their
-// weight into bucket fmix32(key*mult+salt) >> shift when it falls in the
-// tile [lo, lo+width); out points at the plane's bucket 0.
-__device__ void hashed_hist_tile(uint32_t* tile, const uint32_t* __restrict__ keys,
-                                 const int32_t* __restrict__ w, int begin, int end,
-                                 uint32_t mult, uint32_t salt, int shift, int lo,
-                                 int width, uint32_t* out) {
-  zero_tile(tile, width);
-  for (int i = begin + threadIdx.x; i < end; i += blockDim.x) {
-    const int32_t wi = w[i];
-    if (wi == 0) continue;
-    const uint32_t b = hashed_bucket(keys[i], mult, salt, shift) - (uint32_t)lo;
-    if (b < (uint32_t)width) atomicAdd(tile + b, (uint32_t)wi);
-  }
-  flush_add(tile, width, out + lo);
 }
 
 // XLA's CPU float32 log (Cephes logf, multiply-adds fused), for x > 0.
@@ -172,95 +169,263 @@ __device__ __forceinline__ uint32_t hll_rank(uint32_t h, int p) {
   return (uint32_t)(lz + 1);
 }
 
-// Rows one block walks: at least one tile's width, so that zeroing and
-// flushing the tile never costs more than the tally, and no more than
-// needed to give the grid ~512 blocks.
-int rows_per_block(int n, int n_jobs, int tile) {
-  int chunks = (512 + n_jobs - 1) / n_jobs;
-  const int by_tile = (n + tile - 1) / tile;
-  if (chunks > by_tile) chunks = by_tile;
-  if (chunks < 1) chunks = 1;
-  return (n + chunks - 1) / chunks;
+// Rows [r, r+4) of a lane: one 16-byte load where the lane's view puts
+// row r on 16 bytes and all four rows are in range, else 4-byte loads;
+// rows at or past `end` read as 0 (weight 0: they add nothing).
+__device__ __forceinline__ void load4(const uint32_t* __restrict__ p, int r, int end,
+                                      uint32_t v[4]) {
+  const uint32_t* a = p + r;
+  if (r + 4 <= end && (reinterpret_cast<uintptr_t>(a) & 15u) == 0) {
+    const uint4 x = __ldg(reinterpret_cast<const uint4*>(a));
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else {
+    #pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = r + j < end ? __ldg(a + j) : 0u;
+  }
 }
 
-// jobs: (n_jobs, 8) int32 rows of kind, lane, mult, salt, shift, lo,
-// width, plane offset in `out`.
-__global__ void __launch_bounds__(kThreads)
-fused_planes_kernel(Batch batch, const int32_t* __restrict__ jobs,
-                    QuantParams q, uint32_t* out, int rows) {
-  extern __shared__ uint32_t tile[];
-  const int32_t* job = jobs + 8 * blockIdx.y;
-  const int kind = job[0];
-  const uint32_t* __restrict__ keys = batch.lane[job[1]];
-  const uint32_t mult = (uint32_t)job[2];
-  const uint32_t salt = (uint32_t)job[3];
-  const int shift = job[4];
-  const int lo = job[5];
-  const int width = job[6];
-  uint32_t* plane = out + job[7];
-  const int begin = blockIdx.x * rows;
-  const int end = min(batch.n, begin + rows);
-  const int32_t* __restrict__ w = batch.w;
+// Each cluster walks the work items (group, row slice) of the plan, one
+// after another: for each, a block zeroes its tile of the group's
+// buckets, tallies its part of the slice's rows into it with
+// shared-memory atomics, then, once every block of the cluster is done,
+// adds the cluster's tiles together through distributed shared memory (a
+// 1/cluster part of the buckets a block) and flushes the nonzero sums
+// into `out` with one device atomic each.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fused_planes_kernel(Batch batch, const int32_t* __restrict__ items,
+                    const int32_t* __restrict__ segments, QuantParams q,
+                    uint32_t* __restrict__ out, int n_items) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  for (int item = blockIdx.x / csize; item < n_items; item += gridDim.x / csize) {
+    const int32_t* cl = items + kClusterFields * item;
+    const int nseg = cl[1];
+    const int size = cl[5];
+    const int size4 = (size + 3) >> 2;
+    uint32_t* tile = smem;
+    int32_t* seg = reinterpret_cast<int32_t*>(smem + 4 * size4);
 
-  if (kind == kHist) {
-    hashed_hist_tile(tile, keys, w, begin, end, mult, salt, shift, lo, width, plane);
-    return;
-  }
-  zero_tile(tile, width);
-  for (int i = begin + threadIdx.x; i < end; i += blockDim.x) {
-    const int32_t wi = w[i];
-    if (wi == 0) continue;
-    const uint32_t k = keys[i];
-    const uint32_t wu = (uint32_t)wi;
-    uint32_t b;
-    uint32_t val;
-    if (kind == kHll) {
-      const uint32_t h = fmix32(k);
-      b = h >> shift;
-      val = hll_rank(h, 32 - shift);
-    } else if (kind == kQuant) {
-      if (k == 0u) continue;  // zero values weigh 0 here (the zero bucket is host-side)
-      b = quant_bucket(k, q);
-      val = wu;
-    } else {
-      b = hashed_bucket(k, mult, salt, shift);
-      val = kind == kInvCount ? wu
-          : kind == kInvKeysum ? k * wu
-          : fmix32(k ^ kFpSalt) * wu;
+    uint4* tile4 = reinterpret_cast<uint4*>(tile);
+    for (int i = threadIdx.x; i < size4; i += kThreads) tile4[i] = make_uint4(0u, 0u, 0u, 0u);
+    for (int i = threadIdx.x; i < kSegmentFields * nseg; i += kThreads)
+      seg[i] = segments[kSegmentFields * cl[0] + i];
+    __syncthreads();
+    // this block's rows: a 1/csize part of the cluster's, in whole 4-row units
+    const int row0 = cl[2];
+    const int row1 = cl[3];
+    const int per = (((row1 - row0) + csize - 1) / csize + 3) & ~3;
+    const int rb = min(row1, row0 + rank * per);
+    const int re = min(row1, rb + per);
+    for (int r = rb + 4 * (int)threadIdx.x; r < re; r += 4 * kThreads) {
+      uint32_t w[4];
+      load4(reinterpret_cast<const uint32_t*>(batch.w), r, re, w);
+      if ((w[0] | w[1] | w[2] | w[3]) == 0u) continue;
+      // a key lane is loaded when a segment first needs it (the segments
+      // of one lane are adjacent), which keeps registers to one lane
+      uint32_t key[4] = {0u, 0u, 0u, 0u};
+      uint32_t hb[4] = {0u, 0u, 0u, 0u};
+      int k_lane = -1;
+      uint32_t h_mult = 0u, h_salt = 0u;
+      int h_shift = -1;
+      for (int i = 0; i < nseg; ++i) {
+        const int32_t* sg = seg + kSegmentFields * i;
+        const int kind = sg[0];
+        const int lane = sg[1];
+        const uint32_t mult = (uint32_t)sg[2];
+        const uint32_t salt = (uint32_t)sg[3];
+        const int shift = sg[4];
+        const uint32_t lo = (uint32_t)sg[5];
+        const uint32_t width = (uint32_t)sg[6];
+        const uint32_t base = (uint32_t)sg[7];
+        if (lane != k_lane) {
+          load4(lane == 0 ? batch.lane[0] : lane == 1 ? batch.lane[1]
+                : lane == 2 ? batch.lane[2] : batch.lane[3], r, re, key);
+          k_lane = lane;
+          h_shift = -1;
+        }
+        // the three lanes of an invertible row share one hash
+        const bool rehash = kind != kHll && kind != kQuant &&
+                            (mult != h_mult || salt != h_salt || shift != h_shift);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t k = key[j];
+          const uint32_t wj = w[j];
+          uint32_t b;
+          uint32_t val;
+          if (kind == kHll) {
+            const uint32_t h = fmix32(k);
+            b = h >> shift;
+            val = hll_rank(h, 32 - shift);
+          } else if (kind == kQuant) {
+            b = quant_bucket(k, q);
+            val = k == 0u ? 0u : wj;  // zero values weigh 0 here (the zero bucket is host-side)
+          } else {
+            if (rehash) hb[j] = fmix32(k * mult + salt) >> shift;
+            b = hb[j];
+            val = kind == kHist || kind == kInvCount ? wj
+                : kind == kInvKeysum ? k * wj
+                : fmix32(k ^ kFpSalt) * wj;
+          }
+          b -= lo;
+          if (wj == 0u || val == 0u || b >= width) continue;
+          if (kind == kHll) atomicMax(tile + base + b, val);
+          else atomicAdd(tile + base + b, val);
+        }
+        if (rehash) {
+          h_mult = mult;
+          h_salt = salt;
+          h_shift = shift;
+        }
+      }
     }
-    b -= (uint32_t)lo;
-    if (b >= (uint32_t)width) continue;
-    if (kind == kHll) atomicMax(tile + b, val);
-    else atomicAdd(tile + b, val);
+    cluster.sync();  // every tile of the cluster complete before any is read
+
+    // this block's part of the buckets, summed over the cluster's tiles
+    const int part4 = (size4 + csize - 1) / csize;
+    const int hll_lo = cl[6];
+    const int hll_hi = cl[7];
+    uint32_t* dst = out + cl[4];
+    for (int i = rank * part4 + threadIdx.x; i < min(size4, (rank + 1) * part4); i += kThreads) {
+      uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll 2
+      for (int src = 0; src < csize; ++src) {
+        const uint4 x = reinterpret_cast<const uint4*>(cluster.map_shared_rank(tile, src))[i];
+        const uint32_t y[4] = {x.x, x.y, x.z, x.w};
+        #pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int b = 4 * i + j;
+          v[j] = b >= hll_lo && b < hll_hi ? max(v[j], y[j]) : v[j] + y[j];
+        }
+      }
+      #pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int b = 4 * i + j;
+        if (v[j] == 0u || b >= size) continue;
+        if (b >= hll_lo && b < hll_hi) atomicMax(dst + b, v[j]);
+        else atomicAdd(dst + b, v[j]);
+      }
+    }
+    cluster.sync();  // no block rezeroes its tile, or exits, while another may read it
   }
-  if (kind == kHll) flush_max(tile, width, plane + lo);
-  else flush_add(tile, width, plane + lo);
+}
+
+// A block's shared memory: its group's buckets (rounded up to 4) and
+// its group's segment rows.
+size_t smem_bytes(int tile_words, int max_segments) {
+  return (size_t)tile_words * sizeof(uint32_t) +
+         (size_t)max_segments * kSegmentFields * sizeof(int32_t);
+}
+
+// cudaFuncSetAttribute once per size (raised, never lowered), and the
+// largest number of clusters of `cluster` blocks the card co-schedules
+// at this size, asked once per (size, cluster). 0 means no GPC can host
+// one cluster: the launch would be refused.
+std::mutex g_mu;
+size_t g_smem_set = 0;
+struct Occupancy {
+  size_t smem;
+  int cluster;
+  int clusters;
+};
+Occupancy g_occ[32];
+int g_n_occ = 0;
+
+cudaError_t prepare(size_t smem, int cluster, int* max_clusters) {
+  std::lock_guard<std::mutex> lock(g_mu);
+  for (int i = 0; i < g_n_occ; ++i) {
+    if (g_occ[i].smem == smem && g_occ[i].cluster == cluster) {
+      *max_clusters = g_occ[i].clusters;
+      return cudaSuccess;
+    }
+  }
+  if (smem > g_smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_planes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    g_smem_set = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, fused_planes_kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (g_n_occ < 32) g_occ[g_n_occ++] = Occupancy{smem, cluster, n};
+  *max_clusters = n;
+  return cudaSuccess;
+}
+
+bool plan_ok(int cluster, int tile_words, int max_segments) {
+  return cluster >= 1 && cluster <= kMaxCluster && tile_words >= 4 && tile_words % 4 == 0 &&
+         max_segments >= 1 && max_segments <= kMaxSegments &&
+         smem_bytes(tile_words, max_segments) <= (size_t)kMaxSmem;
 }
 
 }  // namespace
 
+// The largest number of clusters the card co-schedules for a launch
+// plan's cluster size and shared memory (cudaOccupancyMaxActiveClusters).
+extern "C" int ig_fused_planes_occupancy(int cluster, int tile_words, int max_segments,
+                                         int* max_clusters) {
+  if (!plan_ok(cluster, tile_words, max_segments)) return (int)cudaErrorInvalidValue;
+  return (int)prepare(smem_bytes(tile_words, max_segments), cluster, max_clusters);
+}
+
+// items: (n_items, 8) int32 rows, segments: (n_segments, 8) int32 rows,
+// both on the device (ops/kernels.py `LaunchPlan`); out: the zeroed flat
+// delta buffer. grid_clusters: the clusters launched, which walk the
+// items; 0 for as many as the card runs at once (at most n_items).
 extern "C" int ig_fused_planes(const void* hh, const void* distinct, const void* dist,
-                               const void* values, const void* weights,
-                               const void* jobs, int n_jobs, int max_tile,
-                               float ilg, float neg_off, float min_value,
-                               int qt_buckets, void* out, int n, void* stream) {
-  if (max_tile < 1 || max_tile > kTileMax || n_jobs < 1 || n_jobs > 65535)
+                               const void* values, const void* weights, const void* items,
+                               const void* segments, int n_items, int grid_clusters,
+                               int cluster,
+                               int tile_words, int max_segments, float ilg, float neg_off,
+                               float min_value, int qt_buckets, void* out, int n,
+                               void* stream) {
+  if (!plan_ok(cluster, tile_words, max_segments) || n_items < 1 || grid_clusters < 0 ||
+      grid_clusters > n_items || (long long)n_items * cluster > 0x7FFFFFFFLL || n < 1)
     return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(tile_words, max_segments);
+  int max_clusters = 0;
+  cudaError_t err = prepare(smem, cluster, &max_clusters);
+  if (err != cudaSuccess) return (int)err;
+  if (max_clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  const int grid = grid_clusters > 0 ? grid_clusters
+                 : n_items < max_clusters ? n_items : max_clusters;
   Batch batch;
   batch.lane[0] = (const uint32_t*)hh;
   batch.lane[1] = (const uint32_t*)distinct;
   batch.lane[2] = (const uint32_t*)dist;
   batch.lane[3] = (const uint32_t*)values;
   batch.w = (const int32_t*)weights;
-  batch.n = n;
   const QuantParams q{ilg, neg_off, min_value, qt_buckets};
-  const int rows = rows_per_block(n, n_jobs, max_tile);
-  const size_t smem = (size_t)max_tile * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_planes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(grid * cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fused_planes_kernel, batch, (const int32_t*)items,
+                           (const int32_t*)segments, q, (uint32_t*)out, n_items);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n + rows - 1) / rows, n_jobs);
-  fused_planes_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      batch, (const int32_t*)jobs, q, (uint32_t*)out, rows);
   return (int)cudaGetLastError();
 }

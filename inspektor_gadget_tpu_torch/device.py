@@ -9,9 +9,12 @@ name.
 from __future__ import annotations
 
 import shutil
+import statistics
 import subprocess
 
 import torch
+
+SLEEP_CYCLES = 40_000_000  # ~20 ms at the H100's ~2 GHz SM clock
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -51,3 +54,27 @@ def device_report(device: str | torch.device = "cuda") -> dict:
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(d),
             "count": torch.cuda.device_count(),
             "nvidia_smi": nvidia_smi_line()}
+
+
+def time_cuda(fn, rounds: int = 21, per_round: int = 10, warm: int = 3) -> float:
+    """Device milliseconds per call of `fn`: the median over `rounds` of
+    CUDA-event time across `per_round` back-to-back calls, divided by
+    `per_round`. Each round first parks the stream in a 20 ms device
+    sleep, so the host has queued every call before the first starts and
+    the events time the device's work, not the host's launch pace (a
+    call whose host side is slower than its device side is timed at the
+    host's pace all the same)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a.record()
+        for _ in range(per_round):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / per_round)
+    return statistics.median(times)

@@ -55,9 +55,12 @@ class CudaLibrary:
 
     def build(self) -> Path:
         """Compile the source with nvcc (once per source and flag set)
-        and return the library's path."""
+        and return the library's path; nvcc's output (ptxas' registers
+        and spills) is kept beside it and read back for a built one."""
         out = self.library_path()
+        log = out.with_suffix(".log")
         if out.exists():
+            self.build_log = log.read_text() if log.exists() else ""
             return out
         nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
         if not os.path.exists(nvcc):
@@ -72,6 +75,7 @@ class CudaLibrary:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {self.source.name} ({proc.returncode}):\n"
                                f"{self.build_log}")
+        log.write_text(self.build_log)
         os.replace(tmp, out)
         return out
 

@@ -7,8 +7,12 @@ the reference's signature around it) replaces
 ``inspektor_gadget_tpu/ops/pallas_kernels.py:296``
 (``fused_sketch_planes``). The kernels themselves, and the note on what
 bounds them and how they are built, are in ``csrc/sketch_kernels.cu``.
-Both launch its one entry, ``ig_fused_planes``, with a table of (plane,
-bucket tile) jobs: K1 with its one histogram plane, K2 with every plane.
+Both launch its one entry, ``ig_fused_planes``, with a `LaunchPlan`
+built here: K1 with its one histogram plane, K2 with every plane. The
+plan cuts the planes' buckets into groups of one shared-memory tile and
+each group's rows into slices, one thread block cluster a (group,
+slice); tests/test_torch_sketch_layout.py pins it and emulates the
+kernel's partition.
 
 For a CUDA tensor a wrapper launches its kernel or raises; for a CPU
 tensor it computes the plain version, which the tests hold against the
@@ -35,19 +39,36 @@ from .hll import hll_index_rank
 from .invertible import inv_lane_values, inv_row_hash
 from .quantiles import bucket_constants, bucket_index
 
-TILE = 16384  # buckets per shared-memory tile; csrc kTileMax
-
 # plane kinds and key lanes, as csrc/sketch_kernels.cu numbers them
 HIST, HLL, INV_COUNT, INV_KEYSUM, INV_FPSUM, QUANT = range(6)
 LANE_HH, LANE_DISTINCT, LANE_DIST, LANE_VALUES = range(4)
+
+# The launch plan's limits (csrc/sketch_kernels.cu: kThreads, kMaxCluster,
+# kMaxSegments, kMaxSmem) and what it aims for.
+THREADS = 512
+MAX_CLUSTER = 8           # the portable cluster size
+CLUSTER = 2               # blocks that add their tiles together before the flush
+TILE_LOG2 = 14            # buckets a block holds: 16384 (64 KB, 3 blocks an SM)
+MAX_SEGMENTS = 64         # segments of one group
+SMS = 132                 # the H100 SXM's streaming multiprocessors
+TARGET_BLOCKS = 3 * SMS   # one wave at 3 blocks an SM
+SMEM_LIMIT = 232_448      # shared memory a block may use on sm_90
+CLUSTER_FIELDS = 8        # csrc kClusterFields
+SEGMENT_FIELDS = 8        # csrc kSegmentFields
+# per-row cost of a segment by kind, and of reading a key lane
+KIND_COST = {HIST: 1, HLL: 1, INV_COUNT: 1, INV_KEYSUM: 1, INV_FPSUM: 1, QUANT: 3}
+LANE_COST = 1
 
 
 # -- bind ----------------------------------------------------------------------
 
 def _bind(lib) -> None:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ig_fused_planes.argtypes = [vp, vp, vp, vp, vp, vp, i, i, f, f, f, i, vp, i, vp]
+    lib.ig_fused_planes.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, f, f, f, i, vp,
+                                    i, vp]
     lib.ig_fused_planes.restype = i
+    lib.ig_fused_planes_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.ig_fused_planes_occupancy.restype = i
 
 
 # -fmad=false: the DDSketch bucket must not be contracted (see the source)
@@ -63,7 +84,7 @@ def _kernel_lane(x: torch.Tensor, n: int, dev: torch.device, name: str) -> torch
     return bits32(x).contiguous()
 
 
-# -- the one kernel entry: a table of (plane, bucket tile) jobs ---------------
+# -- the one kernel entry and its launch plan ---------------------------------
 
 @dataclass(frozen=True)
 class Plane:
@@ -76,36 +97,198 @@ class Plane:
     offset: int      # first bucket of the plane in the flat delta buffer
 
 
-@functools.lru_cache(maxsize=64)
-def _job_table(planes: tuple[Plane, ...], dev: torch.device) -> tuple[torch.Tensor, int]:
-    """The kernel's (n_jobs, 8) int32 job rows on `dev` — one per (plane,
-    bucket tile) — and the widest tile."""
-    rows = []
-    for pl in planes:
-        for lo in range(0, pl.width, TILE):
-            rows.append((pl.kind, pl.lane, pl.mult, pl.salt, 32 - pl.log2_width,
-                         lo, min(TILE, pl.width - lo), pl.offset))
-    table = np.array(rows, dtype=np.int64)
-    table = np.where(table >= 1 << 31, table - (1 << 32), table).astype(np.int32)
-    return torch.from_numpy(table).to(dev), int(max(r[6] for r in rows))
+@dataclass(frozen=True)
+class Segment:
+    """Buckets [lo, lo + width) of planes[plane], held by one group from
+    its bucket `base` on."""
+    plane: int
+    lo: int
+    width: int
+    base: int
 
 
-def _launch_planes(planes: tuple[Plane, ...], lanes, w: torch.Tensor,
-                   vals: torch.Tensor | None, n: int, dev: torch.device, ilg: float,
-                   neg_off: float, min_value: float, qt_buckets: int) -> torch.Tensor:
+@dataclass(frozen=True)
+class Group:
+    """A contiguous range of the flat delta buffer (`size` buckets from
+    `out_lo`) that each block of a cluster holds whole in its shared
+    memory."""
+    out_lo: int
+    size: int
+    segments: tuple[Segment, ...]
+
+
+def _round4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def _row_slices(n: int, parts: int) -> list[tuple[int, int]]:
+    """[0, n) cut into at most `parts` ranges that start on multiples of 4."""
+    step = _round4(-(-n // parts))
+    return [(r, min(n, r + step)) for r in range(0, n, step)]
+
+
+@dataclass(frozen=True, eq=False)  # hashed by identity: launch_plan hands out one per key
+class LaunchPlan:
+    """How ig_fused_planes lays a batch of n rows and a set of planes on
+    the card: the planes cut into groups of at most `tile` buckets, each
+    group's rows cut into slices, one cluster of `cluster` blocks a
+    (group, slice). Each block tallies a 1/cluster part of the slice into
+    its own copy of the group's buckets; the cluster then adds its copies
+    together through distributed shared memory and flushes them."""
+    planes: tuple[Plane, ...]
+    n: int
+    cluster: int
+    tile: int
+    groups: tuple[Group, ...]
+    slices: tuple[tuple[int, int, int], ...]  # (group, first row, end row) per cluster
+
+    @property
+    def n_clusters(self) -> int:
+        return len(self.slices)
+
+    @property
+    def blocks(self) -> int:
+        return self.n_clusters * self.cluster
+
+    @property
+    def max_segments(self) -> int:
+        return max(len(g.segments) for g in self.groups)
+
+    @property
+    def tile_words(self) -> int:
+        return _round4(max(g.size for g in self.groups))
+
+    @property
+    def smem_bytes(self) -> int:
+        """Shared memory a block: the widest group's buckets and segment
+        rows (csrc smem_bytes)."""
+        return 4 * self.tile_words + 4 * SEGMENT_FIELDS * self.max_segments
+
+    def block_rows(self, c: int, rank: int) -> tuple[int, int]:
+        """Rows [begin, end) that block `rank` of cluster `c` tallies: a
+        1/cluster part of the cluster's slice in whole 4-row units (as the
+        kernel cuts them)."""
+        _, r0, r1 = self.slices[c]
+        per = _round4(-(-(r1 - r0) // self.cluster))
+        rb = min(r1, r0 + rank * per)
+        return rb, min(r1, rb + per)
+
+    def tables(self) -> tuple[np.ndarray, np.ndarray]:
+        """The kernel's (n_clusters, 8) cluster rows and (n_segments, 8)
+        segment rows, int32 (uint32 fields as their bit patterns)."""
+        seg_rows, first = [], []
+        for g in self.groups:
+            first.append(len(seg_rows))
+            for sg in g.segments:
+                pl = self.planes[sg.plane]
+                seg_rows.append((pl.kind, pl.lane, pl.mult, pl.salt, 32 - pl.log2_width,
+                                 sg.lo, sg.width, sg.base))
+        cl_rows = []
+        for gi, r0, r1 in self.slices:
+            g = self.groups[gi]
+            hll = [sg for sg in g.segments if self.planes[sg.plane].kind == HLL]
+            hll_lo, hll_hi = (hll[0].base, hll[0].base + hll[0].width) if hll else (0, 0)
+            cl_rows.append((first[gi], len(g.segments), r0, r1, g.out_lo, g.size,
+                            hll_lo, hll_hi))
+
+        def i32(rows):
+            t = np.array(rows, dtype=np.int64).reshape(-1, 8)
+            return np.where(t >= 1 << 31, t - (1 << 32), t).astype(np.int32)
+        return i32(cl_rows), i32(seg_rows)
+
+    def summary(self) -> dict:
+        return {"blocks": self.blocks, "cluster": self.cluster, "clusters": self.n_clusters,
+                "groups": len(self.groups), "tile_buckets": self.tile,
+                "smem_bytes": self.smem_bytes, "threads": THREADS}
+
+
+def _groups(planes: tuple[Plane, ...], tile: int) -> list[Group]:
+    """The planes' buckets in the flat buffer's order, cut into groups of
+    `tile` buckets (and at most MAX_SEGMENTS segments): a plane may end
+    one group and start the next. A group never spans a gap between
+    planes that are not adjacent in the buffer."""
+    groups: list[Group] = []
+    cur: list[Segment] = []
+    fill = 0
+    for i, pl in enumerate(planes):
+        lo = 0
+        while lo < pl.width:
+            end = planes[cur[-1].plane].offset + cur[-1].lo + cur[-1].width if cur else None
+            if cur and (end != pl.offset + lo or fill == tile or len(cur) == MAX_SEGMENTS):
+                groups.append(Group(planes[cur[0].plane].offset + cur[0].lo, fill, tuple(cur)))
+                cur, fill = [], 0
+            take = min(pl.width - lo, tile - fill)
+            cur.append(Segment(i, lo, take, fill))
+            fill += take
+            lo += take
+    groups.append(Group(planes[cur[0].plane].offset + cur[0].lo, fill, tuple(cur)))
+    return groups
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(planes: tuple[Plane, ...], n: int, cluster: int = CLUSTER,
+                tile_log2: int = TILE_LOG2, target_blocks: int = TARGET_BLOCKS) -> LaunchPlan:
+    """The launch plan of `planes` over a batch of n > 0 rows.
+
+    - Groups: the planes' buckets cut into groups of 2**tile_log2 (fewer
+      where all the planes together hold fewer).
+    - Slices: each group's rows are cut into slices of `cluster` blocks so
+      that the blocks carry about equal work (KIND_COST a segment and
+      LANE_COST a key lane, per row) and the grid has about
+      `target_blocks` blocks, with at least THREADS rows a block.
+
+    The defaults are the choices measured fastest on the card
+    (sketch_probe.py times the others).
+    """
+    tile = min(1 << tile_log2, _round4(sum(pl.width for pl in planes)))
+    groups = _groups(planes, tile)
+    cost = [sum(KIND_COST[planes[s.plane].kind] for s in g.segments)
+            + LANE_COST * (1 + len({planes[s.plane].lane for s in g.segments})) for g in groups]
+    most = max(1, n // (cluster * THREADS))
+    slices = []
+    for gi, c in enumerate(cost):
+        parts = min(most, max(1, round(target_blocks * c / sum(cost) / cluster)))
+        slices += [(gi, r0, r1) for r0, r1 in _row_slices(n, parts)]
+    return LaunchPlan(planes, n, cluster, tile, tuple(groups), tuple(slices))
+
+
+@functools.lru_cache(maxsize=256)
+def _device_tables(plan: LaunchPlan, dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    clusters, segments = plan.tables()
+    return torch.from_numpy(clusters).to(dev), torch.from_numpy(segments).to(dev)
+
+
+def plan_occupancy(plan: LaunchPlan) -> int:
+    """cudaOccupancyMaxActiveClusters for the plan's cluster size and
+    shared memory: how many of its clusters the card runs at once."""
+    lib = LIBRARY.get()
+    out = ctypes.c_int(0)
+    check(lib.ig_fused_planes_occupancy(plan.cluster, plan.tile_words, plan.max_segments,
+                                        ctypes.byref(out)), "ig_fused_planes_occupancy")
+    return out.value
+
+
+def launch_planes(planes: tuple[Plane, ...], lanes, w: torch.Tensor,
+                  vals: torch.Tensor | None, n: int, dev: torch.device, ilg: float = 0.0,
+                  neg_off: float = 0.0, min_value: float = 0.0,
+                  qt_buckets: int = 0, plan: LaunchPlan | None = None) -> torch.Tensor:
     """Zero the flat int32 delta buffer of `planes` and launch
-    ig_fused_planes on it (no launch for an empty batch)."""
+    ig_fused_planes on it under `plan` (default `launch_plan`), as many
+    clusters as the card runs at once walking the plan's items. No launch
+    for an empty batch."""
     last = planes[-1]
     out = torch.zeros(last.offset + last.width, dtype=torch.int32, device=dev)
     if n == 0:
         return out
-    jobs, max_tile = _job_table(planes, dev)
+    plan = plan or launch_plan(planes, n)
+    clusters, segments = _device_tables(plan, dev)
     lib = LIBRARY.get()
     with torch.cuda.device(dev):
         check(lib.ig_fused_planes(
             *(x.data_ptr() for x in lanes), vals.data_ptr() if vals is not None else None,
-            w.data_ptr(), jobs.data_ptr(), jobs.shape[0], max_tile, ilg, neg_off,
-            min_value, qt_buckets, out.data_ptr(), n, stream(dev)), "ig_fused_planes")
+            w.data_ptr(), clusters.data_ptr(), segments.data_ptr(), plan.n_clusters, 0,
+            plan.cluster, plan.tile_words, plan.max_segments, ilg, neg_off, min_value,
+            qt_buckets, out.data_ptr(), n, stream(dev)), "ig_fused_planes")
     return out
 
 
@@ -133,7 +316,7 @@ def histogram(keys: torch.Tensor, weights: torch.Tensor, *, log2_width: int,
     k = _kernel_lane(keys, n, dev, "keys")
     w = _kernel_lane(weights.to(torch.int32), n, dev, "weights")
     plane = Plane(HIST, LANE_HH, mult & MASK32, salt & MASK32, log2_width, 1 << log2_width, 0)
-    out = _launch_planes((plane,), (k, k, k), w, None, n, dev, 0.0, 0.0, 0.0, 0)
+    out = launch_planes((plane,), (k, k, k), w, None, n, dev)
     if n:
         histogram.launches += 1
     return out
@@ -228,8 +411,8 @@ def fused_planes(hh: torch.Tensor, distinct: torch.Tensor, dist: torch.Tensor,
     w = _kernel_lane(weights.to(torch.int32), n, dev, "weights")
     vals = _kernel_lane(values, n, dev, "values") if geom.qt_buckets else None
     ilg, off = bucket_constants(geom.qt_alpha, geom.qt_min_value)
-    out = _launch_planes(geom.planes, lanes, w, vals, n, dev, ilg, -off,
-                         float(np.float32(geom.qt_min_value)), geom.qt_buckets)
+    out = launch_planes(geom.planes, lanes, w, vals, n, dev, ilg, -off,
+                        float(np.float32(geom.qt_min_value)), geom.qt_buckets)
     if n:
         fused_planes.launches += 1
     return out

@@ -8,8 +8,10 @@ device batches; ``--path ae|vae|seq`` runs the anomaly plane's
 `harvest_tick` at chip_smoke.py's widths on 128 containers (seq through
 K3, ``attn="flash"``). Under ``torch.profiler`` it prints, as one JSON
 line: the device time by kernel name, the device's busy and idle share
-of the window, the host's time per step, and K3's device time, launches
-and share of the busy time (``k3``); for ingest also the
+of the window, the host's time per step, K3's device time, launches and
+share of the busy time (``k3``), the same for K2 (``k2``) with the
+device's buffer fills beside it (``fills``: ``torch.zeros`` kernels, K2's
+output fill among them, and memsets); for ingest also the
 synthetic source's own rate filling a pinned block (the host side of
 the end-to-end path). Needs a CUDA device.
 """
@@ -34,6 +36,8 @@ GEOM = S.PRODUCTION_GEOMETRY
 STEPS = 16
 TICKS = 8
 K3_KERNELS = ("flash_mma_kernel", "flash_kernel")  # K3's bf16 and f32 kernels
+K2_KERNELS = ("fused_planes_kernel",)
+FILL_KERNELS = ("FillFunctor", "Memset")  # torch.zeros and friends (K2's output fill among them)
 
 
 def _busy_us(intervals: list[tuple[float, float]]) -> float:
@@ -74,16 +78,25 @@ def _trace(step, steps: int) -> dict:
         intervals.append((ev.time_range.start, ev.time_range.end))
     busy = _busy_us(intervals)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    k3 = [(t, n) for name, (t, n) in by_name.items() if any(k in name for k in K3_KERNELS)]
-    k3_us = sum(t for t, _ in k3)
+
+    def block(names) -> dict:
+        """Device time, launches and share of the busy time per step of
+        the kernels whose names hold one of `names`."""
+        hits = [(t, n) for name, (t, n) in by_name.items() if any(k in name for k in names)]
+        us = sum(t for t, _ in hits)
+        return {"device_us_per_step": us / steps,
+                "launches_per_step": sum(n for _, n in hits) / steps,
+                "share_of_busy": us / busy if busy else 0.0}
+
     return {
         "steps": steps, "window_us_per_step": window_us / steps,
         "device_busy_us_per_step": busy / steps, "device_idle_share": 1.0 - busy / window_us,
         "kernels_per_step": len(intervals) / steps,
         "device_us_per_step_by_kernel": [[name, t / steps, n / steps] for name, (t, n) in top],
-        "k3": {"device_us_per_step": k3_us / steps,
-               "launches_per_step": sum(n for _, n in k3) / steps,
-               "share_of_busy": k3_us / busy if busy else 0.0},
+        "k3": block(K3_KERNELS),
+        "k2": dict(block(K2_KERNELS), fills=block(FILL_KERNELS), fills_by_kernel=[
+            [name, t / steps, n / steps] for name, (t, n) in by_name.items()
+            if any(k in name for k in FILL_KERNELS)]),
     }
 
 

@@ -6,7 +6,8 @@ reference for ``pallas_histogram`` (which has no interpret switch). K2
 the Pallas kernel run in the interpreter, plane by plane. The CUDA
 kernels themselves need the card; ``chip_smoke.py`` holds them to these
 plain versions there. What the kernels share with the plain versions on
-the host side (the plane layout and the tile job table) is checked here.
+the host side (the plane layout and the launch plan's tables) is checked
+here; tests/test_torch_sketch_layout.py emulates the kernel's partition.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 
 from inspektor_gadget_tpu.ops.pallas_kernels import fused_sketch_planes as ref_fused
 from inspektor_gadget_tpu.ops.pallas_kernels import xla_histogram
-from inspektor_gadget_tpu_torch import native
+from inspektor_gadget_tpu_torch import native, sketch_probe
 from inspektor_gadget_tpu_torch.ops import kernels as K
 from inspektor_gadget_tpu_torch.parallel import flash_attention as FA
 from inspektor_gadget_tpu_torch.ops.hashing import _row_multiplier
@@ -101,19 +102,28 @@ def test_fused_planes_plain_matches_pallas_interpret(case, inv_rows, qt_buckets)
 @pytest.mark.parametrize("geom", [
     K.FusedGeometry(4, 16, 12, 14, 3, 12, 2048),     # production, every plane on
     K.FusedGeometry(2, 15, 10, 9),                   # no optional planes
-    K.FusedGeometry(3, 17, 12, 15, 1, 14, 2000),     # ragged tiles, wide rows
+    K.FusedGeometry(3, 17, 12, 15, 1, 14, 2000),     # ragged planes, wide rows
 ])
 def test_job_table_tiles_every_plane_exactly(geom):
-    """The kernel's (plane, bucket tile) jobs cover each plane's buckets
-    once, no tile is wider than the shared-memory tile, and no plane is
+    """The launch plan's segment table covers each plane's buckets once,
+    each group within one block's shared-memory tile, and no plane is
     padded to the widest."""
-    jobs, max_tile = K._job_table(geom.planes, torch.device("cpu"))
-    jobs = jobs.numpy()
-    assert max_tile <= K.TILE and jobs.shape[1] == 8
+    plan = K.launch_plan(geom.planes, 1 << 17)
+    clusters, segments = plan.tables()
+    assert segments.shape[1] == K.SEGMENT_FIELDS
     covered = np.zeros(geom.total, np.int64)
-    for kind, lane, mult, salt, shift, lo, width, off in jobs:
-        assert 0 < width <= K.TILE
-        covered[off + lo:off + lo + width] += 1
+    first = 0
+    for g in plan.groups:
+        rows = segments[first:first + len(g.segments)]
+        first += len(g.segments)
+        assert g.size <= plan.tile
+        for (kind, lane, mult, salt, shift, lo, width, base), sg in zip(rows, g.segments):
+            pl = geom.planes[sg.plane]
+            assert (kind, lane, shift) == (pl.kind, pl.lane, 32 - pl.log2_width)
+            assert 0 < width <= pl.width
+            covered[pl.offset + lo:pl.offset + lo + width] += 1
+            assert g.out_lo + base == pl.offset + lo
+    assert first == segments.shape[0]
     assert (covered == 1).all()
     widths = [pl.width for pl in geom.planes]
     assert geom.total == sum(widths)
@@ -122,18 +132,23 @@ def test_job_table_tiles_every_plane_exactly(geom):
 
 @pytest.mark.parametrize("log2_width", [12, 16, 17])
 def test_job_table_of_one_histogram_plane(log2_width):
-    """K1's launch: one histogram plane split into shared-memory tiles,
-    the row hash's multiplier and salt carried as int32 bit patterns."""
+    """K1's launch: one histogram plane cut into 16384-bucket tiles (64
+    KB a block), a group each, the row hash's multiplier and salt carried
+    as int32 bit patterns."""
     mult, salt = int(_row_multiplier(3)), 0xDEADBEEF
     plane = K.Plane(K.HIST, K.LANE_HH, mult, salt, log2_width, 1 << log2_width, 0)
-    jobs, max_tile = K._job_table((plane,), torch.device("cpu"))
-    jobs = jobs.numpy()
-    assert max_tile == min(K.TILE, 1 << log2_width)
-    assert jobs.shape == (max(1, (1 << log2_width) // K.TILE), 8)
-    assert (jobs[:, 0] == K.HIST).all() and (jobs[:, 4] == 32 - log2_width).all()
-    assert (jobs[:, 2].view(np.uint32) == mult).all() and (jobs[:, 3].view(np.uint32) == salt).all()
-    assert list(jobs[:, 5]) == list(range(0, 1 << log2_width, K.TILE))
-    assert jobs[:, 6].sum() == 1 << log2_width
+    plan = K.launch_plan((plane,), 1 << 17)
+    clusters, segments = plan.tables()
+    tiles = max(1, (1 << log2_width) >> K.TILE_LOG2)
+    assert plan.tile == min(1 << log2_width, 1 << K.TILE_LOG2) and len(plan.groups) == tiles
+    assert segments.shape == (tiles, K.SEGMENT_FIELDS)
+    assert (segments[:, :2] == [K.HIST, K.LANE_HH]).all()
+    assert (segments[:, 4] == 32 - log2_width).all() and (segments[:, 7] == 0).all()
+    assert list(segments[:, 5]) == list(range(0, 1 << log2_width, plan.tile))
+    assert segments[:, 6].sum() == 1 << log2_width
+    assert (segments[:, 2:4].view(np.uint32) == [mult, salt]).all()
+    assert sorted(set(clusters[:, 0])) == list(range(tiles))
+    assert clusters[0, 2] == 0 and clusters[-1, 3] == 1 << 17
 
 
 def test_wrappers_refuse_mixed_devices_and_missing_values():
@@ -148,7 +163,8 @@ def test_wrappers_refuse_mixed_devices_and_missing_values():
         K.histogram(meta, x, log2_width=6)
 
 
-LIBRARIES = {"sketch_kernels.cu": K.LIBRARY, "flash_attention.cu": FA.LIBRARY}
+LIBRARIES = {"sketch_kernels.cu": K.LIBRARY, "flash_attention.cu": FA.LIBRARY,
+             "sketch_probe.cu": sketch_probe.LIBRARY}
 
 
 def test_every_cuda_source_has_its_own_library():
