@@ -144,17 +144,20 @@ def timing_batch(seed: int, batch: int) -> np.ndarray:
 
 
 def counts(seed: int) -> dict:
-    """layout_counts of K2 and K1 at the production shapes, on the host."""
+    """layout_counts of K2 and K1 at the production shapes, and K2's
+    flush atomics at clusters of 1, 2 and 4, on the host."""
     batch = S.PRODUCTION_BATCH
     geom = S.bundle_init(**S.PRODUCTION_GEOMETRY, device="cpu").geometry()
     lanes = torch.from_numpy(timing_batch(seed, batch).view(np.int32))
     ilg, off = bucket_constants(geom.qt_alpha, geom.qt_min_value)
     ent = K.Plane(K.HIST, K.LANE_HH, int(_row_multiplier(0)), 0, geom.ent_log2_width,
                   1 << geom.ent_log2_width, 0)
-    k2 = layout_counts(K.launch_plan(geom.planes, batch),
-                       [lanes[j] for j in (HH, DISTINCT, DIST, VALUES)], lanes[WEIGHTS], geom)
+    keys = [lanes[j] for j in (HH, DISTINCT, DIST, VALUES)]
+    k2 = layout_counts(K.launch_plan(geom.planes, batch), keys, lanes[WEIGHTS], geom)
     k1 = layout_counts(K.launch_plan((ent,), batch), [lanes[DIST]] * 4, lanes[WEIGHTS], geom)
-    return {"k2": k2, "k1": k1}
+    flush = {c: layout_counts(K.launch_plan(geom.planes, batch, c), keys, lanes[WEIGHTS],
+                              geom)["global_atomics"] for c in (1, 2, 4)}
+    return {"k2": k2, "k1": k1, "k2_flush_atomics_by_cluster": flush}
 
 
 def probe(seed: int) -> dict:

@@ -280,3 +280,26 @@ def test_faulty_layouts_are_caught(fault):
     plan = K.launch_plan(PRODUCTION.planes, 100003)
     got = emulate(plan, lanes, w, PRODUCTION, fault=fault)
     assert not np.array_equal(got, _plain(PRODUCTION, lanes, w))
+
+
+def test_layout_counts_follow_the_plan():
+    """sketch_probe.layout_counts (the per-call counts PERF.md quotes):
+    each group reads its key lanes and the weights once, one hash per
+    (row, distinct hash) of a group, one shared atomic per (row, segment)
+    that adds, and a cluster's flush touches fewer buckets when its blocks
+    share their tiles."""
+    from inspektor_gadget_tpu_torch.sketch_probe import layout_counts
+    geom = GEOMETRIES["no optional planes"]
+    n = 20011
+    lanes, w = _stream("zipf", n, seed=5)
+    t = [torch.from_numpy(x.view(np.int32)) for x in lanes]
+    counts = {c: layout_counts(K.launch_plan(geom.planes, n, c), t, torch.from_numpy(w), geom)
+              for c in (1, 2)}
+    plan = K.launch_plan(geom.planes, n, 2)
+    lanes_read = sum(1 + len({geom.planes[s.plane].lane for s in g.segments})
+                     for g in plan.groups)
+    assert counts[2]["bytes_read"] == 4 * n * lanes_read
+    assert counts[2]["shared_atomics"] == counts[1]["shared_atomics"] == \
+        int((w != 0).sum()) * len(geom.planes)
+    assert 0 < counts[2]["global_atomics"] < counts[1]["global_atomics"]
+    assert counts[1]["dsmem_words_read"] == 0 < counts[2]["dsmem_words_read"]
