@@ -68,7 +68,7 @@
 // (`python -m inspektor_gadget_tpu_torch.sketch_probe --counts`): K2
 // reads 22.5 MB of lanes (mostly from L2), makes 3.1M key hashes and
 // 1.87M shared-memory atomics, reads 3.1M words of the other block's
-// tile, and makes 0.32M device atomics, over 394 blocks (197 clusters of
+// tile, and makes 0.32M device atomics, over 396 blocks (198 clusters of
 // 2, 65.7 KB of shared memory a block); K1 (entropy, 2^12) reads 1.0 MB,
 // hashes 131K keys, makes 117K shared-memory and 33K device atomics over
 // 256 blocks (128 clusters of 2, 16.4 KB a block).

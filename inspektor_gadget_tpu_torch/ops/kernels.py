@@ -232,10 +232,10 @@ def launch_plan(planes: tuple[Plane, ...], n: int, cluster: int = CLUSTER,
 
     - Groups: the planes' buckets cut into groups of 2**tile_log2 (fewer
       where all the planes together hold fewer).
-    - Slices: each group's rows are cut into slices of `cluster` blocks so
-      that the blocks carry about equal work (KIND_COST a segment and
-      LANE_COST a key lane, per row) and the grid has about
-      `target_blocks` blocks, with at least THREADS rows a block.
+    - Slices: each group's rows are cut into slices of `cluster` blocks,
+      at most `target_blocks` blocks in all and at least THREADS rows a
+      block, each next slice going to the group whose slices carry the
+      most work (KIND_COST a segment and LANE_COST a key lane, per row).
 
     The defaults are the choices measured fastest on the card
     (sketch_probe.py times the others).
@@ -245,10 +245,15 @@ def launch_plan(planes: tuple[Plane, ...], n: int, cluster: int = CLUSTER,
     cost = [sum(KIND_COST[planes[s.plane].kind] for s in g.segments)
             + LANE_COST * (1 + len({planes[s.plane].lane for s in g.segments})) for g in groups]
     most = max(1, n // (cluster * THREADS))
-    slices = []
-    for gi, c in enumerate(cost):
-        parts = min(most, max(1, round(target_blocks * c / sum(cost) / cluster)))
-        slices += [(gi, r0, r1) for r0, r1 in _row_slices(n, parts)]
+    parts = [1] * len(groups)
+    for _ in range(max(0, target_blocks // cluster - len(groups))):
+        # one more slice to the group whose slices carry the most work
+        gi = max((g for g in range(len(groups)) if parts[g] < most),
+                 key=lambda g: cost[g] / parts[g], default=None)
+        if gi is None:
+            break
+        parts[gi] += 1
+    slices = [(gi, r0, r1) for gi in range(len(groups)) for r0, r1 in _row_slices(n, parts[gi])]
     return LaunchPlan(planes, n, cluster, tile, tuple(groups), tuple(slices))
 
 

@@ -15,7 +15,9 @@ JSON line:
 - ``k2``, ``k1``: the current K2 (`ops.kernels.fused_planes`) and K1
   (`histogram` at the entropy width, 2**12), the output's fill included;
   the kernel alone split into phases (`phases`); K2 per plane group and
-  under other launch plans (PLAN_CHOICES), K1 at clusters of 1, 2 and 4.
+  under other launch plans (PLAN_CHOICES, and clusters of 1, 2, 4 and 8
+  with as many blocks as the card runs at once), K1 at clusters of 1, 2
+  and 4.
 - ``atomics``: the rate of 32-bit atomic adds into a block's shared
   memory, a cluster's distributed shared memory and device memory, one a
   lane or one per distinct bucket of a warp, at the stream's count-min
@@ -49,7 +51,7 @@ from .sources.synthetic import DIST, DISTINCT, HH, VALUES, WEIGHTS
 
 THREADS = 512
 # (cluster, tile log2, target blocks) of the launch plans timed beside the default
-PLAN_CHOICES = ((1, 14, 396), (4, 14, 396), (2, 14, 264), (2, 14, 528), (2, 13, 396))
+PLAN_CHOICES = ((2, 14, 264), (2, 14, 528), (2, 13, 396))
 
 
 def progress(what: str, value) -> None:
@@ -221,6 +223,10 @@ def probe(seed: int) -> dict:
 
     plans = {f"cluster {c}, tile 2**{t}, {b} blocks": K.launch_plan(geom.planes, batch, c, t, b)
              for c, t, b in PLAN_CHOICES}
+    for c in (1, 2, 4, 8):  # one round: as many blocks as the card runs at once
+        occ = K.plan_occupancy(K.launch_plan(geom.planes, batch, c))
+        plans[f"cluster {c}, tile 2**14, one round"] = K.launch_plan(
+            geom.planes, batch, c, K.TILE_LOG2, occ * c)
     ent = K.Plane(K.HIST, K.LANE_HH, int(_row_multiplier(0)), 0, geom.ent_log2_width,
                   1 << geom.ent_log2_width, 0)
     zeros = torch.zeros_like(w)
@@ -260,6 +266,7 @@ def probe(seed: int) -> dict:
                         for name, g in plane_groups(geom).items()},
         "by_plan_ms": {name: time_cuda(lambda p=p: k2(geom.planes, p))
                        for name, p in plans.items()},
+        "by_plan_blocks": {name: p.blocks for name, p in plans.items()},
     }
     report["k1"] = {
         "whole_ms": time_cuda(lambda: K.histogram(dist, w, log2_width=geom.ent_log2_width,
