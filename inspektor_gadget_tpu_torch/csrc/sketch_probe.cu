@@ -15,7 +15,9 @@
 // plane, bucket tile) job, a shared-memory tile zeroed, tallied, flushed
 // with one device atomic per nonzero bucket), with its phases switched on
 // and off by `phases` (1 tally, 2 flush; the tile is always zeroed), so
-// that its time splits into zeroing, tally and flush.
+// that its time splits into zeroing, tally and flush. Each job row names
+// its rows, so the same kernel runs the earlier equal row slices and
+// slices balanced by each job's work.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -126,9 +128,9 @@ __device__ __forceinline__ uint32_t quant_like(uint32_t v, int buckets) {
 
 __global__ void __launch_bounds__(kThreads)
 tiles_kernel(Batch batch, const int32_t* __restrict__ jobs, int qt_buckets, uint32_t* out,
-             int rows, int phases) {
+             int phases) {
   extern __shared__ uint32_t tile[];
-  const int32_t* job = jobs + 8 * blockIdx.y;
+  const int32_t* job = jobs + 10 * blockIdx.x;
   const int kind = job[0];
   const uint32_t* __restrict__ keys = batch.lane[job[1]];
   const uint32_t mult = (uint32_t)job[2];
@@ -137,8 +139,8 @@ tiles_kernel(Batch batch, const int32_t* __restrict__ jobs, int qt_buckets, uint
   const int lo = job[5];
   const int width = job[6];
   uint32_t* plane = out + job[7] + lo;
-  const int begin = blockIdx.x * rows;
-  const int end = min(batch.n, begin + rows);
+  const int begin = job[8];
+  const int end = min(batch.n, job[9]);
   for (int b = threadIdx.x; b < width; b += blockDim.x) tile[b] = 0u;
   __syncthreads();
   if (phases & 1) {
@@ -180,14 +182,6 @@ tiles_kernel(Batch batch, const int32_t* __restrict__ jobs, int qt_buckets, uint
   } else if (threadIdx.x == 0) {
     atomicAdd(plane, tile[0] & 1u);  // keep the tally live
   }
-}
-
-int rows_per_block(int n, int n_jobs, int tile) {
-  int chunks = (512 + n_jobs - 1) / n_jobs;
-  const int by_tile = (n + tile - 1) / tile;
-  if (chunks > by_tile) chunks = by_tile;
-  if (chunks < 1) chunks = 1;
-  return (n + chunks - 1) / chunks;
 }
 
 template <typename K>
@@ -234,6 +228,8 @@ extern "C" int ig_probe_atomics(const void* idx, const void* w, int n, int block
   return (int)cudaGetLastError();
 }
 
+// jobs: (n_jobs, 10) int32 rows on the device: kind, lane, mult, salt,
+// shift, lo, width, plane offset, first row, end row; one block a row.
 extern "C" int ig_probe_tiles(const void* hh, const void* distinct, const void* dist,
                               const void* values, const void* weights, const void* jobs,
                               int n_jobs, int max_tile, int qt_buckets, void* out, int n,
@@ -247,12 +243,10 @@ extern "C" int ig_probe_tiles(const void* hh, const void* distinct, const void* 
   batch.lane[3] = (const uint32_t*)values;
   batch.w = (const int32_t*)weights;
   batch.n = n;
-  const int rows = rows_per_block(n, n_jobs, max_tile);
   const int smem = max_tile * 4;
   cudaError_t err = set_smem(tiles_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n + rows - 1) / rows, n_jobs);
-  tiles_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      batch, (const int32_t*)jobs, qt_buckets, (uint32_t*)out, rows, phases);
+  tiles_kernel<<<n_jobs, kThreads, smem, (cudaStream_t)stream>>>(
+      batch, (const int32_t*)jobs, qt_buckets, (uint32_t*)out, phases);
   return (int)cudaGetLastError();
 }

@@ -10,8 +10,10 @@ JSON line:
   bucket tile) job; kept as ``ig_probe_tiles`` in
   ``csrc/sketch_probe.cu``) split into the ``torch.zeros`` fill of the
   output, the kernel with its tiles only zeroed, zeroed and tallied, and
-  whole (tallied and flushed); and the whole kernel per plane group
-  (count-min rows, HLL, invertible, entropy + DDSketch).
+  whole (tallied and flushed); the whole kernel per plane group
+  (count-min rows, HLL, invertible, entropy + DDSketch); and the same
+  kernel with each job's rows balanced by its work (``balanced_*``), for
+  K2 and for K1 at the entropy width (``k1_*``).
 - ``k2``, ``k1``: the current K2 (`ops.kernels.fused_planes`) and K1
   (`histogram` at the entropy width, 2**12), the output's fill included;
   the kernel alone split into phases (`phases`); K2 per plane group and
@@ -69,15 +71,41 @@ def _bind(lib) -> None:
 LIBRARY = CudaLibrary("sketch_probe.cu", _bind, ("-fmad=false",))
 
 
-def tile_jobs(planes, dev: torch.device, tile: int = 16384) -> tuple[torch.Tensor, int]:
-    """The tile layout's (n_jobs, 8) int32 job rows, one per (plane,
-    bucket tile): kind, lane, mult, salt, shift, lo, width, plane offset."""
-    rows = [(pl.kind, pl.lane, pl.mult, pl.salt, 32 - pl.log2_width, lo,
+def _equal_slices(n: int, n_jobs: int, tile: int) -> int:
+    """Rows a block in the earlier kernel: 512 blocks' worth of row
+    slices spread over the jobs, no slice shorter than a tile."""
+    chunks = max(1, min(-(-512 // n_jobs), -(-n // tile)))
+    return -(-n // chunks)
+
+
+def tile_jobs(planes, n: int, dev: torch.device, balanced: bool = False,
+              tile: int = 16384) -> tuple[torch.Tensor, int]:
+    """The tile layout's (n_blocks, 10) int32 job rows, one per (plane,
+    bucket tile, row slice): kind, lane, mult, salt, shift, lo, width,
+    plane offset, first row, end row. The earlier kernel gives every job
+    the same row slices; `balanced` gives each job slices in proportion
+    to its work per row (KIND_COST and a key lane and the weights read),
+    K.TARGET_BLOCKS blocks in all, at least THREADS rows a block."""
+    jobs = [(pl.kind, pl.lane, pl.mult, pl.salt, 32 - pl.log2_width, lo,
              min(tile, pl.width - lo), pl.offset)
             for pl in planes for lo in range(0, pl.width, tile)]
-    table = np.array(rows, dtype=np.int64)
+    if balanced:
+        cost = [K.KIND_COST[j[0]] + 2 * K.LANE_COST for j in jobs]
+        parts = [1] * len(jobs)
+        most = max(1, n // THREADS)
+        for _ in range(max(0, K.TARGET_BLOCKS - len(jobs))):
+            ji = max((j for j in range(len(jobs)) if parts[j] < most),
+                     key=lambda j: cost[j] / parts[j], default=None)
+            if ji is None:
+                break
+            parts[ji] += 1
+        slices = [K._row_slices(n, p) for p in parts]
+    else:
+        rows = _equal_slices(n, len(jobs), max(j[6] for j in jobs))
+        slices = [[(r, min(n, r + rows)) for r in range(0, n, rows)]] * len(jobs)
+    table = np.array([job + s for job, sl in zip(jobs, slices) for s in sl], dtype=np.int64)
     table = np.where(table >= 1 << 31, table - (1 << 32), table).astype(np.int32)
-    return torch.from_numpy(table).to(dev), max(r[6] for r in rows)
+    return torch.from_numpy(table).to(dev), max(j[6] for j in jobs)
 
 
 def plane_groups(geom: K.FusedGeometry) -> dict[str, tuple]:
@@ -174,11 +202,13 @@ def probe(seed: int) -> dict:
     report: dict = {}
 
     tables = {}
+    k1_plane = K.Plane(K.HIST, K.LANE_DIST, int(_row_multiplier(0)), 0, geom.ent_log2_width,
+                       1 << geom.ent_log2_width, 0)
 
-    def tiles(planes, phases: int) -> None:
-        if planes not in tables:
-            tables[planes] = tile_jobs(planes, dev)
-        jobs, max_tile = tables[planes]
+    def tiles(planes, phases: int, balanced: bool = False) -> None:
+        if (planes, balanced) not in tables:
+            tables[planes, balanced] = tile_jobs(planes, batch, dev, balanced)
+        jobs, max_tile = tables[planes, balanced]
         check(lib.ig_probe_tiles(*lane_ptrs, jobs.data_ptr(), jobs.shape[0], max_tile,
                                  geom.qt_buckets, out.data_ptr(), batch, phases, stream(dev)),
               "ig_probe_tiles")
@@ -190,6 +220,15 @@ def probe(seed: int) -> dict:
         "whole_ms": time_cuda(lambda: tiles(geom.planes, 3)),
         "by_group_ms": {name: time_cuda(lambda g=g: tiles(g, 3))
                         for name, g in plane_groups(geom).items()},
+        "balanced_whole_ms": time_cuda(lambda: tiles(geom.planes, 3, True)),
+        "balanced_zero_ms": time_cuda(lambda: tiles(geom.planes, 0, True)),
+        "balanced_zero_tally_ms": time_cuda(lambda: tiles(geom.planes, 1, True)),
+        "blocks": tile_jobs(geom.planes, batch, dev)[0].shape[0],
+        "balanced_blocks": tile_jobs(geom.planes, batch, dev, True)[0].shape[0],
+        "k1_whole_ms": time_cuda(lambda: tiles((k1_plane,), 3)),
+        "k1_balanced_whole_ms": time_cuda(lambda: tiles((k1_plane,), 3, True)),
+        "k1_blocks": tile_jobs((k1_plane,), batch, dev)[0].shape[0],
+        "k1_balanced_blocks": tile_jobs((k1_plane,), batch, dev, True)[0].shape[0],
     }
     progress("tiles", report["tiles"])
     scratch = torch.zeros(65536 + 256, dtype=torch.int32, device=dev)
