@@ -319,7 +319,7 @@ def main() -> int:
                         1 << prod["entropy_log2_width"], 0)
     report["plans"] = {}
     for name, planes in (("K1", (ent_plane,)), ("K2", full.planes)):
-        plan = K.launch_plan(planes, batch)
+        plan = K.launch_plan(planes, batch, K.sm_count(dev))
         info = dict(plan.summary(), max_active_clusters=K.plan_occupancy(plan))
         report["plans"][name] = info
         log(f"[plan] {name} at batch {batch}: {info}")

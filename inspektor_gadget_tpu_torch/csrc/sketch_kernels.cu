@@ -16,7 +16,8 @@
 // each bucket of the output written once: 2.6 MB in and 1.3 MB out for K2
 // at the production geometry (batch 2^17; count-min 4 x 2^16, entropy
 // 2^12, HLL 2^14, invertible 3 x 3 x 2^12, DDSketch 2048), about 1.2 us of
-// memory. What they wait on instead (sketch_probe.py, on an H100 SXM):
+// memory. What they wait on instead (measured on an H100 SXM with
+// sketch_probe.py, a probe since taken out of the tree; git keeps it):
 // fixed costs of ~9 us a call (launch, zeroing and scanning the tiles,
 // two cluster barriers, the tiles' reduction), the lanes read again by
 // every group that needs them (22.5 MB from L2), and ~0.3M device
@@ -42,7 +43,8 @@
 //   hashes each of its rows once per segment (plane range) of the group;
 //   the three lanes of an invertible row share one hash.
 // - Rows. Each group's rows are cut into slices so that blocks carry about
-//   equal work; a cluster of 2 blocks takes a slice, a block half of it in
+//   equal work, 3 blocks for each SM of the card in all; a cluster of 2
+//   blocks takes a slice, a block half of it in
 //   4-row units: 16-byte loads where the lane's view starts on 16 bytes,
 //   4-byte loads where not (rows of a (5, n) tensor with odd n) and for
 //   the ragged tail. A key lane is loaded when the first segment of the
@@ -61,11 +63,11 @@
 // and __reduce_add_sync (the layout tried first): on this card an atomic
 // into another block's shared memory ran at 1/6 to 1/7 the rate of one
 // into the block's own, and combining a warp's equal keys first cost
-// 6-9x the atomics it saved (sketch_probe.py's atomic rates); that
+// 6-9x the atomics it saved (the probe's atomic rates); that
 // kernel took 0.085 ms. Clusters of 1 and 4 and tiles of 8192 and 32768
 // buckets were slower than this layout too (PERF.md).
 // Per call at the production geometry on chip_smoke.py's timing input
-// (`python -m inspektor_gadget_tpu_torch.sketch_probe --counts`): K2
+// (layout_counts in tests/test_torch_sketch_layout.py, which pins them): K2
 // reads 22.5 MB of lanes (mostly from L2), makes 3.1M key hashes and
 // 1.87M shared-memory atomics, reads 3.1M words of the other block's
 // tile, and makes 0.32M device atomics, over 396 blocks (198 clusters of
@@ -321,33 +323,41 @@ size_t smem_bytes(int tile_words, int max_segments) {
          (size_t)max_segments * kSegmentFields * sizeof(int32_t);
 }
 
-// cudaFuncSetAttribute once per size (raised, never lowered), and the
-// largest number of clusters of `cluster` blocks the card co-schedules
-// at this size, asked once per (size, cluster). 0 means no GPC can host
-// one cluster: the launch would be refused.
+// cudaFuncSetAttribute once per (device, size), raised, never lowered: the
+// attribute holds for the current device only. The largest number of
+// clusters of `cluster` blocks a device co-schedules at a size, asked
+// once per (device, size, cluster). 0 means no GPC can host one cluster:
+// the launch would be refused.
+constexpr int kMaxDevices = 64;
 std::mutex g_mu;
-size_t g_smem_set = 0;
+size_t g_smem_set[kMaxDevices] = {};
 struct Occupancy {
+  int device;
   size_t smem;
   int cluster;
   int clusters;
 };
-Occupancy g_occ[32];
+Occupancy g_occ[64];
 int g_n_occ = 0;
 
 cudaError_t prepare(size_t smem, int cluster, int* max_clusters) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   std::lock_guard<std::mutex> lock(g_mu);
   for (int i = 0; i < g_n_occ; ++i) {
-    if (g_occ[i].smem == smem && g_occ[i].cluster == cluster) {
-      *max_clusters = g_occ[i].clusters;
+    const Occupancy& o = g_occ[i];
+    if (o.device == device && o.smem == smem && o.cluster == cluster) {
+      *max_clusters = o.clusters;
       return cudaSuccess;
     }
   }
-  if (smem > g_smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_planes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (smem > g_smem_set[device]) {
+    err = cudaFuncSetAttribute(fused_planes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
     if (err != cudaSuccess) return err;
-    g_smem_set = smem;
+    g_smem_set[device] = smem;
   }
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
@@ -361,9 +371,9 @@ cudaError_t prepare(size_t smem, int cluster, int* max_clusters) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int n = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, fused_planes_kernel, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&n, fused_planes_kernel, &cfg);
   if (err != cudaSuccess) return err;
-  if (g_n_occ < 32) g_occ[g_n_occ++] = Occupancy{smem, cluster, n};
+  if (g_n_occ < 64) g_occ[g_n_occ++] = Occupancy{device, smem, cluster, n};
   *max_clusters = n;
   return cudaSuccess;
 }
@@ -385,26 +395,24 @@ extern "C" int ig_fused_planes_occupancy(int cluster, int tile_words, int max_se
 }
 
 // items: (n_items, 8) int32 rows, segments: (n_segments, 8) int32 rows,
-// both on the device (ops/kernels.py `LaunchPlan`); out: the zeroed flat
-// delta buffer. grid_clusters: the clusters launched, which walk the
-// items; 0 for as many as the card runs at once (at most n_items).
+// both on the current device (ops/kernels.py `LaunchPlan`); out: the
+// zeroed flat delta buffer. As many clusters as the device runs at once
+// (at most n_items) are launched, and walk the items.
 extern "C" int ig_fused_planes(const void* hh, const void* distinct, const void* dist,
                                const void* values, const void* weights, const void* items,
-                               const void* segments, int n_items, int grid_clusters,
-                               int cluster,
+                               const void* segments, int n_items, int cluster,
                                int tile_words, int max_segments, float ilg, float neg_off,
                                float min_value, int qt_buckets, void* out, int n,
                                void* stream) {
-  if (!plan_ok(cluster, tile_words, max_segments) || n_items < 1 || grid_clusters < 0 ||
-      grid_clusters > n_items || (long long)n_items * cluster > 0x7FFFFFFFLL || n < 1)
+  if (!plan_ok(cluster, tile_words, max_segments) || n_items < 1 ||
+      (long long)n_items * cluster > 0x7FFFFFFFLL || n < 1)
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(tile_words, max_segments);
   int max_clusters = 0;
   cudaError_t err = prepare(smem, cluster, &max_clusters);
   if (err != cudaSuccess) return (int)err;
   if (max_clusters < 1) return (int)cudaErrorInvalidConfiguration;
-  const int grid = grid_clusters > 0 ? grid_clusters
-                 : n_items < max_clusters ? n_items : max_clusters;
+  const int grid = n_items < max_clusters ? n_items : max_clusters;
   Batch batch;
   batch.lane[0] = (const uint32_t*)hh;
   batch.lane[1] = (const uint32_t*)distinct;

@@ -44,14 +44,14 @@ HIST, HLL, INV_COUNT, INV_KEYSUM, INV_FPSUM, QUANT = range(6)
 LANE_HH, LANE_DISTINCT, LANE_DIST, LANE_VALUES = range(4)
 
 # The launch plan's limits (csrc/sketch_kernels.cu: kThreads, kMaxCluster,
-# kMaxSegments, kMaxSmem) and what it aims for.
+# kMaxSegments, kMinBlocks, kMaxSmem) and its layout, the fastest measured
+# on the H100 (PERF.md).
 THREADS = 512
 MAX_CLUSTER = 8           # the portable cluster size
 CLUSTER = 2               # blocks that add their tiles together before the flush
-TILE_LOG2 = 14            # buckets a block holds: 16384 (64 KB, 3 blocks an SM)
+TILE_LOG2 = 14            # buckets a block holds: 16384 (64 KB)
 MAX_SEGMENTS = 64         # segments of one group
-SMS = 132                 # the H100 SXM's streaming multiprocessors
-TARGET_BLOCKS = 3 * SMS   # one wave at 3 blocks an SM
+BLOCKS_PER_SM = 3         # 64 KB tiles, registers capped to fit: one wave of blocks
 SMEM_LIMIT = 232_448      # shared memory a block may use on sm_90
 CLUSTER_FIELDS = 8        # csrc kClusterFields
 SEGMENT_FIELDS = 8        # csrc kSegmentFields
@@ -64,8 +64,8 @@ LANE_COST = 1
 
 def _bind(lib) -> None:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ig_fused_planes.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, f, f, f, i, vp,
-                                    i, vp]
+    lib.ig_fused_planes.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, f, f, f, i, vp, i,
+                                    vp]
     lib.ig_fused_planes.restype = i
     lib.ig_fused_planes_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.ig_fused_planes_occupancy.restype = i
@@ -226,27 +226,24 @@ def _groups(planes: tuple[Plane, ...], tile: int) -> list[Group]:
 
 
 @functools.lru_cache(maxsize=256)
-def launch_plan(planes: tuple[Plane, ...], n: int, cluster: int = CLUSTER,
-                tile_log2: int = TILE_LOG2, target_blocks: int = TARGET_BLOCKS) -> LaunchPlan:
-    """The launch plan of `planes` over a batch of n > 0 rows.
+def launch_plan(planes: tuple[Plane, ...], n: int, sms: int) -> LaunchPlan:
+    """The launch plan of `planes` over a batch of n > 0 rows on a card
+    of `sms` streaming multiprocessors.
 
-    - Groups: the planes' buckets cut into groups of 2**tile_log2 (fewer
+    - Groups: the planes' buckets cut into groups of 2**TILE_LOG2 (fewer
       where all the planes together hold fewer).
-    - Slices: each group's rows are cut into slices of `cluster` blocks,
-      at most `target_blocks` blocks in all and at least THREADS rows a
+    - Slices: each group's rows are cut into slices of CLUSTER blocks, at
+      most BLOCKS_PER_SM blocks an SM in all and at least THREADS rows a
       block, each next slice going to the group whose slices carry the
       most work (KIND_COST a segment and LANE_COST a key lane, per row).
-
-    The defaults are the choices measured fastest on the card
-    (sketch_probe.py times the others).
     """
-    tile = min(1 << tile_log2, _round4(sum(pl.width for pl in planes)))
+    tile = min(1 << TILE_LOG2, _round4(sum(pl.width for pl in planes)))
     groups = _groups(planes, tile)
     cost = [sum(KIND_COST[planes[s.plane].kind] for s in g.segments)
             + LANE_COST * (1 + len({planes[s.plane].lane for s in g.segments})) for g in groups]
-    most = max(1, n // (cluster * THREADS))
+    most = max(1, n // (CLUSTER * THREADS))
     parts = [1] * len(groups)
-    for _ in range(max(0, target_blocks // cluster - len(groups))):
+    for _ in range(max(0, BLOCKS_PER_SM * sms // CLUSTER - len(groups))):
         # one more slice to the group whose slices carry the most work
         gi = max((g for g in range(len(groups)) if parts[g] < most),
                  key=lambda g: cost[g] / parts[g], default=None)
@@ -254,7 +251,13 @@ def launch_plan(planes: tuple[Plane, ...], n: int, cluster: int = CLUSTER,
             break
         parts[gi] += 1
     slices = [(gi, r0, r1) for gi in range(len(groups)) for r0, r1 in _row_slices(n, parts[gi])]
-    return LaunchPlan(planes, n, cluster, tile, tuple(groups), tuple(slices))
+    return LaunchPlan(planes, n, CLUSTER, tile, tuple(groups), tuple(slices))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(dev: torch.device) -> int:
+    """Streaming multiprocessors of CUDA device `dev`."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 @functools.lru_cache(maxsize=256)
@@ -276,22 +279,22 @@ def plan_occupancy(plan: LaunchPlan) -> int:
 def launch_planes(planes: tuple[Plane, ...], lanes, w: torch.Tensor,
                   vals: torch.Tensor | None, n: int, dev: torch.device, ilg: float = 0.0,
                   neg_off: float = 0.0, min_value: float = 0.0,
-                  qt_buckets: int = 0, plan: LaunchPlan | None = None) -> torch.Tensor:
+                  qt_buckets: int = 0) -> torch.Tensor:
     """Zero the flat int32 delta buffer of `planes` and launch
-    ig_fused_planes on it under `plan` (default `launch_plan`), as many
-    clusters as the card runs at once walking the plan's items. No launch
-    for an empty batch."""
+    ig_fused_planes on it under the card's `launch_plan`, as many clusters
+    as the card runs at once walking the plan's items. No launch for an
+    empty batch."""
     last = planes[-1]
     out = torch.zeros(last.offset + last.width, dtype=torch.int32, device=dev)
     if n == 0:
         return out
-    plan = plan or launch_plan(planes, n)
+    plan = launch_plan(planes, n, sm_count(dev))
     clusters, segments = _device_tables(plan, dev)
     lib = LIBRARY.get()
     with torch.cuda.device(dev):
         check(lib.ig_fused_planes(
             *(x.data_ptr() for x in lanes), vals.data_ptr() if vals is not None else None,
-            w.data_ptr(), clusters.data_ptr(), segments.data_ptr(), plan.n_clusters, 0,
+            w.data_ptr(), clusters.data_ptr(), segments.data_ptr(), plan.n_clusters,
             plan.cluster, plan.tile_words, plan.max_segments, ilg, neg_off, min_value,
             qt_buckets, out.data_ptr(), n, stream(dev)), "ig_fused_planes")
     return out

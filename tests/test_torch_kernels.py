@@ -19,7 +19,7 @@ import torch
 
 from inspektor_gadget_tpu.ops.pallas_kernels import fused_sketch_planes as ref_fused
 from inspektor_gadget_tpu.ops.pallas_kernels import xla_histogram
-from inspektor_gadget_tpu_torch import native, sketch_probe
+from inspektor_gadget_tpu_torch import native
 from inspektor_gadget_tpu_torch.ops import kernels as K
 from inspektor_gadget_tpu_torch.parallel import flash_attention as FA
 from inspektor_gadget_tpu_torch.ops.hashing import _row_multiplier
@@ -108,7 +108,7 @@ def test_job_table_tiles_every_plane_exactly(geom):
     """The launch plan's segment table covers each plane's buckets once,
     each group within one block's shared-memory tile, and no plane is
     padded to the widest."""
-    plan = K.launch_plan(geom.planes, 1 << 17)
+    plan = K.launch_plan(geom.planes, 1 << 17, 132)
     clusters, segments = plan.tables()
     assert segments.shape[1] == K.SEGMENT_FIELDS
     covered = np.zeros(geom.total, np.int64)
@@ -137,7 +137,7 @@ def test_job_table_of_one_histogram_plane(log2_width):
     as int32 bit patterns."""
     mult, salt = int(_row_multiplier(3)), 0xDEADBEEF
     plane = K.Plane(K.HIST, K.LANE_HH, mult, salt, log2_width, 1 << log2_width, 0)
-    plan = K.launch_plan((plane,), 1 << 17)
+    plan = K.launch_plan((plane,), 1 << 17, 132)
     clusters, segments = plan.tables()
     tiles = max(1, (1 << log2_width) >> K.TILE_LOG2)
     assert plan.tile == min(1 << log2_width, 1 << K.TILE_LOG2) and len(plan.groups) == tiles
@@ -163,8 +163,7 @@ def test_wrappers_refuse_mixed_devices_and_missing_values():
         K.histogram(meta, x, log2_width=6)
 
 
-LIBRARIES = {"sketch_kernels.cu": K.LIBRARY, "flash_attention.cu": FA.LIBRARY,
-             "sketch_probe.cu": sketch_probe.LIBRARY}
+LIBRARIES = {"sketch_kernels.cu": K.LIBRARY, "flash_attention.cu": FA.LIBRARY}
 
 
 def test_every_cuda_source_has_its_own_library():

@@ -26,10 +26,13 @@ import pytest
 import torch
 
 from inspektor_gadget_tpu_torch.ops import kernels as K
-from inspektor_gadget_tpu_torch.ops.hashing import _row_multiplier, fmix32_np, row_salt
+from inspektor_gadget_tpu_torch.ops.hashing import (_row_multiplier, fmix32_np, hashed_bucket,
+                                                    row_salt)
 from inspektor_gadget_tpu_torch.ops.hll import hll_index_rank
 from inspektor_gadget_tpu_torch.ops.invertible import FP_SALT
 from inspektor_gadget_tpu_torch.ops.quantiles import bucket_index
+from inspektor_gadget_tpu_torch.sources import ZipfFoldedSource
+from inspektor_gadget_tpu_torch.sources.synthetic import DIST, DISTINCT, HH, VALUES, WEIGHTS
 
 torch.set_num_threads(2)
 
@@ -43,6 +46,7 @@ GEOMETRIES = {
     "count-min 2**20": dataclasses.replace(PRODUCTION, log2_width=20),
 }
 BATCH = 1 << 17
+H100_SMS = 132  # the H100 SXM's streaming multiprocessors
 
 
 def hist_plane(log2_width: int) -> K.Plane:
@@ -71,7 +75,7 @@ def test_plan_owns_every_bucket_once(name):
     flushed by exactly one block of each of its clusters; each group is
     one contiguous range of the flat buffer, held whole by a block."""
     planes = PLANE_SETS[name]
-    plan = K.launch_plan(planes, BATCH)
+    plan = K.launch_plan(planes, BATCH, H100_SMS)
     total = planes[-1].offset + planes[-1].width
     owners = np.zeros(total, np.int64)
     for g in plan.groups:
@@ -92,7 +96,7 @@ def test_plan_owns_every_bucket_once(name):
 @pytest.mark.parametrize("name", sorted(PLANE_SETS))
 @pytest.mark.parametrize("n", [1, 33, 100003, BATCH])
 def test_plan_gives_every_row_to_one_block_per_group(name, n):
-    plan = K.launch_plan(PLANE_SETS[name], n)
+    plan = K.launch_plan(PLANE_SETS[name], n, H100_SMS)
     for gi in range(len(plan.groups)):
         seen = np.zeros(n, np.int64)
         for c, (g, _, _) in enumerate(plan.slices):
@@ -112,7 +116,7 @@ def test_plan_hashes_each_plane_once_per_row_and_tile(name):
     per row for each tile-wide range of it (one for a plane no wider than
     a tile, four for a 65536-wide count-min row at 16384-bucket tiles)."""
     planes = PLANE_SETS[name]
-    plan = K.launch_plan(planes, BATCH)
+    plan = K.launch_plan(planes, BATCH, H100_SMS)
     for i, pl in enumerate(planes):
         holders = [g for g in plan.groups if any(s.plane == i for s in g.segments)]
         assert all(sum(s.plane == i for s in g.segments) == 1 for g in holders)
@@ -125,7 +129,7 @@ def test_plan_hashes_each_plane_once_per_row_and_tile(name):
 def test_plan_fits_the_card(name):
     """Shared memory a block within sm_90's 227 KB, a grid of whole
     clusters of at most 8 blocks, tables in the kernel's layout."""
-    plan = K.launch_plan(PLANE_SETS[name], BATCH)
+    plan = K.launch_plan(PLANE_SETS[name], BATCH, H100_SMS)
     assert plan.smem_bytes <= K.SMEM_LIMIT
     assert 1 <= plan.cluster <= K.MAX_CLUSTER and plan.blocks % plan.cluster == 0
     assert plan.max_segments <= K.MAX_SEGMENTS
@@ -138,19 +142,19 @@ def test_plan_fits_the_card(name):
 
 @pytest.mark.parametrize("name", ["production", "K1 2**12", "K1 2**16", "K1 2**17"])
 def test_plan_fills_the_card_at_production(name):
-    plan = K.launch_plan(PLANE_SETS[name], BATCH)
-    assert plan.blocks >= K.SMS and plan.cluster > 1
+    plan = K.launch_plan(PLANE_SETS[name], BATCH, H100_SMS)
+    assert plan.blocks >= H100_SMS and plan.cluster > 1
 
 
 def test_production_plan_layout():
     """K2 at production: clusters of 2 over 16384-bucket tiles (64 KB a
     block): four groups a count-min row, four for the other 12 planes
     (59392 buckets), about one wave of 3 blocks an SM."""
-    plan = K.launch_plan(PRODUCTION.planes, BATCH)
+    plan = K.launch_plan(PRODUCTION.planes, BATCH, H100_SMS)
     assert plan.cluster == K.CLUSTER == 2 and plan.tile == 16384
     assert [g.size for g in plan.groups] == [16384] * 19 + [10240]
     assert [len(g.segments) for g in plan.groups[16:]] == [2, 4, 4, 3]
-    assert K.SMS <= plan.blocks <= 3 * K.SMS
+    assert H100_SMS <= plan.blocks <= K.BLOCKS_PER_SM * H100_SMS
 
 
 # -- the kernel's partition, emulated --------------------------------------------
@@ -250,7 +254,7 @@ def _plain(geom, lanes, w):
 def test_emulated_layout_equals_fused_planes_plain(stream, n):
     lanes, w = _stream(stream, n, seed=n + len(stream))
     want = _plain(PRODUCTION, lanes, w)
-    got = emulate(K.launch_plan(PRODUCTION.planes, n), lanes, w, PRODUCTION) if n else \
+    got = emulate(K.launch_plan(PRODUCTION.planes, n, H100_SMS), lanes, w, PRODUCTION) if n else \
         np.zeros_like(want)
     assert np.array_equal(got, want)
 
@@ -262,7 +266,7 @@ def test_emulated_layout_equals_histogram_plain(log2_width, stream):
     plane = hist_plane(log2_width)
     want = K.histogram_plain(torch.from_numpy(lanes[0]), torch.from_numpy(w),
                              log2_width=log2_width, mult=plane.mult, salt=plane.salt)
-    got = emulate(K.launch_plan((plane,), 20011), lanes, w)
+    got = emulate(K.launch_plan((plane,), 20011, H100_SMS), lanes, w)
     assert np.array_equal(got, want.numpy().view(np.uint32))
 
 
@@ -270,36 +274,109 @@ def test_emulated_layout_equals_histogram_plain(log2_width, stream):
 def test_emulated_layout_equals_plain_at_other_geometries(name):
     geom = GEOMETRIES[name]
     lanes, w = _stream("zipf", 50021, seed=7)
-    assert np.array_equal(emulate(K.launch_plan(geom.planes, 50021), lanes, w, geom),
+    assert np.array_equal(emulate(K.launch_plan(geom.planes, 50021, H100_SMS), lanes, w, geom),
                           _plain(geom, lanes, w))
 
 
 @pytest.mark.parametrize("fault", ["owned twice", "tail dropped"])
 def test_faulty_layouts_are_caught(fault):
     lanes, w = _stream("zipf", 100003, seed=3)
-    plan = K.launch_plan(PRODUCTION.planes, 100003)
+    plan = K.launch_plan(PRODUCTION.planes, 100003, H100_SMS)
     got = emulate(plan, lanes, w, PRODUCTION, fault=fault)
     assert not np.array_equal(got, _plain(PRODUCTION, lanes, w))
 
 
+def _plane_buckets(pl: K.Plane, keys: torch.Tensor, w: torch.Tensor,
+                   geom) -> tuple[np.ndarray, np.ndarray]:
+    """(bucket, whether the row adds anything) of each row in plane `pl`."""
+    add = w.numpy() != 0
+    if pl.kind == K.HLL:
+        return hll_index_rank(keys, pl.log2_width)[0].numpy(), add
+    if pl.kind == K.QUANT:
+        b = bucket_index(keys, alpha=geom.qt_alpha, min_value=geom.qt_min_value,
+                         n_buckets=geom.qt_buckets).numpy()
+        return b, add & (keys.numpy() != 0)
+    return hashed_bucket(keys, pl.mult, pl.salt, pl.log2_width).numpy(), add
+
+
+def layout_counts(plan: K.LaunchPlan, lanes, w: torch.Tensor, geom=None) -> dict:
+    """The work of one ig_fused_planes call under `plan` on one batch
+    (CPU tensors, the four key lanes in LANE_* order), counted on the host
+    as the kernel partitions it: bytes of lanes read (each group reads its
+    key lanes and the weights once per row), key hashes (the lanes of an
+    invertible row share one), shared-memory atomics (one per row and
+    segment that adds), words read from other blocks' shared memory in
+    the clusters' reduction, and device atomics of the flush (one per
+    nonzero bucket of a cluster's sum)."""
+    n = plan.n
+    out = {"bytes_read": 0, "hashes": 0, "shared_atomics": 0, "dsmem_words_read": 0,
+           "global_atomics": 0}
+    cluster = np.zeros(n, np.int64)
+    for gi, g in enumerate(plan.groups):
+        for c, (gc, r0, r1) in enumerate(plan.slices):
+            if gc == gi:
+                cluster[r0:r1] = c
+                out["dsmem_words_read"] += (plan.cluster - 1) * g.size
+        segs = [(plan.planes[sg.plane], sg) for sg in g.segments]
+        out["bytes_read"] += 4 * n * (1 + len({pl.lane for pl, _ in segs}))
+        out["hashes"] += n * len({(pl.lane, pl.mult, pl.salt, pl.log2_width)
+                                  if pl.kind not in (K.HLL, K.QUANT) else (pl.kind,)
+                                  for pl, _ in segs})
+        nonzero = set()
+        for pl, sg in segs:
+            b, add = _plane_buckets(pl, lanes[pl.lane], w, geom)
+            b = b - sg.lo
+            keep = add & (b >= 0) & (b < sg.width)
+            out["shared_atomics"] += int(keep.sum())
+            nonzero.update(zip(cluster[keep].tolist(), (sg.base + b[keep]).tolist()))
+        out["global_atomics"] += len(nonzero)
+    return out
+
+
+def _unshared(plan: K.LaunchPlan) -> K.LaunchPlan:
+    """The same partition of rows with each block in a cluster of its own:
+    no block adds another's tile before the flush."""
+    slices = tuple((plan.slices[c][0],) + plan.block_rows(c, r)
+                   for c in range(plan.n_clusters) for r in range(plan.cluster))
+    return dataclasses.replace(plan, cluster=1, slices=slices)
+
+
 def test_layout_counts_follow_the_plan():
-    """sketch_probe.layout_counts (the per-call counts PERF.md quotes):
-    each group reads its key lanes and the weights once, one hash per
+    """Each group reads its key lanes and the weights once, one hash per
     (row, distinct hash) of a group, one shared atomic per (row, segment)
-    that adds, and a cluster's flush touches fewer buckets when its blocks
-    share their tiles."""
-    from inspektor_gadget_tpu_torch.sketch_probe import layout_counts
+    that adds, and a cluster's flush touches fewer buckets than its blocks
+    would flush alone."""
     geom = GEOMETRIES["no optional planes"]
     n = 20011
     lanes, w = _stream("zipf", n, seed=5)
     t = [torch.from_numpy(x.view(np.int32)) for x in lanes]
-    counts = {c: layout_counts(K.launch_plan(geom.planes, n, c), t, torch.from_numpy(w), geom)
-              for c in (1, 2)}
-    plan = K.launch_plan(geom.planes, n, 2)
+    plan = K.launch_plan(geom.planes, n, H100_SMS)
+    counts = {c: layout_counts(p, t, torch.from_numpy(w), geom)
+              for c, p in ((2, plan), (1, _unshared(plan)))}
     lanes_read = sum(1 + len({geom.planes[s.plane].lane for s in g.segments})
                      for g in plan.groups)
-    assert counts[2]["bytes_read"] == 4 * n * lanes_read
+    assert counts[2]["bytes_read"] == counts[1]["bytes_read"] == 4 * n * lanes_read
     assert counts[2]["shared_atomics"] == counts[1]["shared_atomics"] == \
         int((w != 0).sum()) * len(geom.planes)
     assert 0 < counts[2]["global_atomics"] < counts[1]["global_atomics"]
     assert counts[1]["dsmem_words_read"] == 0 < counts[2]["dsmem_words_read"]
+
+
+def test_layout_counts_at_production():
+    """The per-call counts of K2 and K1 that the source note and PERF.md
+    give, at the production geometry on the zipf stream chip_smoke.py
+    times the kernels on (ragged tail, every 7th weight 3 and every 13th
+    0; its DDSketch edge values left out)."""
+    host = ZipfFoldedSource(43).generate(BATCH, valid=BATCH - 4321)
+    host[WEIGHTS, ::7] *= 3
+    host[WEIGHTS, ::13] = 0
+    t = torch.from_numpy(host.view(np.int32))
+    keys = [t[j] for j in (HH, DISTINCT, DIST, VALUES)]
+    k2 = layout_counts(K.launch_plan(PRODUCTION.planes, BATCH, H100_SMS), keys, t[WEIGHTS],
+                       PRODUCTION)
+    assert k2 == {"bytes_read": 22544384, "hashes": 3145728, "shared_atomics": 1870848,
+                  "dsmem_words_read": 3115008, "global_atomics": 318690}
+    k1 = layout_counts(K.launch_plan((hist_plane(12),), BATCH, H100_SMS), [t[DIST]] * 4,
+                       t[WEIGHTS])
+    assert k1 == {"bytes_read": 1048576, "hashes": 131072, "shared_atomics": 117000,
+                  "dsmem_words_read": 524288, "global_atomics": 33198}
