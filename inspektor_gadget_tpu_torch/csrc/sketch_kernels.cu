@@ -18,10 +18,10 @@
 // 2^12, HLL 2^14, invertible 3 x 3 x 2^12, DDSketch 2048), about 1.2 us of
 // memory. What they wait on instead (measured on an H100 SXM with
 // sketch_probe.py, a probe since taken out of the tree; git keeps it):
-// fixed costs of ~9 us a call (launch, zeroing and scanning the tiles,
-// two cluster barriers, the tiles' reduction), the lanes read again by
-// every group that needs them (22.5 MB from L2), and ~0.3M device
-// atomics in the flush. Atomic contention is not among them: a block's
+// a fixed ~5.7 us a call (the launch and the zeroing of every block's
+// tile), the tally, in which each (plane, tile) job reads its key lane
+// and the weights again (29 MB, mostly from L2), and ~0.3M device atomics
+// in the flush. Atomic contention is not among them: a block's
 // shared-memory atomics run as fast at the zipf stream's buckets (its top
 // key is 21% of it) as at uniform ones.
 //
@@ -36,44 +36,38 @@
 // order the blocks run.
 //
 // The layout (ops/kernels.py LaunchPlan), chosen by measurement:
-// - Groups. The planes' buckets, in the flat buffer's order, are cut into
-//   groups of one 16384-bucket tile (64 KB, 3 blocks an SM): four a
-//   count-min row, four for the other 12 planes at the production
-//   geometry. A block holds its group's tile whole in shared memory and
-//   hashes each of its rows once per segment (plane range) of the group;
-//   the three lanes of an invertible row share one hash.
-// - Rows. Each group's rows are cut into slices so that blocks carry about
-//   equal work, 3 blocks for each SM of the card in all; a cluster of 2
-//   blocks takes a slice, a block half of it in
-//   4-row units: 16-byte loads where the lane's view starts on 16 bytes,
+// - Jobs. Each plane is cut into tiles of at most 16384 buckets (64 KB of
+//   shared memory): four a 65536-wide count-min row, one for each other
+//   plane at the production geometry, 28 in all.
+// - Rows. Each job's rows are cut into slices in proportion to its work a
+//   row (a DDSketch bucket costs about three hashes), 3 blocks for each
+//   SM of the card in all and at least 512 rows a block, so that no block
+//   walks much longer than another. One block a (job, slice).
+// - Tally. A block zeroes its tile, then its threads take 4 rows at a
+//   time: 16-byte loads where the lane's view puts the row on 16 bytes,
 //   4-byte loads where not (rows of a (5, n) tensor with odd n) and for
-//   the ragged tail. A key lane is loaded when the first segment of the
-//   group that reads it comes up, which keeps the kernel at 40 registers,
-//   3 blocks of 512 threads an SM. The clusters walk the (group, slice)
-//   items, as many clusters as the card runs at once.
-// - Tally. One shared-memory atomic a row and segment, into the block's
-//   own tile.
-// - Flush. After a cluster barrier the two blocks add their tiles
-//   together through distributed shared memory, each half the buckets,
-//   and add the nonzero sums into the zeroed output with one device
-//   atomic each (atomicMax on the HLL range).
-// Why not one group spread over a cluster's blocks, every row hashed
-// once per plane and added into the owning block through distributed
-// shared memory, equal keys of a warp combined first by __match_any_sync
-// and __reduce_add_sync (the layout tried first): on this card an atomic
-// into another block's shared memory ran at 1/6 to 1/7 the rate of one
-// into the block's own, and combining a warp's equal keys first cost
-// 6-9x the atomics it saved (the probe's atomic rates); that
-// kernel took 0.085 ms. Clusters of 1 and 4 and tiles of 8192 and 32768
-// buckets were slower than this layout too (PERF.md).
+//   the ragged tail. One shared-memory atomic a row that adds.
+// - Flush. One device atomic a nonzero bucket of the tile into the
+//   zeroed output (atomicMax for HLL ranks).
+// Why not thread block clusters (the layout first proposed, and then a
+// second one): with each job's tile spread over a cluster of 4 blocks,
+// every row hashed once per plane and added into the owning block
+// through distributed shared memory after equal keys of a warp were
+// combined (__match_any_sync, __reduce_add_sync), K2 took 0.085 ms: an
+// atomic into another block's shared memory ran at 1/6 to 1/7 the rate
+// of one into the block's own, and combining a warp's keys first cost
+// 6-9x the atomics it saved. With block-local tiles whose pairs were
+// added through distributed shared memory before the flush, K2 took
+// 0.0207 ms: the pair reduction and two cluster barriers cost a fixed
+// ~3 us, more than the flush atomics they saved. This layout took
+// 0.0171 ms in the same run (PERF.md).
 // Per call at the production geometry on chip_smoke.py's timing input
-// (layout_counts in tests/test_torch_sketch_layout.py, which pins them): K2
-// reads 22.5 MB of lanes (mostly from L2), makes 3.1M key hashes and
-// 1.87M shared-memory atomics, reads 3.1M words of the other block's
-// tile, and makes 0.32M device atomics, over 396 blocks (198 clusters of
-// 2, 65.7 KB of shared memory a block); K1 (entropy, 2^12) reads 1.0 MB,
-// hashes 131K keys, makes 117K shared-memory and 33K device atomics over
-// 256 blocks (128 clusters of 2, 16.4 KB a block).
+// (layout_counts in tests/test_torch_sketch_layout.py, which pins them):
+// K2 reads 29.4 MB of lanes (mostly from L2), hashes 3.67M keys, makes
+// 1.87M shared-memory atomics and 0.31M device atomics, over 396 blocks
+// of 64 KB of shared memory, 3 resident an SM; K1 (entropy, 2^12) reads
+// 1.0 MB, hashes 131K keys, makes 117K shared-memory and 40K device
+// atomics over 256 blocks of 16 KB.
 //
 // Numerics. Hashes are uint32 integer arithmetic, identical everywhere.
 // The DDSketch bucket must equal the reference's float32 computation bit
@@ -84,33 +78,25 @@
 // the library is built with -fmad=false so nvcc adds no contraction of
 // its own, and never with --use_fast_math.
 
-#include <cooperative_groups.h>
 #include <cstdint>
 #include <mutex>
 #include <cuda_runtime.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kMinBlocks = 3;      // blocks an SM: 3 x 64 KB tiles, registers capped to fit
-constexpr int kMaxCluster = 8;
-constexpr int kMaxSmem = 232448;    // shared memory a block may use on sm_90
-constexpr int kMaxSegments = 64;    // segments of one group
-constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kMaxSmem = 232448;   // shared memory a block may use on sm_90
+constexpr int kMaxDevices = 64;
 
-// plane kinds and table layouts (kept in step with ops/kernels.py)
+// plane kinds and the block table's layout (kept in step with ops/kernels.py)
 constexpr int kHist = 0;
 constexpr int kHll = 1;
 constexpr int kInvCount = 2;
 constexpr int kInvKeysum = 3;
-constexpr int kInvFpsum = 4;
 constexpr int kQuant = 5;
-constexpr int kClusterFields = 8;  // first segment, segments, first row, end row,
-                                   // group's first bucket in out, group's buckets,
-                                   // HLL range [lo, hi) in the group
-constexpr int kSegmentFields = 8;  // kind, lane, mult, salt, shift, lo, width, base
+constexpr int kBlockFields = 10;  // kind, lane, mult, salt, shift, lo, width,
+                                  // first bucket in out, first row, end row
 
 constexpr uint32_t kFpSalt = 0x7F4A7C15u;
 
@@ -189,230 +175,119 @@ __device__ __forceinline__ void load4(const uint32_t* __restrict__ p, int r, int
   }
 }
 
-// Each cluster walks the work items (group, row slice) of the plan, one
-// after another: for each, a block zeroes its tile of the group's
-// buckets, tallies its part of the slice's rows into it with
-// shared-memory atomics, then, once every block of the cluster is done,
-// adds the cluster's tiles together through distributed shared memory (a
-// 1/cluster part of the buckets a block) and flushes the nonzero sums
-// into `out` with one device atomic each.
+// One block a (job, row slice) of the plan: zero the job's tile, tally
+// the slice's rows into it with shared-memory atomics, flush its nonzero
+// buckets into `out` with one device atomic each.
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-fused_planes_kernel(Batch batch, const int32_t* __restrict__ items,
-                    const int32_t* __restrict__ segments, QuantParams q,
-                    uint32_t* __restrict__ out, int n_items) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int csize = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
-  for (int item = blockIdx.x / csize; item < n_items; item += gridDim.x / csize) {
-    const int32_t* cl = items + kClusterFields * item;
-    const int nseg = cl[1];
-    const int size = cl[5];
-    const int size4 = (size + 3) >> 2;
-    uint32_t* tile = smem;
-    int32_t* seg = reinterpret_cast<int32_t*>(smem + 4 * size4);
+fused_planes_kernel(Batch batch, const int32_t* __restrict__ blocks, QuantParams q,
+                    uint32_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint32_t tile[];
+  const int32_t* job = blocks + kBlockFields * blockIdx.x;
+  const int kind = job[0];
+  const int lane = job[1];
+  const uint32_t mult = (uint32_t)job[2];
+  const uint32_t salt = (uint32_t)job[3];
+  const int shift = job[4];
+  const uint32_t lo = (uint32_t)job[5];
+  const int width = job[6];
+  uint32_t* dst = out + job[7];
+  const int rb = job[8];
+  const int re = job[9];
+  const uint32_t* __restrict__ keys = lane == 0 ? batch.lane[0] : lane == 1 ? batch.lane[1]
+                                    : lane == 2 ? batch.lane[2] : batch.lane[3];
 
-    uint4* tile4 = reinterpret_cast<uint4*>(tile);
-    for (int i = threadIdx.x; i < size4; i += kThreads) tile4[i] = make_uint4(0u, 0u, 0u, 0u);
-    for (int i = threadIdx.x; i < kSegmentFields * nseg; i += kThreads)
-      seg[i] = segments[kSegmentFields * cl[0] + i];
-    __syncthreads();
-    // this block's rows: a 1/csize part of the cluster's, in whole 4-row units
-    const int row0 = cl[2];
-    const int row1 = cl[3];
-    const int per = (((row1 - row0) + csize - 1) / csize + 3) & ~3;
-    const int rb = min(row1, row0 + rank * per);
-    const int re = min(row1, rb + per);
-    for (int r = rb + 4 * (int)threadIdx.x; r < re; r += 4 * kThreads) {
-      uint32_t w[4];
-      load4(reinterpret_cast<const uint32_t*>(batch.w), r, re, w);
-      if ((w[0] | w[1] | w[2] | w[3]) == 0u) continue;
-      // a key lane is loaded when a segment first needs it (the segments
-      // of one lane are adjacent), which keeps registers to one lane
-      uint32_t key[4] = {0u, 0u, 0u, 0u};
-      uint32_t hb[4] = {0u, 0u, 0u, 0u};
-      int k_lane = -1;
-      uint32_t h_mult = 0u, h_salt = 0u;
-      int h_shift = -1;
-      for (int i = 0; i < nseg; ++i) {
-        const int32_t* sg = seg + kSegmentFields * i;
-        const int kind = sg[0];
-        const int lane = sg[1];
-        const uint32_t mult = (uint32_t)sg[2];
-        const uint32_t salt = (uint32_t)sg[3];
-        const int shift = sg[4];
-        const uint32_t lo = (uint32_t)sg[5];
-        const uint32_t width = (uint32_t)sg[6];
-        const uint32_t base = (uint32_t)sg[7];
-        if (lane != k_lane) {
-          load4(lane == 0 ? batch.lane[0] : lane == 1 ? batch.lane[1]
-                : lane == 2 ? batch.lane[2] : batch.lane[3], r, re, key);
-          k_lane = lane;
-          h_shift = -1;
-        }
-        // the three lanes of an invertible row share one hash
-        const bool rehash = kind != kHll && kind != kQuant &&
-                            (mult != h_mult || salt != h_salt || shift != h_shift);
+  uint4* tile4 = reinterpret_cast<uint4*>(tile);
+  for (int i = threadIdx.x; i < (width + 3) >> 2; i += kThreads)
+    tile4[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  for (int r = rb + 4 * (int)threadIdx.x; r < re; r += 4 * kThreads) {
+    uint32_t w[4];
+    load4(reinterpret_cast<const uint32_t*>(batch.w), r, re, w);
+    if ((w[0] | w[1] | w[2] | w[3]) == 0u) continue;
+    uint32_t key[4];
+    load4(keys, r, re, key);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t k = key[j];
-          const uint32_t wj = w[j];
-          uint32_t b;
-          uint32_t val;
-          if (kind == kHll) {
-            const uint32_t h = fmix32(k);
-            b = h >> shift;
-            val = hll_rank(h, 32 - shift);
-          } else if (kind == kQuant) {
-            b = quant_bucket(k, q);
-            val = k == 0u ? 0u : wj;  // zero values weigh 0 here (the zero bucket is host-side)
-          } else {
-            if (rehash) hb[j] = fmix32(k * mult + salt) >> shift;
-            b = hb[j];
-            val = kind == kHist || kind == kInvCount ? wj
-                : kind == kInvKeysum ? k * wj
-                : fmix32(k ^ kFpSalt) * wj;
-          }
-          b -= lo;
-          if (wj == 0u || val == 0u || b >= width) continue;
-          if (kind == kHll) atomicMax(tile + base + b, val);
-          else atomicAdd(tile + base + b, val);
-        }
-        if (rehash) {
-          h_mult = mult;
-          h_salt = salt;
-          h_shift = shift;
-        }
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t k = key[j];
+      const uint32_t wj = w[j];
+      uint32_t b;
+      uint32_t val;
+      if (kind == kHll) {
+        const uint32_t h = fmix32(k);
+        b = h >> shift;
+        val = hll_rank(h, 32 - shift);
+      } else if (kind == kQuant) {
+        b = quant_bucket(k, q);
+        val = k == 0u ? 0u : wj;  // zero values weigh 0 here (the zero bucket is host-side)
+      } else {
+        b = fmix32(k * mult + salt) >> shift;
+        val = kind == kHist || kind == kInvCount ? wj
+            : kind == kInvKeysum ? k * wj
+            : fmix32(k ^ kFpSalt) * wj;
       }
+      b -= lo;
+      if (wj == 0u || val == 0u || b >= (uint32_t)width) continue;
+      if (kind == kHll) atomicMax(tile + b, val);
+      else atomicAdd(tile + b, val);
     }
-    cluster.sync();  // every tile of the cluster complete before any is read
-
-    // this block's part of the buckets, summed over the cluster's tiles
-    const int part4 = (size4 + csize - 1) / csize;
-    const int hll_lo = cl[6];
-    const int hll_hi = cl[7];
-    uint32_t* dst = out + cl[4];
-    for (int i = rank * part4 + threadIdx.x; i < min(size4, (rank + 1) * part4); i += kThreads) {
-      uint32_t v[4] = {0u, 0u, 0u, 0u};
-#pragma unroll 2
-      for (int src = 0; src < csize; ++src) {
-        const uint4 x = reinterpret_cast<const uint4*>(cluster.map_shared_rank(tile, src))[i];
-        const uint32_t y[4] = {x.x, x.y, x.z, x.w};
-        #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int b = 4 * i + j;
-          v[j] = b >= hll_lo && b < hll_hi ? max(v[j], y[j]) : v[j] + y[j];
-        }
-      }
-      #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int b = 4 * i + j;
-        if (v[j] == 0u || b >= size) continue;
-        if (b >= hll_lo && b < hll_hi) atomicMax(dst + b, v[j]);
-        else atomicAdd(dst + b, v[j]);
-      }
-    }
-    cluster.sync();  // no block rezeroes its tile, or exits, while another may read it
   }
-}
-
-// A block's shared memory: its group's buckets (rounded up to 4) and
-// its group's segment rows.
-size_t smem_bytes(int tile_words, int max_segments) {
-  return (size_t)tile_words * sizeof(uint32_t) +
-         (size_t)max_segments * kSegmentFields * sizeof(int32_t);
+  __syncthreads();
+  for (int b = threadIdx.x; b < width; b += kThreads) {
+    const uint32_t v = tile[b];
+    if (v == 0u) continue;
+    if (kind == kHll) atomicMax(dst + b, v);
+    else atomicAdd(dst + b, v);
+  }
 }
 
 // cudaFuncSetAttribute once per (device, size), raised, never lowered: the
-// attribute holds for the current device only. The largest number of
-// clusters of `cluster` blocks a device co-schedules at a size, asked
-// once per (device, size, cluster). 0 means no GPC can host one cluster:
-// the launch would be refused.
-constexpr int kMaxDevices = 64;
+// attribute holds for the current device only.
 std::mutex g_mu;
 size_t g_smem_set[kMaxDevices] = {};
-struct Occupancy {
-  int device;
-  size_t smem;
-  int cluster;
-  int clusters;
-};
-Occupancy g_occ[64];
-int g_n_occ = 0;
 
-cudaError_t prepare(size_t smem, int cluster, int* max_clusters) {
+cudaError_t prepare(size_t smem) {
   int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  const cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   std::lock_guard<std::mutex> lock(g_mu);
-  for (int i = 0; i < g_n_occ; ++i) {
-    const Occupancy& o = g_occ[i];
-    if (o.device == device && o.smem == smem && o.cluster == cluster) {
-      *max_clusters = o.clusters;
-      return cudaSuccess;
-    }
-  }
-  if (smem > g_smem_set[device]) {
-    err = cudaFuncSetAttribute(fused_planes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    g_smem_set[device] = smem;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(cluster);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, fused_planes_kernel, &cfg);
-  if (err != cudaSuccess) return err;
-  if (g_n_occ < 64) g_occ[g_n_occ++] = Occupancy{device, smem, cluster, n};
-  *max_clusters = n;
-  return cudaSuccess;
+  if (smem <= g_smem_set[device]) return cudaSuccess;
+  const cudaError_t set = cudaFuncSetAttribute(
+      fused_planes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (set == cudaSuccess) g_smem_set[device] = smem;
+  return set;
 }
 
-bool plan_ok(int cluster, int tile_words, int max_segments) {
-  return cluster >= 1 && cluster <= kMaxCluster && tile_words >= 4 && tile_words % 4 == 0 &&
-         max_segments >= 1 && max_segments <= kMaxSegments &&
-         smem_bytes(tile_words, max_segments) <= (size_t)kMaxSmem;
+bool tile_ok(int tile_words) {
+  return tile_words >= 4 && tile_words % 4 == 0 &&
+         (size_t)tile_words * sizeof(uint32_t) <= (size_t)kMaxSmem;
 }
 
 }  // namespace
 
-// The largest number of clusters the card co-schedules for a launch
-// plan's cluster size and shared memory (cudaOccupancyMaxActiveClusters).
-extern "C" int ig_fused_planes_occupancy(int cluster, int tile_words, int max_segments,
-                                         int* max_clusters) {
-  if (!plan_ok(cluster, tile_words, max_segments)) return (int)cudaErrorInvalidValue;
-  return (int)prepare(smem_bytes(tile_words, max_segments), cluster, max_clusters);
+// Blocks of ig_fused_planes the current device keeps resident on one SM
+// with a tile of `tile_words` buckets (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int ig_fused_planes_occupancy(int tile_words, int* blocks_per_sm) {
+  if (!tile_ok(tile_words)) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)tile_words * sizeof(uint32_t);
+  const cudaError_t err = prepare(smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fused_planes_kernel,
+                                                            kThreads, smem);
 }
 
-// items: (n_items, 8) int32 rows, segments: (n_segments, 8) int32 rows,
-// both on the current device (ops/kernels.py `LaunchPlan`); out: the
-// zeroed flat delta buffer. As many clusters as the device runs at once
-// (at most n_items) are launched, and walk the items.
+// blocks: (n_blocks, 10) int32 rows on the current device, one a block
+// (ops/kernels.py `LaunchPlan`); tile_words: the widest job's buckets,
+// rounded up to 4; out: the zeroed flat delta buffer.
 extern "C" int ig_fused_planes(const void* hh, const void* distinct, const void* dist,
-                               const void* values, const void* weights, const void* items,
-                               const void* segments, int n_items, int cluster,
-                               int tile_words, int max_segments, float ilg, float neg_off,
+                               const void* values, const void* weights, const void* blocks,
+                               int n_blocks, int tile_words, float ilg, float neg_off,
                                float min_value, int qt_buckets, void* out, int n,
                                void* stream) {
-  if (!plan_ok(cluster, tile_words, max_segments) || n_items < 1 ||
-      (long long)n_items * cluster > 0x7FFFFFFFLL || n < 1)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(tile_words, max_segments);
-  int max_clusters = 0;
-  cudaError_t err = prepare(smem, cluster, &max_clusters);
+  if (!tile_ok(tile_words) || n_blocks < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)tile_words * sizeof(uint32_t);
+  const cudaError_t err = prepare(smem);
   if (err != cudaSuccess) return (int)err;
-  if (max_clusters < 1) return (int)cudaErrorInvalidConfiguration;
-  const int grid = n_items < max_clusters ? n_items : max_clusters;
   Batch batch;
   batch.lane[0] = (const uint32_t*)hh;
   batch.lane[1] = (const uint32_t*)distinct;
@@ -420,20 +295,7 @@ extern "C" int ig_fused_planes(const void* hh, const void* distinct, const void*
   batch.lane[3] = (const uint32_t*)values;
   batch.w = (const int32_t*)weights;
   const QuantParams q{ilg, neg_off, min_value, qt_buckets};
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(grid * cluster);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, fused_planes_kernel, batch, (const int32_t*)items,
-                           (const int32_t*)segments, q, (uint32_t*)out, n_items);
-  if (err != cudaSuccess) return (int)err;
+  fused_planes_kernel<<<n_blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      batch, (const int32_t*)blocks, q, (uint32_t*)out);
   return (int)cudaGetLastError();
 }

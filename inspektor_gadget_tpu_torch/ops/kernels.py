@@ -9,10 +9,10 @@ the reference's signature around it) replaces
 bounds them and how they are built, are in ``csrc/sketch_kernels.cu``.
 Both launch its one entry, ``ig_fused_planes``, with a `LaunchPlan`
 built here: K1 with its one histogram plane, K2 with every plane. The
-plan cuts the planes' buckets into groups of one shared-memory tile and
-each group's rows into slices, one thread block cluster a (group,
-slice); tests/test_torch_sketch_layout.py pins it and emulates the
-kernel's partition.
+plan cuts each plane into jobs of one shared-memory tile and each job's
+rows into slices by its work, one thread block a (job, slice);
+tests/test_torch_sketch_layout.py pins it and emulates the kernel's
+partition.
 
 For a CUDA tensor a wrapper launches its kernel or raises; for a CPU
 tensor it computes the plain version, which the tests hold against the
@@ -43,19 +43,15 @@ from .quantiles import bucket_constants, bucket_index
 HIST, HLL, INV_COUNT, INV_KEYSUM, INV_FPSUM, QUANT = range(6)
 LANE_HH, LANE_DISTINCT, LANE_DIST, LANE_VALUES = range(4)
 
-# The launch plan's limits (csrc/sketch_kernels.cu: kThreads, kMaxCluster,
-# kMaxSegments, kMinBlocks, kMaxSmem) and its layout, the fastest measured
-# on the H100 (PERF.md).
+# The launch plan's limits (csrc/sketch_kernels.cu: kThreads, kMinBlocks,
+# kMaxSmem, kBlockFields) and its layout, the fastest measured on the H100
+# (PERF.md).
 THREADS = 512
-MAX_CLUSTER = 8           # the portable cluster size
-CLUSTER = 2               # blocks that add their tiles together before the flush
 TILE_LOG2 = 14            # buckets a block holds: 16384 (64 KB)
-MAX_SEGMENTS = 64         # segments of one group
 BLOCKS_PER_SM = 3         # 64 KB tiles, registers capped to fit: one wave of blocks
 SMEM_LIMIT = 232_448      # shared memory a block may use on sm_90
-CLUSTER_FIELDS = 8        # csrc kClusterFields
-SEGMENT_FIELDS = 8        # csrc kSegmentFields
-# per-row cost of a segment by kind, and of reading a key lane
+BLOCK_FIELDS = 10         # a block's row of the plan's table
+# per-row cost of a job by its plane's kind, and of reading a lane
 KIND_COST = {HIST: 1, HLL: 1, INV_COUNT: 1, INV_KEYSUM: 1, INV_FPSUM: 1, QUANT: 3}
 LANE_COST = 1
 
@@ -64,10 +60,9 @@ LANE_COST = 1
 
 def _bind(lib) -> None:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ig_fused_planes.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, f, f, f, i, vp, i,
-                                    vp]
+    lib.ig_fused_planes.argtypes = [vp, vp, vp, vp, vp, vp, i, i, f, f, f, i, vp, i, vp]
     lib.ig_fused_planes.restype = i
-    lib.ig_fused_planes_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.ig_fused_planes_occupancy.argtypes = [i, ctypes.POINTER(i)]
     lib.ig_fused_planes_occupancy.restype = i
 
 
@@ -98,23 +93,12 @@ class Plane:
 
 
 @dataclass(frozen=True)
-class Segment:
-    """Buckets [lo, lo + width) of planes[plane], held by one group from
-    its bucket `base` on."""
+class Job:
+    """Buckets [lo, lo + width) of planes[plane]: the tile a block holds
+    in its shared memory."""
     plane: int
     lo: int
     width: int
-    base: int
-
-
-@dataclass(frozen=True)
-class Group:
-    """A contiguous range of the flat delta buffer (`size` buckets from
-    `out_lo`) that each block of a cluster holds whole in its shared
-    memory."""
-    out_lo: int
-    size: int
-    segments: tuple[Segment, ...]
 
 
 def _round4(x: int) -> int:
@@ -130,99 +114,44 @@ def _row_slices(n: int, parts: int) -> list[tuple[int, int]]:
 @dataclass(frozen=True, eq=False)  # hashed by identity: launch_plan hands out one per key
 class LaunchPlan:
     """How ig_fused_planes lays a batch of n rows and a set of planes on
-    the card: the planes cut into groups of at most `tile` buckets, each
-    group's rows cut into slices, one cluster of `cluster` blocks a
-    (group, slice). Each block tallies a 1/cluster part of the slice into
-    its own copy of the group's buckets; the cluster then adds its copies
-    together through distributed shared memory and flushes them."""
+    the card: each plane cut into jobs of at most 2**TILE_LOG2 buckets,
+    each job's rows cut into slices, one block a (job, slice). A block
+    zeroes its job's tile, tallies its slice into it and flushes it."""
     planes: tuple[Plane, ...]
     n: int
-    cluster: int
-    tile: int
-    groups: tuple[Group, ...]
-    slices: tuple[tuple[int, int, int], ...]  # (group, first row, end row) per cluster
-
-    @property
-    def n_clusters(self) -> int:
-        return len(self.slices)
+    jobs: tuple[Job, ...]
+    slices: tuple[tuple[int, int, int], ...]  # (job, first row, end row) per block
 
     @property
     def blocks(self) -> int:
-        return self.n_clusters * self.cluster
-
-    @property
-    def max_segments(self) -> int:
-        return max(len(g.segments) for g in self.groups)
+        return len(self.slices)
 
     @property
     def tile_words(self) -> int:
-        return _round4(max(g.size for g in self.groups))
+        return _round4(max(j.width for j in self.jobs))
 
     @property
     def smem_bytes(self) -> int:
-        """Shared memory a block: the widest group's buckets and segment
-        rows (csrc smem_bytes)."""
-        return 4 * self.tile_words + 4 * SEGMENT_FIELDS * self.max_segments
+        """Shared memory a block: the widest job's tile (csrc)."""
+        return 4 * self.tile_words
 
-    def block_rows(self, c: int, rank: int) -> tuple[int, int]:
-        """Rows [begin, end) that block `rank` of cluster `c` tallies: a
-        1/cluster part of the cluster's slice in whole 4-row units (as the
-        kernel cuts them)."""
-        _, r0, r1 = self.slices[c]
-        per = _round4(-(-(r1 - r0) // self.cluster))
-        rb = min(r1, r0 + rank * per)
-        return rb, min(r1, rb + per)
-
-    def tables(self) -> tuple[np.ndarray, np.ndarray]:
-        """The kernel's (n_clusters, 8) cluster rows and (n_segments, 8)
-        segment rows, int32 (uint32 fields as their bit patterns)."""
-        seg_rows, first = [], []
-        for g in self.groups:
-            first.append(len(seg_rows))
-            for sg in g.segments:
-                pl = self.planes[sg.plane]
-                seg_rows.append((pl.kind, pl.lane, pl.mult, pl.salt, 32 - pl.log2_width,
-                                 sg.lo, sg.width, sg.base))
-        cl_rows = []
-        for gi, r0, r1 in self.slices:
-            g = self.groups[gi]
-            hll = [sg for sg in g.segments if self.planes[sg.plane].kind == HLL]
-            hll_lo, hll_hi = (hll[0].base, hll[0].base + hll[0].width) if hll else (0, 0)
-            cl_rows.append((first[gi], len(g.segments), r0, r1, g.out_lo, g.size,
-                            hll_lo, hll_hi))
-
-        def i32(rows):
-            t = np.array(rows, dtype=np.int64).reshape(-1, 8)
-            return np.where(t >= 1 << 31, t - (1 << 32), t).astype(np.int32)
-        return i32(cl_rows), i32(seg_rows)
+    def table(self) -> np.ndarray:
+        """The kernel's (blocks, BLOCK_FIELDS) int32 rows, uint32 fields as
+        their bit patterns: kind, lane, mult, salt, shift, lo, width, the
+        tile's first bucket in the flat buffer, first row, end row."""
+        rows = []
+        for ji, r0, r1 in self.slices:
+            j = self.jobs[ji]
+            pl = self.planes[j.plane]
+            rows.append((pl.kind, pl.lane, pl.mult, pl.salt, 32 - pl.log2_width, j.lo,
+                         j.width, pl.offset + j.lo, r0, r1))
+        t = np.array(rows, dtype=np.int64).reshape(-1, BLOCK_FIELDS)
+        return np.where(t >= 1 << 31, t - (1 << 32), t).astype(np.int32)
 
     def summary(self) -> dict:
-        return {"blocks": self.blocks, "cluster": self.cluster, "clusters": self.n_clusters,
-                "groups": len(self.groups), "tile_buckets": self.tile,
+        return {"blocks": self.blocks, "jobs": len(self.jobs), "cluster": 1,
+                "tile_buckets": max(j.width for j in self.jobs),
                 "smem_bytes": self.smem_bytes, "threads": THREADS}
-
-
-def _groups(planes: tuple[Plane, ...], tile: int) -> list[Group]:
-    """The planes' buckets in the flat buffer's order, cut into groups of
-    `tile` buckets (and at most MAX_SEGMENTS segments): a plane may end
-    one group and start the next. A group never spans a gap between
-    planes that are not adjacent in the buffer."""
-    groups: list[Group] = []
-    cur: list[Segment] = []
-    fill = 0
-    for i, pl in enumerate(planes):
-        lo = 0
-        while lo < pl.width:
-            end = planes[cur[-1].plane].offset + cur[-1].lo + cur[-1].width if cur else None
-            if cur and (end != pl.offset + lo or fill == tile or len(cur) == MAX_SEGMENTS):
-                groups.append(Group(planes[cur[0].plane].offset + cur[0].lo, fill, tuple(cur)))
-                cur, fill = [], 0
-            take = min(pl.width - lo, tile - fill)
-            cur.append(Segment(i, lo, take, fill))
-            fill += take
-            lo += take
-    groups.append(Group(planes[cur[0].plane].offset + cur[0].lo, fill, tuple(cur)))
-    return groups
 
 
 @functools.lru_cache(maxsize=256)
@@ -230,28 +159,27 @@ def launch_plan(planes: tuple[Plane, ...], n: int, sms: int) -> LaunchPlan:
     """The launch plan of `planes` over a batch of n > 0 rows on a card
     of `sms` streaming multiprocessors.
 
-    - Groups: the planes' buckets cut into groups of 2**TILE_LOG2 (fewer
-      where all the planes together hold fewer).
-    - Slices: each group's rows are cut into slices of CLUSTER blocks, at
-      most BLOCKS_PER_SM blocks an SM in all and at least THREADS rows a
-      block, each next slice going to the group whose slices carry the
-      most work (KIND_COST a segment and LANE_COST a key lane, per row).
+    - Jobs: each plane's buckets cut into tiles of 2**TILE_LOG2.
+    - Slices: each job's rows are cut into slices, at most BLOCKS_PER_SM
+      blocks an SM in all and at least THREADS rows a block, each next
+      slice going to the job whose slices carry the most work (KIND_COST
+      and LANE_COST for the key lane and the weights, per row).
     """
-    tile = min(1 << TILE_LOG2, _round4(sum(pl.width for pl in planes)))
-    groups = _groups(planes, tile)
-    cost = [sum(KIND_COST[planes[s.plane].kind] for s in g.segments)
-            + LANE_COST * (1 + len({planes[s.plane].lane for s in g.segments})) for g in groups]
-    most = max(1, n // (CLUSTER * THREADS))
-    parts = [1] * len(groups)
-    for _ in range(max(0, BLOCKS_PER_SM * sms // CLUSTER - len(groups))):
-        # one more slice to the group whose slices carry the most work
-        gi = max((g for g in range(len(groups)) if parts[g] < most),
-                 key=lambda g: cost[g] / parts[g], default=None)
-        if gi is None:
+    tile = 1 << TILE_LOG2
+    jobs = [Job(i, lo, min(tile, pl.width - lo))
+            for i, pl in enumerate(planes) for lo in range(0, pl.width, tile)]
+    cost = [KIND_COST[planes[j.plane].kind] + 2 * LANE_COST for j in jobs]
+    most = max(1, n // THREADS)
+    parts = [1] * len(jobs)
+    for _ in range(max(0, BLOCKS_PER_SM * sms - len(jobs))):
+        # one more slice to the job whose slices carry the most work
+        ji = max((j for j in range(len(jobs)) if parts[j] < most),
+                 key=lambda j: cost[j] / parts[j], default=None)
+        if ji is None:
             break
-        parts[gi] += 1
-    slices = [(gi, r0, r1) for gi in range(len(groups)) for r0, r1 in _row_slices(n, parts[gi])]
-    return LaunchPlan(planes, n, CLUSTER, tile, tuple(groups), tuple(slices))
+        parts[ji] += 1
+    slices = [(ji, r0, r1) for ji in range(len(jobs)) for r0, r1 in _row_slices(n, parts[ji])]
+    return LaunchPlan(planes, n, tuple(jobs), tuple(slices))
 
 
 @functools.lru_cache(maxsize=None)
@@ -261,18 +189,18 @@ def sm_count(dev: torch.device) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _device_tables(plan: LaunchPlan, dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    clusters, segments = plan.tables()
-    return torch.from_numpy(clusters).to(dev), torch.from_numpy(segments).to(dev)
+def _device_table(plan: LaunchPlan, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(plan.table()).to(dev)
 
 
 def plan_occupancy(plan: LaunchPlan) -> int:
-    """cudaOccupancyMaxActiveClusters for the plan's cluster size and
-    shared memory: how many of its clusters the card runs at once."""
+    """cudaOccupancyMaxActiveBlocksPerMultiprocessor at the plan's shared
+    memory: how many of its blocks an SM of the current device runs at
+    once."""
     lib = LIBRARY.get()
     out = ctypes.c_int(0)
-    check(lib.ig_fused_planes_occupancy(plan.cluster, plan.tile_words, plan.max_segments,
-                                        ctypes.byref(out)), "ig_fused_planes_occupancy")
+    check(lib.ig_fused_planes_occupancy(plan.tile_words, ctypes.byref(out)),
+          "ig_fused_planes_occupancy")
     return out.value
 
 
@@ -281,22 +209,20 @@ def launch_planes(planes: tuple[Plane, ...], lanes, w: torch.Tensor,
                   neg_off: float = 0.0, min_value: float = 0.0,
                   qt_buckets: int = 0) -> torch.Tensor:
     """Zero the flat int32 delta buffer of `planes` and launch
-    ig_fused_planes on it under the card's `launch_plan`, as many clusters
-    as the card runs at once walking the plan's items. No launch for an
-    empty batch."""
+    ig_fused_planes on it under the card's `launch_plan`. No launch for
+    an empty batch."""
     last = planes[-1]
     out = torch.zeros(last.offset + last.width, dtype=torch.int32, device=dev)
     if n == 0:
         return out
     plan = launch_plan(planes, n, sm_count(dev))
-    clusters, segments = _device_tables(plan, dev)
+    table = _device_table(plan, dev)
     lib = LIBRARY.get()
     with torch.cuda.device(dev):
         check(lib.ig_fused_planes(
             *(x.data_ptr() for x in lanes), vals.data_ptr() if vals is not None else None,
-            w.data_ptr(), clusters.data_ptr(), segments.data_ptr(), plan.n_clusters,
-            plan.cluster, plan.tile_words, plan.max_segments, ilg, neg_off, min_value,
-            qt_buckets, out.data_ptr(), n, stream(dev)), "ig_fused_planes")
+            w.data_ptr(), table.data_ptr(), plan.blocks, plan.tile_words, ilg, neg_off,
+            min_value, qt_buckets, out.data_ptr(), n, stream(dev)), "ig_fused_planes")
     return out
 
 

@@ -105,50 +105,50 @@ def test_fused_planes_plain_matches_pallas_interpret(case, inv_rows, qt_buckets)
     K.FusedGeometry(3, 17, 12, 15, 1, 14, 2000),     # ragged planes, wide rows
 ])
 def test_job_table_tiles_every_plane_exactly(geom):
-    """The launch plan's segment table covers each plane's buckets once,
-    each group within one block's shared-memory tile, and no plane is
-    padded to the widest."""
-    plan = K.launch_plan(geom.planes, 1 << 17, 132)
-    clusters, segments = plan.tables()
-    assert segments.shape[1] == K.SEGMENT_FIELDS
+    """The launch plan's jobs cover each plane's buckets once, each
+    within one block's shared-memory tile, every job's rows once, and no
+    plane is padded to the widest."""
+    n = 1 << 17
+    plan = K.launch_plan(geom.planes, n, 132)
+    table = plan.table()
+    assert table.shape[1] == K.BLOCK_FIELDS
     covered = np.zeros(geom.total, np.int64)
-    first = 0
-    for g in plan.groups:
-        rows = segments[first:first + len(g.segments)]
-        first += len(g.segments)
-        assert g.size <= plan.tile
-        for (kind, lane, mult, salt, shift, lo, width, base), sg in zip(rows, g.segments):
-            pl = geom.planes[sg.plane]
-            assert (kind, lane, shift) == (pl.kind, pl.lane, 32 - pl.log2_width)
-            assert 0 < width <= pl.width
-            covered[pl.offset + lo:pl.offset + lo + width] += 1
-            assert g.out_lo + base == pl.offset + lo
-    assert first == segments.shape[0]
-    assert (covered == 1).all()
+    rows = np.zeros(len(plan.jobs), np.int64)
+    for (kind, lane, mult, salt, shift, lo, width, first, r0, r1), (ji, _, _) in zip(
+            table, plan.slices):
+        job = plan.jobs[ji]
+        pl = geom.planes[job.plane]
+        assert (kind, lane, shift, lo, width) == (pl.kind, pl.lane, 32 - pl.log2_width,
+                                                  job.lo, job.width)
+        assert 0 < width <= 1 << K.TILE_LOG2 and first == pl.offset + lo
+        rows[ji] += r1 - r0
+    for job in plan.jobs:
+        pl = geom.planes[job.plane]
+        covered[pl.offset + job.lo:pl.offset + job.lo + job.width] += 1
+    assert (covered == 1).all() and (rows == n).all()
     widths = [pl.width for pl in geom.planes]
     assert geom.total == sum(widths)
-    assert len(geom.planes) == geom.depth + 2 + 3 * geom.inv_rows + (1 if geom.qt_buckets else 0)
+    assert [pl.offset for pl in geom.planes] == list(np.cumsum([0] + widths[:-1]))
 
 
 @pytest.mark.parametrize("log2_width", [12, 16, 17])
 def test_job_table_of_one_histogram_plane(log2_width):
     """K1's launch: one histogram plane cut into 16384-bucket tiles (64
-    KB a block), a group each, the row hash's multiplier and salt carried
+    KB a block), a job each, the row hash's multiplier and salt carried
     as int32 bit patterns."""
     mult, salt = int(_row_multiplier(3)), 0xDEADBEEF
     plane = K.Plane(K.HIST, K.LANE_HH, mult, salt, log2_width, 1 << log2_width, 0)
     plan = K.launch_plan((plane,), 1 << 17, 132)
-    clusters, segments = plan.tables()
+    table = plan.table()
     tiles = max(1, (1 << log2_width) >> K.TILE_LOG2)
-    assert plan.tile == min(1 << log2_width, 1 << K.TILE_LOG2) and len(plan.groups) == tiles
-    assert segments.shape == (tiles, K.SEGMENT_FIELDS)
-    assert (segments[:, :2] == [K.HIST, K.LANE_HH]).all()
-    assert (segments[:, 4] == 32 - log2_width).all() and (segments[:, 7] == 0).all()
-    assert list(segments[:, 5]) == list(range(0, 1 << log2_width, plan.tile))
-    assert segments[:, 6].sum() == 1 << log2_width
-    assert (segments[:, 2:4].view(np.uint32) == [mult, salt]).all()
-    assert sorted(set(clusters[:, 0])) == list(range(tiles))
-    assert clusters[0, 2] == 0 and clusters[-1, 3] == 1 << 17
+    tile = min(1 << log2_width, 1 << K.TILE_LOG2)
+    assert len(plan.jobs) == tiles and plan.tile_words == tile
+    assert (table[:, :2] == [K.HIST, K.LANE_HH]).all()
+    assert (table[:, 4] == 32 - log2_width).all() and (table[:, 6] == tile).all()
+    assert sorted(set(table[:, 5])) == list(range(0, 1 << log2_width, tile))
+    assert (table[:, 7] == table[:, 5]).all()
+    assert (table[:, 2:4].view(np.uint32) == [mult, salt]).all()
+    assert table[0, 8] == 0 and table[-1, 9] == 1 << 17
 
 
 def test_wrappers_refuse_mixed_devices_and_missing_values():

@@ -1,20 +1,18 @@
 """The sketch kernels' launch plan and a CPU emulation of the layout that
 ig_fused_planes runs on the card.
 
-The plan (`ops.kernels.launch_plan`) is what the kernel reads: the planes
-cut into groups of at most one tile of buckets, each group's rows cut
-into slices, one thread block cluster a (group, slice). Its invariants
-are pinned over the production geometry, narrower and wider ones, and
-K1's one-plane launches.
+The plan (`ops.kernels.launch_plan`) is what the kernel reads: each plane
+cut into jobs of at most one shared-memory tile of buckets, each job's
+rows cut into slices by its work, one thread block a (job, slice). Its
+invariants are pinned over the production geometry, narrower and wider
+ones, and K1's one-plane launches.
 
-`emulate` repeats the kernel's partition in numpy: each block of a
-cluster takes its part of the cluster's rows in 4-row units and adds
-every row into its own copy of the group's buckets (adds mod 2**32, HLL
-ranks by max, as the shared-memory atomics do); the cluster adds its
-copies together, each block a 1/cluster part of the buckets, and
-flushes them into the output. It must equal the plain versions bit for
-bit, and a faulty partition (buckets flushed twice, a ragged tail slice
-dropped) must not.
+`emulate` repeats the kernel's partition in numpy: each block adds its
+rows into its own tile of its job's buckets (adds mod 2**32, HLL ranks
+by max, as the shared-memory atomics do) and flushes the tile into the
+output. It must equal the plain versions bit for bit, and a faulty
+partition (a bucket held by two jobs, a ragged tail slice dropped) must
+not. `layout_counts` counts one call's work as the kernel does it.
 """
 
 from __future__ import annotations
@@ -26,8 +24,7 @@ import pytest
 import torch
 
 from inspektor_gadget_tpu_torch.ops import kernels as K
-from inspektor_gadget_tpu_torch.ops.hashing import (_row_multiplier, fmix32_np, hashed_bucket,
-                                                    row_salt)
+from inspektor_gadget_tpu_torch.ops.hashing import _row_multiplier, fmix32_np, row_salt
 from inspektor_gadget_tpu_torch.ops.hll import hll_index_rank
 from inspektor_gadget_tpu_torch.ops.invertible import FP_SALT
 from inspektor_gadget_tpu_torch.ops.quantiles import bucket_index
@@ -60,106 +57,90 @@ PLANE_SETS.update({f"K1 2**{lw}": (hist_plane(lw),) for lw in (12, 16, 17)})
 
 # -- the plan's invariants -----------------------------------------------------
 
-def _flush_parts(plan: K.LaunchPlan, size: int) -> list[tuple[int, int]]:
-    """The buckets [lo, hi) of a group that each block of a cluster adds
-    up and flushes (the kernel's part4 split, in 4-bucket words)."""
-    size4 = (size + 3) // 4
-    part4 = -(-size4 // plan.cluster)
-    return [(min(size, 4 * r * part4), min(size, 4 * (r + 1) * part4))
-            for r in range(plan.cluster)]
-
-
 @pytest.mark.parametrize("name", sorted(PLANE_SETS))
 def test_plan_owns_every_bucket_once(name):
-    """Every bucket of every plane belongs to exactly one group and is
-    flushed by exactly one block of each of its clusters; each group is
-    one contiguous range of the flat buffer, held whole by a block."""
+    """Every bucket of every plane belongs to exactly one job, whose
+    blocks each hold it in their tile and flush it; no job is wider than
+    a tile."""
     planes = PLANE_SETS[name]
     plan = K.launch_plan(planes, BATCH, H100_SMS)
     total = planes[-1].offset + planes[-1].width
     owners = np.zeros(total, np.int64)
-    for g in plan.groups:
-        assert g.size <= plan.tile
-        covered = 0
-        for sg in g.segments:
-            pl = planes[sg.plane]
-            assert 0 <= sg.lo and sg.lo + sg.width <= pl.width
-            assert sg.base == covered  # segments tile the group in order
-            covered += sg.width
-            assert g.out_lo + sg.base == pl.offset + sg.lo
-        assert covered == g.size
-        for lo, hi in _flush_parts(plan, g.size):
-            owners[g.out_lo + lo:g.out_lo + hi] += 1
+    for j in plan.jobs:
+        pl = planes[j.plane]
+        assert 0 < j.width <= 1 << K.TILE_LOG2 and j.lo + j.width <= pl.width
+        owners[pl.offset + j.lo:pl.offset + j.lo + j.width] += 1
     assert (owners == 1).all()
+    assert {ji for ji, _, _ in plan.slices} == set(range(len(plan.jobs)))
 
 
 @pytest.mark.parametrize("name", sorted(PLANE_SETS))
 @pytest.mark.parametrize("n", [1, 33, 100003, BATCH])
 def test_plan_gives_every_row_to_one_block_per_group(name, n):
+    """Each job's (the group of buckets a block holds) rows are cut into
+    slices that start on 4-row units and cover every row once."""
     plan = K.launch_plan(PLANE_SETS[name], n, H100_SMS)
-    for gi in range(len(plan.groups)):
+    for ji in range(len(plan.jobs)):
         seen = np.zeros(n, np.int64)
-        for c, (g, _, _) in enumerate(plan.slices):
-            if g != gi:
-                continue
-            for rank in range(plan.cluster):
-                rb, re = plan.block_rows(c, rank)
-                assert rb % 4 == 0 or rb == n  # whole 4-row units
+        for j, rb, re in plan.slices:
+            if j == ji:
+                assert rb % 4 == 0 and rb < re
                 seen[rb:re] += 1
         assert (seen == 1).all()
 
 
 @pytest.mark.parametrize("name", sorted(PLANE_SETS))
 def test_plan_hashes_each_plane_once_per_row_and_tile(name):
-    """A block hashes each row once for each segment of its group, and a
-    group holds at most one segment of a plane: a plane's hash runs once
-    per row for each tile-wide range of it (one for a plane no wider than
-    a tile, four for a 65536-wide count-min row at 16384-bucket tiles)."""
+    """A block hashes each of its rows once, for its job's one plane, so
+    a plane's hash runs once per row for each tile-wide range of it: one
+    for a plane no wider than a tile, four for a 65536-wide count-min row
+    at 16384-bucket tiles."""
     planes = PLANE_SETS[name]
     plan = K.launch_plan(planes, BATCH, H100_SMS)
+    tile = 1 << K.TILE_LOG2
     for i, pl in enumerate(planes):
-        holders = [g for g in plan.groups if any(s.plane == i for s in g.segments)]
-        assert all(sum(s.plane == i for s in g.segments) == 1 for g in holders)
-        assert -(-pl.width // plan.tile) <= len(holders) <= -(-pl.width // plan.tile) + 1
-        if pl.width <= plan.tile and pl.offset % plan.tile + pl.width <= plan.tile:
-            assert len(holders) == 1
+        mine = [j for j in plan.jobs if j.plane == i]
+        assert len(mine) == -(-pl.width // tile)
+        assert [j.lo for j in mine] == list(range(0, pl.width, tile))
 
 
 @pytest.mark.parametrize("name", sorted(PLANE_SETS))
 def test_plan_fits_the_card(name):
-    """Shared memory a block within sm_90's 227 KB, a grid of whole
-    clusters of at most 8 blocks, tables in the kernel's layout."""
-    plan = K.launch_plan(PLANE_SETS[name], BATCH, H100_SMS)
+    """Shared memory a block within sm_90's 227 KB and the table in the
+    kernel's layout."""
+    planes = PLANE_SETS[name]
+    plan = K.launch_plan(planes, BATCH, H100_SMS)
     assert plan.smem_bytes <= K.SMEM_LIMIT
-    assert 1 <= plan.cluster <= K.MAX_CLUSTER and plan.blocks % plan.cluster == 0
-    assert plan.max_segments <= K.MAX_SEGMENTS
-    clusters, segments = plan.tables()
-    assert clusters.shape == (plan.n_clusters, K.CLUSTER_FIELDS) and clusters.dtype == np.int32
-    assert segments.shape == (sum(len(g.segments) for g in plan.groups), K.SEGMENT_FIELDS)
-    assert (segments[:, 2].view(np.uint32) == [PLANE_SETS[name][s.plane].mult
-                                               for g in plan.groups for s in g.segments]).all()
+    assert plan.tile_words == max(j.width for j in plan.jobs)
+    table = plan.table()
+    assert table.shape == (plan.blocks, K.BLOCK_FIELDS) and table.dtype == np.int32
+    rows = [(plan.jobs[ji], r0, r1) for ji, r0, r1 in plan.slices]
+    assert (table[:, 2].view(np.uint32) == [planes[j.plane].mult for j, _, _ in rows]).all()
+    assert (table[:, 7] == [planes[j.plane].offset + j.lo for j, _, _ in rows]).all()
+    assert (table[:, 8:] == [(r0, r1) for _, r0, r1 in rows]).all()
 
 
 @pytest.mark.parametrize("name", ["production", "K1 2**12", "K1 2**16", "K1 2**17"])
 def test_plan_fills_the_card_at_production(name):
     plan = K.launch_plan(PLANE_SETS[name], BATCH, H100_SMS)
-    assert plan.blocks >= H100_SMS and plan.cluster > 1
+    assert H100_SMS <= plan.blocks <= K.BLOCKS_PER_SM * H100_SMS
 
 
 def test_production_plan_layout():
-    """K2 at production: clusters of 2 over 16384-bucket tiles (64 KB a
-    block): four groups a count-min row, four for the other 12 planes
-    (59392 buckets), about one wave of 3 blocks an SM."""
+    """K2 at production: 28 jobs (four a count-min row, one for each
+    other plane), 396 blocks of 64 KB, slices in proportion to a job's
+    work: a DDSketch row's slices are shorter than a count-min tile's."""
     plan = K.launch_plan(PRODUCTION.planes, BATCH, H100_SMS)
-    assert plan.cluster == K.CLUSTER == 2 and plan.tile == 16384
-    assert [g.size for g in plan.groups] == [16384] * 19 + [10240]
-    assert [len(g.segments) for g in plan.groups[16:]] == [2, 4, 4, 3]
-    assert H100_SMS <= plan.blocks <= K.BLOCKS_PER_SM * H100_SMS
+    assert [j.width for j in plan.jobs] == [16384] * 16 + [4096, 16384] + [4096] * 9 + [2048]
+    assert plan.blocks == K.BLOCKS_PER_SM * H100_SMS and plan.smem_bytes == 65536
+    parts = np.bincount([ji for ji, _, _ in plan.slices])
+    assert parts.max() - parts[:16].min() <= 1 + parts.max() // 2
+    assert parts[-1] > parts[0]  # the DDSketch job: three times a hash's work a row
 
 
 # -- the kernel's partition, emulated --------------------------------------------
 
-def _segment_values(pl: K.Plane, keys: np.ndarray, w: np.ndarray, geom) -> tuple:
+def _plane_values(pl: K.Plane, keys: np.ndarray, w: np.ndarray, geom) -> tuple:
     """(bucket in the plane, value) of each row, as the kernel computes
     them; value 0 adds nothing."""
     w = w.astype(np.int64) & 0xFFFFFFFF
@@ -182,40 +163,31 @@ def emulate(plan: K.LaunchPlan, lanes, w: np.ndarray, geom=None, fault: str | No
     """The flat uint32 output of ig_fused_planes under `plan`, in numpy."""
     planes = plan.planes
     out = np.zeros(planes[-1].offset + planes[-1].width, np.uint64)
-    C = plan.cluster
-    for gi, g in enumerate(plan.groups):
-        mine = [c for c, s in enumerate(plan.slices) if s[0] == gi]
-        if fault == "tail dropped":
-            first, last = plan.slices[mine[0]], plan.slices[mine[-1]]
-            if last[2] - last[1] < first[2] - first[1]:
-                mine = mine[:-1]
-        hll = np.zeros(g.size, bool)
-        for sg in g.segments:
-            if planes[sg.plane].kind == K.HLL:
-                hll[sg.base:sg.base + sg.width] = True
-        for c in mine:
-            tiles = np.zeros((C, g.size), np.uint64)  # each block's shared memory
-            for rank in range(C):
-                rb, re = plan.block_rows(c, rank)
-                for sg in g.segments:
-                    pl = planes[sg.plane]
-                    b, val = _segment_values(pl, lanes[pl.lane][rb:re], w[rb:re], geom)
-                    b = b - sg.lo
-                    keep = (b >= 0) & (b < sg.width) & (val != 0)
-                    pos = sg.base + b[keep]
-                    if pl.kind == K.HLL:
-                        np.maximum.at(tiles[rank], pos, val[keep])
-                    else:
-                        np.add.at(tiles[rank], pos, val[keep])
-            summed = np.where(hll, tiles.max(axis=0), tiles.sum(axis=0) & MASK)
-            parts = _flush_parts(plan, g.size)
-            if fault == "owned twice":  # each part also flushes its neighbour's first word
-                parts = [(lo, min(g.size, hi + 4)) for lo, hi in parts]
-            for lo, hi in parts:  # one device atomic per nonzero bucket
-                seg = out[g.out_lo + lo:g.out_lo + hi]
-                v, m = summed[lo:hi], hll[lo:hi]
-                seg[m] = np.maximum(seg[m], v[m])
-                seg[~m] = (seg[~m] + v[~m]) & MASK
+    slices = list(plan.slices)
+    if fault == "tail dropped":  # each job's last slice, where shorter than its first
+        last = {ji: k for k, (ji, _, _) in enumerate(slices)}
+        first = {ji: slices[k] for k, (ji, _, _) in reversed(list(enumerate(slices)))}
+        slices = [s for k, s in enumerate(slices)
+                  if not (last[s[0]] == k and s[2] - s[1] < first[s[0]][2] - first[s[0]][1])]
+    for ji, rb, re in slices:
+        job = plan.jobs[ji]
+        pl = planes[job.plane]
+        width = job.width
+        if fault == "owned twice":  # a tile reaching into the next job's buckets
+            width = min(pl.width - job.lo, width + width // 4)
+        tile = np.zeros(width, np.uint64)  # the block's shared memory
+        b, val = _plane_values(pl, lanes[pl.lane][rb:re], w[rb:re], geom)
+        b = b - job.lo
+        keep = (b >= 0) & (b < width) & (val != 0)
+        if pl.kind == K.HLL:
+            np.maximum.at(tile, b[keep], val[keep])
+        else:
+            np.add.at(tile, b[keep], val[keep])
+        seg = out[pl.offset + job.lo:pl.offset + job.lo + width]  # one device atomic a bucket
+        if pl.kind == K.HLL:
+            np.maximum(seg, tile, out=seg)
+        else:
+            seg[:] = (seg + tile) & MASK
     return out.astype(np.uint32)
 
 
@@ -286,80 +258,43 @@ def test_faulty_layouts_are_caught(fault):
     assert not np.array_equal(got, _plain(PRODUCTION, lanes, w))
 
 
-def _plane_buckets(pl: K.Plane, keys: torch.Tensor, w: torch.Tensor,
-                   geom) -> tuple[np.ndarray, np.ndarray]:
-    """(bucket, whether the row adds anything) of each row in plane `pl`."""
-    add = w.numpy() != 0
-    if pl.kind == K.HLL:
-        return hll_index_rank(keys, pl.log2_width)[0].numpy(), add
-    if pl.kind == K.QUANT:
-        b = bucket_index(keys, alpha=geom.qt_alpha, min_value=geom.qt_min_value,
-                         n_buckets=geom.qt_buckets).numpy()
-        return b, add & (keys.numpy() != 0)
-    return hashed_bucket(keys, pl.mult, pl.salt, pl.log2_width).numpy(), add
-
-
-def layout_counts(plan: K.LaunchPlan, lanes, w: torch.Tensor, geom=None) -> dict:
-    """The work of one ig_fused_planes call under `plan` on one batch
-    (CPU tensors, the four key lanes in LANE_* order), counted on the host
-    as the kernel partitions it: bytes of lanes read (each group reads its
-    key lanes and the weights once per row), key hashes (the lanes of an
-    invertible row share one), shared-memory atomics (one per row and
-    segment that adds), words read from other blocks' shared memory in
-    the clusters' reduction, and device atomics of the flush (one per
-    nonzero bucket of a cluster's sum)."""
+def layout_counts(plan: K.LaunchPlan, lanes, w: np.ndarray, geom=None) -> dict:
+    """The work of one ig_fused_planes call under `plan` on one batch (the
+    four key lanes in LANE_* order), counted as the kernel partitions it:
+    bytes of lanes read (each job reads its key lane and the weights once
+    a row), key hashes (one a row and job), shared-memory atomics (one a
+    row and job that adds), and device atomics of the flush (one a
+    nonzero bucket of a block's tile)."""
     n = plan.n
-    out = {"bytes_read": 0, "hashes": 0, "shared_atomics": 0, "dsmem_words_read": 0,
-           "global_atomics": 0}
-    cluster = np.zeros(n, np.int64)
-    for gi, g in enumerate(plan.groups):
-        for c, (gc, r0, r1) in enumerate(plan.slices):
-            if gc == gi:
-                cluster[r0:r1] = c
-                out["dsmem_words_read"] += (plan.cluster - 1) * g.size
-        segs = [(plan.planes[sg.plane], sg) for sg in g.segments]
-        out["bytes_read"] += 4 * n * (1 + len({pl.lane for pl, _ in segs}))
-        out["hashes"] += n * len({(pl.lane, pl.mult, pl.salt, pl.log2_width)
-                                  if pl.kind not in (K.HLL, K.QUANT) else (pl.kind,)
-                                  for pl, _ in segs})
-        nonzero = set()
-        for pl, sg in segs:
-            b, add = _plane_buckets(pl, lanes[pl.lane], w, geom)
-            b = b - sg.lo
-            keep = add & (b >= 0) & (b < sg.width)
-            out["shared_atomics"] += int(keep.sum())
-            nonzero.update(zip(cluster[keep].tolist(), (sg.base + b[keep]).tolist()))
-        out["global_atomics"] += len(nonzero)
+    out = {"bytes_read": 8 * n * len(plan.jobs), "hashes": n * len(plan.jobs),
+           "shared_atomics": 0, "global_atomics": 0}
+    for ji, job in enumerate(plan.jobs):
+        pl = plan.planes[job.plane]
+        b, val = _plane_values(pl, lanes[pl.lane], w, geom)
+        b = b - job.lo
+        keep = (b >= 0) & (b < job.width) & (val != 0)
+        out["shared_atomics"] += int(keep.sum())
+        for j, rb, re in plan.slices:
+            if j == ji:
+                out["global_atomics"] += len(np.unique(b[rb:re][keep[rb:re]]))
     return out
 
 
-def _unshared(plan: K.LaunchPlan) -> K.LaunchPlan:
-    """The same partition of rows with each block in a cluster of its own:
-    no block adds another's tile before the flush."""
-    slices = tuple((plan.slices[c][0],) + plan.block_rows(c, r)
-                   for c in range(plan.n_clusters) for r in range(plan.cluster))
-    return dataclasses.replace(plan, cluster=1, slices=slices)
-
-
 def test_layout_counts_follow_the_plan():
-    """Each group reads its key lanes and the weights once, one hash per
-    (row, distinct hash) of a group, one shared atomic per (row, segment)
-    that adds, and a cluster's flush touches fewer buckets than its blocks
-    would flush alone."""
+    """Each job reads its key lane and the weights once and hashes each
+    row once; each row that adds makes one shared atomic a plane; a
+    block's flush makes at most one device atomic a shared one, and at
+    least one for each nonzero bucket of the output."""
     geom = GEOMETRIES["no optional planes"]
     n = 20011
     lanes, w = _stream("zipf", n, seed=5)
-    t = [torch.from_numpy(x.view(np.int32)) for x in lanes]
     plan = K.launch_plan(geom.planes, n, H100_SMS)
-    counts = {c: layout_counts(p, t, torch.from_numpy(w), geom)
-              for c, p in ((2, plan), (1, _unshared(plan)))}
-    lanes_read = sum(1 + len({geom.planes[s.plane].lane for s in g.segments})
-                     for g in plan.groups)
-    assert counts[2]["bytes_read"] == counts[1]["bytes_read"] == 4 * n * lanes_read
-    assert counts[2]["shared_atomics"] == counts[1]["shared_atomics"] == \
-        int((w != 0).sum()) * len(geom.planes)
-    assert 0 < counts[2]["global_atomics"] < counts[1]["global_atomics"]
-    assert counts[1]["dsmem_words_read"] == 0 < counts[2]["dsmem_words_read"]
+    counts = layout_counts(plan, lanes, w, geom)
+    assert counts["bytes_read"] == 8 * n * len(plan.jobs) and len(plan.jobs) == 2 * 2 + 1 + 1
+    assert counts["shared_atomics"] == int((w != 0).sum()) * len(geom.planes)
+    nonzero = int((_plain(geom, lanes, w) != 0).sum())
+    assert nonzero <= counts["global_atomics"] <= counts["shared_atomics"]
+    assert counts["global_atomics"] > nonzero  # the blocks of a job share buckets
 
 
 def test_layout_counts_at_production():
@@ -370,13 +305,11 @@ def test_layout_counts_at_production():
     host = ZipfFoldedSource(43).generate(BATCH, valid=BATCH - 4321)
     host[WEIGHTS, ::7] *= 3
     host[WEIGHTS, ::13] = 0
-    t = torch.from_numpy(host.view(np.int32))
-    keys = [t[j] for j in (HH, DISTINCT, DIST, VALUES)]
-    k2 = layout_counts(K.launch_plan(PRODUCTION.planes, BATCH, H100_SMS), keys, t[WEIGHTS],
-                       PRODUCTION)
-    assert k2 == {"bytes_read": 22544384, "hashes": 3145728, "shared_atomics": 1870848,
-                  "dsmem_words_read": 3115008, "global_atomics": 318690}
-    k1 = layout_counts(K.launch_plan((hist_plane(12),), BATCH, H100_SMS), [t[DIST]] * 4,
-                       t[WEIGHTS])
+    keys = [host[j] for j in (HH, DISTINCT, DIST, VALUES)]
+    w = host[WEIGHTS].view(np.int32)
+    k2 = layout_counts(K.launch_plan(PRODUCTION.planes, BATCH, H100_SMS), keys, w, PRODUCTION)
+    k1 = layout_counts(K.launch_plan((hist_plane(12),), BATCH, H100_SMS), [host[DIST]] * 4, w)
+    assert k2 == {"bytes_read": 29360128, "hashes": 3670016, "shared_atomics": 1870848,
+                  "global_atomics": 313638}
     assert k1 == {"bytes_read": 1048576, "hashes": 131072, "shared_atomics": 117000,
-                  "dsmem_words_read": 524288, "global_atomics": 33198}
+                  "global_atomics": 40471}
