@@ -51,9 +51,9 @@ TILE_LOG2 = 14            # buckets a block holds: 16384 (64 KB)
 BLOCKS_PER_SM = 3         # 64 KB tiles, registers capped to fit: one wave of blocks
 SMEM_LIMIT = 232_448      # shared memory a block may use on sm_90
 BLOCK_FIELDS = 10         # a block's row of the plan's table
-# per-row cost of a job by its plane's kind, and of reading a lane
-KIND_COST = {HIST: 1, HLL: 1, INV_COUNT: 1, INV_KEYSUM: 1, INV_FPSUM: 1, QUANT: 3}
-LANE_COST = 1
+# the work of a job's row by its plane's kind: a key read, a weight read
+# and a hash, where a DDSketch bucket costs about three hashes
+ROW_COST = {HIST: 3, HLL: 3, INV_COUNT: 3, INV_KEYSUM: 3, INV_FPSUM: 3, QUANT: 5}
 
 
 # -- bind ----------------------------------------------------------------------
@@ -162,13 +162,13 @@ def launch_plan(planes: tuple[Plane, ...], n: int, sms: int) -> LaunchPlan:
     - Jobs: each plane's buckets cut into tiles of 2**TILE_LOG2.
     - Slices: each job's rows are cut into slices, at most BLOCKS_PER_SM
       blocks an SM in all and at least THREADS rows a block, each next
-      slice going to the job whose slices carry the most work (KIND_COST
-      and LANE_COST for the key lane and the weights, per row).
+      slice going to the job whose slices carry the most work (ROW_COST
+      a row).
     """
     tile = 1 << TILE_LOG2
     jobs = [Job(i, lo, min(tile, pl.width - lo))
             for i, pl in enumerate(planes) for lo in range(0, pl.width, tile)]
-    cost = [KIND_COST[planes[j.plane].kind] + 2 * LANE_COST for j in jobs]
+    cost = [ROW_COST[planes[j.plane].kind] for j in jobs]
     most = max(1, n // THREADS)
     parts = [1] * len(jobs)
     for _ in range(max(0, BLOCKS_PER_SM * sms - len(jobs))):
