@@ -67,7 +67,8 @@
 // 1.87M shared-memory atomics and 0.31M device atomics, over 396 blocks
 // of 64 KB of shared memory, 3 resident an SM; K1 (entropy, 2^12) reads
 // 1.0 MB, hashes 131K keys, makes 117K shared-memory and 40K device
-// atomics over 256 blocks of 16 KB.
+// atomics over 256 blocks of 16 KB. Neither launches clusters (size 1)
+// or makes distributed-shared-memory atomics.
 //
 // Numerics. Hashes are uint32 integer arithmetic, identical everywhere.
 // The DDSketch bucket must equal the reference's float32 computation bit
