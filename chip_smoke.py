@@ -205,6 +205,158 @@ def run_ticks(scorer, batches, attn: str = "flash", noise=None):
     return losses, scores, secs
 
 
+WINDOW = dict(n_slots=8, depth=4, log2_width=12)  # tpusketch.py:423-427, :751-754
+HARVEST_EVERY = 16
+CAPTURE_BATCHES = 32
+
+
+class CaptureRun:
+    """The native capture leg driven as the tpusketch operator drives it
+    (``operators/tpusketch.py:1328-1430``, ``:1757-1806``): a
+    NativeCapture of the synthetic exec source pops folded blocks into
+    the pinned pool (``pop_folded`` with the value lane), the stager
+    copies them to `device`, `bundle_ingest_step` (K2) and the two window
+    steps absorb each batch under one fence, and every HARVEST_EVERY
+    batches a harvest reads the digest and decodes the invertible plane
+    (``inv_decode_device`` with sweeps 2 and the operator's cap, then
+    ``inv_decode_finish``), then the window ring advances and the window
+    HLL starts afresh. `fold_cpu` folds the same stream, rebuilt from the
+    seed at the same batch boundaries, on the CPU."""
+
+    def __init__(self, seed: int, vocab: int, batch: int, prod: dict) -> None:
+        self.seed, self.vocab, self.batch, self.prod = seed, vocab, batch, prod
+        self.counts: list[int] = []
+        self.harvests: list[dict] = []
+
+    def _state(self, device):
+        from inspektor_gadget_tpu_torch.ops import hll_init, sketches as S, window as W
+        return (S.bundle_init(**self.prod, device=device), W.wcms_init(**WINDOW, device=device),
+                hll_init(self.prod["hll_p"], device=device))
+
+    def _harvest(self, bundle, wcms, whll, device) -> tuple[dict, float, float]:
+        """One harvest -> (its record in host numpy, device seconds, host seconds)."""
+        from inspektor_gadget_tpu_torch.ops import sketches as S, window as W
+        from inspektor_gadget_tpu_torch.ops import invertible as I
+        t0 = time.perf_counter()
+        digest = S.bundle_digest(bundle)
+        cap = min(4096, I.inv_capacity(bundle.inv.rows, bundle.inv.log2_buckets))
+        dec_dev = I.inv_decode_device(bundle.inv, sweeps=2, cap=cap)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        dec = I.inv_decode_finish(*dec_dev)
+        t2 = time.perf_counter()
+        rec = {"digest": digest.cpu().numpy(), "decode": dataclasses.asdict(dec),
+               "buffer": [x.cpu().numpy() for x in dec_dev[1:3]], "n": int(dec_dev[3]),
+               "residual": [x.cpu().numpy() for x in (dec_dev[0].count, dec_dev[0].keysum,
+                                                      dec_dev[0].fpsum)],
+               # copies: on the CPU .cpu() is the live state, which goes on changing
+               "wcms": wcms.slots.cpu().numpy().copy(), "epoch": int(wcms.epoch),
+               "whll": whll.registers.cpu().numpy().copy()}
+        W.wcms_advance(wcms)
+        whll.registers.zero_()
+        return rec, t1 - t0, t2 - t1
+
+    def drive(self, dev, batches: int, stats) -> dict:
+        """The run on the card; returns its rates and harvest times."""
+        from inspektor_gadget_tpu_torch.ops import sketches as S, window as W
+        from inspektor_gadget_tpu_torch.sources import H2DStager, PinnedBufferPool
+        from inspektor_gadget_tpu_torch.sources.bridge import NativeCapture, SRC_SYNTH_EXEC
+        b = self.batch
+        total = batches * b
+        bundle, wcms, whll = self._state(dev)
+        pool = PinnedBufferPool(b, lanes=4, max_free=8, device=dev)
+        stager = H2DStager(pool, depth=4, device=dev, stats=stats)
+        # a ring that holds the whole run: the producer stops once it has
+        # made `total` events, so nothing is dropped and the stream is the seed's
+        cap = NativeCapture(SRC_SYNTH_EXEC, seed=self.seed, rate=2e8, vocab=self.vocab,
+                            ring_pow2=max(20, (total + (1 << 21)).bit_length()))
+        dev_s = host_s = 0.0
+        consumed, stopped, produced_at = 0, False, None
+        cap.start()
+        t_start = time.perf_counter()
+        try:
+            while consumed < total:
+                if not stopped and cap.produced() >= total:
+                    cap.stop()
+                    stopped, produced_at = True, time.perf_counter() - t_start
+                blk = pool.get()
+                fb = cap.pop_folded(blk[:, :min(b, total - consumed)] if total - consumed < b
+                                    else blk, with_values=True)
+                if fb.count == 0:
+                    pool.put(blk)
+                    time.sleep(0.0002)
+                    continue
+                arr = blk.numpy()
+                arr[:, fb.count:] = 0  # the operator zeroes the pad: keys, weights, values 0
+                self.counts.append(fb.count)
+                consumed += fb.count
+                k, w, v = stager.stage(blk, (blk[0], blk[1], blk[3]))
+                _, fence = S.bundle_ingest_step(bundle, k, k, k, w, values=v)
+                W.wcms_ingest_step(wcms, k, w)
+                W.hll_ingest_step(whll, k, w)
+                if dev.type == "cuda":  # one event after all three steps fences the block
+                    fence = torch.cuda.Event()
+                    fence.record(torch.cuda.current_stream(dev))
+                stager.fence(fence)
+                if len(self.counts) % HARVEST_EVERY == 0:
+                    rec, d, h = self._harvest(bundle, wcms, whll, dev)
+                    self.harvests.append(rec)
+                    dev_s, host_s = dev_s + d, host_s + h
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            e2e_s = time.perf_counter() - t_start
+        finally:
+            cap.stop()
+            stager.drain()
+        require(cap.drops() == 0, f"native capture dropped {cap.drops()} events")
+        self.final = S.bundle_to_numpy(bundle)
+        self.final_window = (wcms.slots.cpu().numpy(), whll.registers.cpu().numpy())
+        cap.close()
+        n_h = max(1, len(self.harvests))
+        return {"events": consumed, "batches": len(self.counts), "e2e_s": e2e_s,
+                "e2e_ev_per_s": consumed / e2e_s,
+                "ingest_ev_per_s": consumed / (e2e_s - dev_s - host_s),
+                "source_ev_per_s": total / produced_at if produced_at else None,
+                "full_batches": sum(c == b for c in self.counts),
+                "harvests": len(self.harvests), "harvest_device_ms": dev_s / n_h * 1e3,
+                "harvest_host_ms": host_s / n_h * 1e3,
+                "decodes": [h["decode"] | {"keys": len(h["decode"]["keys"])}
+                            for h in self.harvests]}
+
+    def stream(self) -> np.ndarray:
+        """The run's folded keys, rebuilt from the seed."""
+        from inspektor_gadget_tpu_torch.ops.hashing import fold64_to_32
+        from inspektor_gadget_tpu_torch.sources.bridge import NativeCapture, SRC_SYNTH_EXEC
+        src = NativeCapture(SRC_SYNTH_EXEC, seed=self.seed, vocab=self.vocab)
+        ev = src.generate(sum(self.counts))
+        src.close()
+        return fold64_to_32(ev.cols["key_hash"])
+
+    def fold_cpu(self) -> tuple[list[dict], list[np.ndarray], tuple, np.ndarray]:
+        """The same stream folded on the CPU -> (harvest records, final
+        bundle leaves, final window leaves, the keys)."""
+        from inspektor_gadget_tpu_torch.ops import sketches as S, window as W
+        cpu = torch.device("cpu")
+        keys = self.stream()
+        bundle, wcms, whll = self._state(cpu)
+        out, off = [], 0
+        blk = np.zeros((3, self.batch), np.uint32)  # keys, weights, values (0: exec events)
+        for i, c in enumerate(self.counts):
+            blk[:] = 0
+            blk[0, :c] = keys[off:off + c]
+            blk[1, :c] = 1
+            off += c
+            k, w, v = (torch.from_numpy(blk[j].view(np.int32)) for j in range(3))
+            S.bundle_ingest_step(bundle, k, k, k, w, values=v)
+            W.wcms_ingest_step(wcms, k, w)
+            W.hll_ingest_step(whll, k, w)
+            if (i + 1) % HARVEST_EVERY == 0:
+                out.append(self._harvest(bundle, wcms, whll, cpu)[0])
+        return (out, S.bundle_to_numpy(bundle),
+                (wcms.slots.numpy().copy(), whll.registers.numpy().copy()), keys)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -221,6 +373,7 @@ def main() -> int:
     from inspektor_gadget_tpu_torch.ops import sketches as S
     from inspektor_gadget_tpu_torch.ops.hashing import _row_multiplier, hashed_bucket
     from inspektor_gadget_tpu_torch.sources import H2DStager, PinnedBufferPool, ZipfFoldedSource
+    from inspektor_gadget_tpu_torch.sources import bridge
     from inspektor_gadget_tpu_torch.sources.synthetic import DISTINCT, HH, LANES, VALUES, WEIGHTS
 
     batch, prod = S.PRODUCTION_BATCH, S.PRODUCTION_GEOMETRY
@@ -237,14 +390,15 @@ def main() -> int:
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    build_all([K.LIBRARY, FA.LIBRARY])
+    build_all([K.LIBRARY, FA.LIBRARY, bridge.LIBRARY])
     build_s = time.perf_counter() - t0
     for lib in (K.LIBRARY, FA.LIBRARY):
         log(f"[build] {lib.path.name} (nvcc {lib.build_seconds:.1f} s)")
         for line in lib.build_log.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"[build] {line.strip()}")
-    log(f"[build] both in {build_s:.1f} s")
+    log(f"[build] {bridge.LIBRARY.path.name} (g++ {bridge.LIBRARY.build_seconds:.1f} s)")
+    log(f"[build] all three in {build_s:.1f} s")
     report["build_s"] = build_s
     hmma = hmma_count(FA.LIBRARY.path)
     log(f"[build] {FA.LIBRARY.path.name}: {hmma} HMMA instructions in its SASS")
@@ -315,7 +469,7 @@ def main() -> int:
             f"equal to the plain version")
 
     # the launch plans of the main paths' shapes
-    ent_plane = K.Plane(K.HIST, K.LANE_HH, mult, 0, prod["entropy_log2_width"],
+    ent_plane = K.Plane(K.HIST64, K.LANE_HH, mult, 0, prod["entropy_log2_width"],
                         1 << prod["entropy_log2_width"], 0)
     report["plans"] = {}
     for name, planes in (("K1", (ent_plane,)), ("K2", full.planes)):
@@ -475,6 +629,125 @@ def main() -> int:
     log(f"[main] end-to-end {e2e_ev_s:.0f} events/s over {steps} batches "
         f"(pool hits {pool.hits}, misses {pool.misses}); device-only {device_ev_s:.0f} events/s")
 
+    # -- 5b. the capture leg: NativeCapture -> pool -> stager -> K2 + window
+    # steps -> harvest, at a vocabulary under the decode's capacity and over it
+    from inspektor_gadget_tpu_torch.telemetry import REGISTRY, PipelineStats
+
+    def pool_counts() -> tuple[float, float]:
+        return tuple(REGISTRY.counter(f"ig_ingest_pool_{x}_total", labels=("lane",))
+                     .labels(lane="0").value for x in ("hits", "misses"))
+
+    capture: dict = {"native_build_s": bridge.LIBRARY.build_seconds}
+    for label, vocab in (("under capacity", 2000), ("over capacity", 20000)):
+        run = CaptureRun(args.seed + 11, vocab, batch, prod)
+        stats = PipelineStats(f"chip-smoke-{vocab}")
+        hits0, misses0 = pool_counts()
+        reset_launches()
+        info = run.drive(dev, CAPTURE_BATCHES, stats)
+        launched = read_launches()
+        require(launched == {"K1": 0, "K2": info["batches"], "K3": 0},
+                f"capture run ({label}) launched {launched}, expected K2 once a batch")
+        launches["K2"] += launched["K2"]
+        hits1, misses1 = pool_counts()
+        info.update(vocab=vocab, launches=launched, starved=stats.starved,
+                    saturated=stats.saturated, stall_s=stats.stall_s,
+                    pool_hits=hits1 - hits0, pool_misses=misses1 - misses0)
+        log(f"[capture] {label}: vocab {vocab}, {info['events']} events in {info['batches']} "
+            f"batches ({info['full_batches']} full), {info['harvests']} harvests; launches "
+            f"{launched}; drops 0")
+        log(f"[capture] {label}: end-to-end {info['e2e_ev_per_s']:.0f} events/s with harvests, "
+            f"{info['ingest_ev_per_s']:.0f} without; native source "
+            f"{info['source_ev_per_s'] or 0:.0f} events/s (phase 5's Python source end to end: "
+            f"{e2e_ev_s:.0f})")
+        log(f"[capture] {label}: stager ticks starved {stats.starved}, saturated "
+            f"{stats.saturated} (stall {stats.stall_s * 1e3:.2f} ms); pool hits "
+            f"{info['pool_hits']:.0f}, misses {info['pool_misses']:.0f} (registry)")
+        dec = info["decodes"][-1]
+        log(f"[capture] {label}: harvest device loop {info['harvest_device_ms']:.2f} ms, host "
+            f"finisher {info['harvest_host_ms']:.2f} ms a harvest; last decode recovered "
+            f"{dec['recovered']} keys, complete {dec['complete']}, {dec['sweeps']} host "
+            f"sweeps, residual {dec['residual_events']} events")
+        t0 = time.perf_counter()
+        cpu_harvests, cpu_final, cpu_window, keys = run.fold_cpu()
+        info["cpu_fold_s"] = time.perf_counter() - t0
+        require(len(cpu_harvests) == len(run.harvests) == info["batches"] // HARVEST_EVERY,
+                f"capture run ({label}): {len(run.harvests)} harvests")
+        for h, (got, want) in enumerate(zip(run.harvests, cpu_harvests)):
+            # the digest's integer words (events, drops, overflow, top-k) bit
+            # for bit; its distinct and entropy estimates are float32 sums of
+            # logs taken in another order on each device: rtol 1e-5
+            gd, wd = got["digest"].view(np.uint32), want["digest"].view(np.uint32)
+            ints = np.r_[[0, 1, 4], np.arange(5, wd.size)]
+            require(gd.shape == wd.shape and np.array_equal(gd[ints], wd[ints])
+                    and np.allclose(gd[2:4].view(np.float32), wd[2:4].view(np.float32),
+                                    rtol=1e-5, atol=0),
+                    f"capture run ({label}), harvest {h}: digest differs from the CPU fold")
+            for field in ("buffer", "residual", "wcms", "whll"):
+                g, w_ = (got[field], want[field]) if field in ("buffer", "residual") else \
+                    ([got[field]], [want[field]])
+                require(all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(g, w_)),
+                        f"capture run ({label}), harvest {h}: {field} differs from the CPU fold")
+            require(got["decode"] == want["decode"] and got["n"] == want["n"]
+                    and got["epoch"] == want["epoch"],
+                    f"capture run ({label}), harvest {h}: InvDecode differs from the CPU fold")
+        for i, (x, y) in enumerate(zip(run.final, cpu_final)):
+            require(x.dtype == y.dtype and np.array_equal(x, y),
+                    f"capture run ({label}): bundle leaf {i} differs from the CPU fold")
+        require(all(np.array_equal(x, y) for x, y in zip(run.final_window, cpu_window)),
+                f"capture run ({label}): window leaves differ from the CPU fold")
+        # the events the last harvest saw: every batch up to it
+        seen = sum(run.counts[:HARVEST_EVERY * len(run.harvests)])
+        uniq, cnt = np.unique(keys[:seen], return_counts=True)
+        tally = dict(zip(uniq.tolist(), cnt.tolist()))
+        last = run.harvests[-1]["decode"]
+        require(all(tally.get(k) == c for k, c in last["keys"]),
+                f"capture run ({label}): a decoded count differs from the exact tally")
+        if label == "under capacity":
+            require(last["complete"] and last["recovered"] == len(tally),
+                    f"capture run ({label}): decode incomplete ({last['recovered']} of "
+                    f"{len(tally)} keys)")
+        info.update(distinct=len(tally), complete=last["complete"],
+                    recovered=last["recovered"], residual_events=last["residual_events"])
+        capture[label] = info
+        log(f"[capture] {label}: every harvest's digest, decode buffer, residual and "
+            f"InvDecode, the window leaves and the bundle equal the CPU fold of the stream "
+            f"rebuilt from the seed ({info['cpu_fold_s']:.1f} s); the {last['recovered']} "
+            f"decoded counts equal the exact tally of {len(tally)} keys")
+
+    # device-only events/s of the step alone and with the two window steps
+    # (pre-staged batches of the native stream, one call, back to back)
+    nsrc = bridge.NativeCapture(bridge.SRC_SYNTH_EXEC, seed=args.seed + 12, vocab=2000)
+    pre_k = [torch.from_numpy(nsrc.generate_folded(batch).view(np.int32)).to(dev)
+             for _ in range(8)]
+    t0 = time.perf_counter()
+    nsrc.generate_folded(batch * 8)
+    native_fill = batch * 8 / (time.perf_counter() - t0)
+    nsrc.close()
+    ones = torch.ones(batch, dtype=torch.int32, device=dev)
+    zeros = torch.zeros(batch, dtype=torch.int32, device=dev)
+    from inspektor_gadget_tpu_torch.ops import hll_init
+    from inspektor_gadget_tpu_torch.ops import window as W
+    rates = {}
+    for name, windows in (("step", False), ("step + window steps", True),
+                          ("step again", False)):
+        dbundle = S.bundle_init(**prod, device=dev)
+        wcms, whll = W.wcms_init(**WINDOW, device=dev), hll_init(prod["hll_p"], device=dev)
+        for i in range(warm + steps):
+            if i == warm:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            k = pre_k[i % 8]
+            S.bundle_ingest_step(dbundle, k, k, k, ones, values=zeros)
+            if windows:
+                W.wcms_ingest_step(wcms, k, ones)
+                W.hll_ingest_step(whll, k, ones)
+        torch.cuda.synchronize()
+        rates[name] = steps * batch / (time.perf_counter() - t0)
+    capture.update(device_only=rates, native_generate_folded_ev_per_s=native_fill)
+    log(f"[capture] device-only events/s: " + ", ".join(f"{k} {v:.0f}" for k, v in rates.items())
+        + f"; native generate_folded fills {native_fill:.0f} events/s on one host thread")
+    report["capture"] = capture
+
     # -- 6. K3 against its plain version ----------------------------------------
     # the plain versions' float32 matmuls run in full f32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -612,7 +885,8 @@ def main() -> int:
             val = w.to(torch.int64)
         else:
             ix = hashed_bucket(lane_t[pl.lane], pl.mult, pl.salt, pl.log2_width)
-            val = w.to(torch.int64) if pl.kind == K.HIST else inv_vals[pl.kind - K.INV_COUNT]
+            val = (w.to(torch.int64) if pl.kind in (K.HIST, K.HIST64)
+                   else inv_vals[pl.kind - K.INV_COUNT])
         flat_idx.append(ix + pl.offset)
         flat_val.append(val)
     flat_idx, flat_val = torch.cat(flat_idx), torch.cat(flat_val)
@@ -637,7 +911,7 @@ def main() -> int:
     log(f"[time] K3 long window {long_shape}: " + ", ".join(
         f"{key} {val:.4f}" if isinstance(val, float) else f"{key} {val}"
         for key, val in report["k3_long_window"].items()))
-    k1_bytes = batch * 4 * 2 + (1 << ent_lw) * 4
+    k1_bytes = batch * 4 * 2 + (1 << ent_lw) * 8  # int64 counts out
     k2_bytes = batch * 4 * 5 + geom.total * 4
     kernels = [
         {"name": "K1 hashed histogram (entropy update)", "route": "cuda", "source": SRC,

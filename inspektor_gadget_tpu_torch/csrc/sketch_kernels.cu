@@ -35,6 +35,16 @@
 // ranks. They commute, so the result is exact and the same in whatever
 // order the blocks run.
 //
+// The entropy plane (kHist64) must not wrap: the reference adds float32
+// weights. Each of its buckets is an int64 in the output, a (low, high)
+// word pair. Its tile keeps 32-bit low words as the others do; an add
+// that wraps a low word adds +2^32, and a negative weight -2^32, into the
+// bucket's int64 in device memory, and the flush adds each low word into
+// it with a 64-bit atomic, whose own wrap carries by itself: the exact
+// signed sum, whatever the order. Weights that are small and positive
+// never carry, so the tally costs a compare, and no device atomic waits
+// for its result.
+//
 // The layout (ops/kernels.py LaunchPlan), chosen by measurement:
 // - Jobs. Each plane is cut into tiles of at most 16384 buckets (64 KB of
 //   shared memory): four a 65536-wide count-min row, one for each other
@@ -96,6 +106,7 @@ constexpr int kHll = 1;
 constexpr int kInvCount = 2;
 constexpr int kInvKeysum = 3;
 constexpr int kQuant = 5;
+constexpr int kHist64 = 6;  // a histogram of exact int64 counts
 constexpr int kBlockFields = 10;  // kind, lane, mult, salt, shift, lo, width,
                                   // first bucket in out, first row, end row
 
@@ -191,7 +202,7 @@ fused_planes_kernel(Batch batch, const int32_t* __restrict__ blocks, QuantParams
   const int shift = job[4];
   const uint32_t lo = (uint32_t)job[5];
   const int width = job[6];
-  uint32_t* dst = out + job[7];
+  uint32_t* dst = out + job[7];  // kHist64: bucket b's int64 at dst[2b] (on 8 bytes)
   const int rb = job[8];
   const int re = job[9];
   const uint32_t* __restrict__ keys = lane == 0 ? batch.lane[0] : lane == 1 ? batch.lane[1]
@@ -222,22 +233,38 @@ fused_planes_kernel(Batch batch, const int32_t* __restrict__ blocks, QuantParams
         val = k == 0u ? 0u : wj;  // zero values weigh 0 here (the zero bucket is host-side)
       } else {
         b = fmix32(k * mult + salt) >> shift;
-        val = kind == kHist || kind == kInvCount ? wj
+        val = kind == kHist || kind == kInvCount || kind == kHist64 ? wj
             : kind == kInvKeysum ? k * wj
             : fmix32(k ^ kFpSalt) * wj;
       }
       b -= lo;
       if (wj == 0u || val == 0u || b >= (uint32_t)width) continue;
-      if (kind == kHll) atomicMax(tile + b, val);
-      else atomicAdd(tile + b, val);
+      if (kind == kHll) {
+        atomicMax(tile + b, val);
+      } else if (kind == kHist64) {
+        // the tile keeps the low word; a wrap of it adds +2^32, and a
+        // negative weight -2^32, straight into the bucket's int64
+        const uint32_t old = atomicAdd(tile + b, val);
+        const long long carry = (old + val < old ? 1 : 0) - ((int32_t)wj < 0 ? 1 : 0);
+        if (carry != 0)
+          atomicAdd(reinterpret_cast<unsigned long long*>(dst) + b,
+                    (unsigned long long)(carry * 4294967296LL));
+      } else {
+        atomicAdd(tile + b, val);
+      }
     }
   }
   __syncthreads();
   for (int b = threadIdx.x; b < width; b += kThreads) {
     const uint32_t v = tile[b];
     if (v == 0u) continue;
-    if (kind == kHll) atomicMax(dst + b, v);
-    else atomicAdd(dst + b, v);
+    if (kind == kHll) {
+      atomicMax(dst + b, v);
+    } else if (kind == kHist64) {  // a 64-bit add: a wrap of the low word carries itself
+      atomicAdd(reinterpret_cast<unsigned long long*>(dst) + b, (unsigned long long)v);
+    } else {
+      atomicAdd(dst + b, v);
+    }
   }
 }
 

@@ -1,11 +1,21 @@
-"""Build and bind the port's CUDA sources.
+"""Build and bind the port's native sources.
 
-Each source in ``csrc/`` is its own shared library with a plain C
+Each CUDA source in ``csrc/`` is its own shared library with a plain C
 interface: built at first use by nvcc into ``build/kernels/`` at the
 repository root, named by a hash of the source and its flags (so an
 edited source is rebuilt), and loaded with ctypes. `build_all` starts
 one nvcc per source, all at once, so a run that needs every kernel
 waits for the slowest build only.
+
+The C++ capture layer in ``native/`` (the JAX package's, copied as it
+is but for the proc connector's event codes in ``sources.cc``, which
+newer kernel headers spell differently) is one more such library,
+`HostLibrary`: built by g++ with the flags of the reference's Makefile
+into ``build/native/``, named by a hash of every source and the flags,
+with the ``syscall_names.inc`` it includes generated into the build
+directory from the toolchain's ``<asm/unistd.h>``. A missing compiler,
+a failed build or a failed load raises; nothing is built or written
+outside ``build/``.
 
 Also here: the checks every kernel wrapper shares (which device its
 tensors are on, the CUDA error a launch returns, the current stream).
@@ -27,6 +37,9 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
+NATIVE_DIR = Path(__file__).resolve().parent / "native"
+HOST_BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "native"
+HOST_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared", "-pthread")
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -89,12 +102,106 @@ class CudaLibrary:
             return self._lib
 
 
-def build_all(libs: Iterable[CudaLibrary]) -> None:
-    """Build and load every library in `libs`, one nvcc each, all started
-    together; raises the first build's error after all have ended."""
+def _write_atomically(path: Path, data: bytes) -> None:
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    tmp.write_bytes(data)
+    os.replace(tmp, path)
+
+
+def syscall_names(cxx: str) -> bytes:
+    """The ``{nr, "name"},`` rows of syscall_names.inc: every ``__NR_*``
+    macro with a number that the toolchain's <asm/unistd.h> defines (the
+    reference Makefile's recipe)."""
+    proc = subprocess.run([cxx, "-E", "-dM", "-x", "c++", "-"], input="#include <asm/unistd.h>\n",
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cxx} could not read <asm/unistd.h>:\n{proc.stderr}")
+    rows = []
+    for line in proc.stdout.splitlines():
+        parts = line.split()
+        if len(parts) == 3 and parts[1].startswith("__NR_") and parts[2].isdigit():
+            rows.append(f'{{{parts[2]}, "{parts[1][5:]}"}},\n')
+    return "".join(rows).encode()
+
+
+class HostLibrary:
+    """The capture layer's C++ sources built by g++ into one library
+    (``api.cc`` includes the rest), loaded once per process. `bind` sets
+    the argtypes and restype of its entries; `source_dir`, `build_dir`
+    and `cxx` (default $CXX, else g++) let a test build elsewhere."""
+
+    def __init__(self, bind: Callable[[ctypes.CDLL], None], *,
+                 source_dir: Path = NATIVE_DIR, build_dir: Path = HOST_BUILD_DIR,
+                 cxx: str | None = None) -> None:
+        self.source_dir = Path(source_dir)
+        self.build_dir = Path(build_dir)
+        self.cxx = cxx
+        self._bind = bind
+        self._mu = threading.Lock()
+        self._lib: ctypes.CDLL | None = None
+        self.path: Path | None = None
+        self.build_seconds = 0.0
+
+    def sources(self) -> list[Path]:
+        return sorted(p for p in self.source_dir.iterdir()
+                      if p.suffix in (".cc", ".h") and p.is_file())
+
+    def library_path(self) -> Path:
+        h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+        for p in self.sources():
+            h.update(p.name.encode() + b"\0" + p.read_bytes())
+        return self.build_dir / f"libigcapture-{h.hexdigest()[:16]}.so"
+
+    def _compiler(self) -> str:
+        cxx = self.cxx or os.environ.get("CXX") or shutil.which("g++")
+        if not cxx or shutil.which(cxx) is None:
+            raise RuntimeError(f"C++ compiler {cxx or 'g++'!r} not found: the native "
+                               f"capture library cannot be built")
+        return cxx
+
+    def build(self) -> Path:
+        """Compile the sources (once per source and flag set) and return
+        the library's path."""
+        out = self.library_path()
+        if out.exists():
+            return out
+        cxx = self._compiler()
+        self.build_dir.mkdir(parents=True, exist_ok=True)
+        _write_atomically(self.build_dir / "syscall_names.inc", syscall_names(cxx))
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run([cxx, *HOST_FLAGS, "-I", str(self.build_dir), "-o", str(tmp),
+                               str(self.source_dir / "api.cc")],
+                              capture_output=True, text=True)
+        self.build_seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{cxx} failed on api.cc ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+        return out
+
+    def get(self) -> ctypes.CDLL:
+        with self._mu:
+            if self._lib is None:
+                path = self.build()
+                try:
+                    lib = ctypes.CDLL(str(path))
+                    self._bind(lib)
+                except (OSError, AttributeError) as e:
+                    raise RuntimeError(f"cannot load or bind {path}: {e}") from e
+                self.path = path
+                self._lib = lib
+            return self._lib
+
+
+def build_all(libs: Iterable[CudaLibrary | HostLibrary]) -> None:
+    """Build and load every library in `libs`, one compiler each, all
+    started together; raises the first build's error after all have
+    ended."""
     errors: list[BaseException] = []
 
-    def one(lib: CudaLibrary) -> None:
+    def one(lib: CudaLibrary | HostLibrary) -> None:
         try:
             lib.get()
         except Exception as e:  # re-raised below, after every build ended

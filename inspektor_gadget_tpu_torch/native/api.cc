@@ -1,0 +1,559 @@
+// C ABI for the capture layer — the cgo-bridge analogue.
+//
+// The reference ships events Go→client via gRPC streams
+// (pkg/gadget-service/service.go RunGadget) after a cgo-free in-process hop
+// from cilium/ebpf's perf reader. Here the in-process hop is this C ABI:
+// Python (ctypes) owns preallocated struct-of-arrays numpy buffers and calls
+// ig_source_pop_batch, which transposes ring slots directly into them —
+// columnar at the boundary, zero Python-side per-event work.
+
+#include <cstdint>
+#include <cstring>
+#include <mutex>
+#include <unordered_map>
+
+#include "sources.cc"
+#include "packet.cc"
+#include "watchers.cc"
+#include "fanotify.cc"
+#include "ptrace_source.cc"
+#include "perf_sampler.cc"
+#include "audit_source.cc"
+// after ptrace_source.cc: tracefs sources share its syscall/fs-op tables
+#include "tracefs_sources.cc"
+
+using namespace ig;
+
+namespace {
+
+std::mutex g_mu;
+std::unordered_map<uint64_t, Source*> g_sources;
+uint64_t g_next_id = 1;
+
+Source* lookup(uint64_t h) {
+  std::lock_guard<std::mutex> g(g_mu);
+  auto it = g_sources.find(h);
+  return it == g_sources.end() ? nullptr : it->second;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Source kinds for ig_source_create / ig_source_create_cfg.
+enum {
+  IG_SRC_SYNTH_EXEC = 1,
+  IG_SRC_SYNTH_TCP = 2,
+  IG_SRC_SYNTH_DNS = 3,
+  IG_SRC_PROC_EXEC = 100,
+  IG_SRC_PROC_TCP = 101,
+  IG_SRC_FANOTIFY_EXEC = 102,
+  IG_SRC_FANOTIFY_OPEN = 103,
+  IG_SRC_MOUNTINFO = 104,
+  IG_SRC_SOCK_DIAG = 105,
+  IG_SRC_KMSG_OOM = 106,
+  IG_SRC_PTRACE = 108,
+  IG_SRC_FANOTIFY_RUNC = 109,
+  IG_SRC_PERF_CPU = 110,
+  IG_SRC_BLK_TRACE = 111,
+  IG_SRC_TCP_BYTES = 112,
+  IG_SRC_AUDIT = 113,
+  IG_SRC_CAP_TRACE = 114,
+  IG_SRC_FS_TRACE = 115,
+  IG_SRC_SOCK_STATE = 116,
+  IG_SRC_SIG_TRACE = 117,
+  IG_SRC_PKT_DNS = 200,
+  IG_SRC_PKT_SNI = 201,
+  IG_SRC_PKT_FLOW = 202,
+};
+
+uint64_t ig_source_create(uint32_t kind, uint64_t seed, double rate,
+                          uint32_t vocab, double zipf_s, uint32_t ring_pow2) {
+  size_t cap = 1ull << (ring_pow2 ? ring_pow2 : 20);
+  Source* s = nullptr;
+  switch (kind) {
+    case IG_SRC_SYNTH_EXEC:
+      s = new SyntheticSource(cap, EV_EXEC, seed, rate, vocab, zipf_s);
+      break;
+    case IG_SRC_SYNTH_TCP:
+      s = new SyntheticSource(cap, EV_TCP_CONNECT, seed, rate, vocab, zipf_s);
+      break;
+    case IG_SRC_SYNTH_DNS:
+      s = new SyntheticSource(cap, EV_DNS, seed, rate, vocab, zipf_s);
+      break;
+#ifdef __linux__
+    case IG_SRC_PROC_EXEC:
+      s = new ProcExecSource(cap);
+      break;
+    case IG_SRC_PROC_TCP:
+      s = new ProcTcpSource(cap);
+      break;
+    case IG_SRC_FANOTIFY_EXEC: {
+      // watched binaries from IG_FANOTIFY_PATHS (colon-separated); defaults
+      // to the usual runc locations (ref: runcfanotify runc watch)
+      std::vector<std::string> paths;
+      if (const char* env = getenv("IG_FANOTIFY_PATHS")) {
+        std::string all(env);
+        size_t pos = 0;
+        while (pos != std::string::npos) {
+          size_t next = all.find(':', pos);
+          std::string p = all.substr(
+              pos, next == std::string::npos ? next : next - pos);
+          if (!p.empty()) paths.push_back(p);
+          pos = next == std::string::npos ? next : next + 1;
+        }
+      }
+      s = new FanotifyExecSource(cap, std::move(paths));
+      break;
+    }
+    case IG_SRC_PKT_DNS:
+      // seed doubles as an optional netns fd (0 = current netns) — the
+      // rawsock "open in target namespace" contract
+      s = new PacketSniffSource(cap, PKT_DNS, seed ? (int)seed : -1);
+      break;
+    case IG_SRC_PKT_SNI:
+      s = new PacketSniffSource(cap, PKT_SNI, seed ? (int)seed : -1);
+      break;
+    case IG_SRC_PKT_FLOW:
+      s = new PacketSniffSource(cap, PKT_FLOW, seed ? (int)seed : -1);
+      break;
+#endif
+    default:
+      return 0;
+  }
+  s->set_kind(kind);
+  std::lock_guard<std::mutex> g(g_mu);
+  uint64_t id = g_next_id++;
+  g_sources[id] = s;
+  return id;
+}
+
+// String-configured sources ("key=value\x1fkey=value" — the RewriteConstants
+// analogue for sources whose config is not numeric).
+uint64_t ig_source_create_cfg(uint32_t kind, const char* cfg,
+                              uint32_t ring_pow2) {
+  size_t cap = 1ull << (ring_pow2 ? ring_pow2 : 20);
+  std::string c = cfg ? cfg : "";
+  Source* s = nullptr;
+#ifdef __linux__
+  switch (kind) {
+    case IG_SRC_FANOTIFY_OPEN:
+      s = new FanotifyOpenSource(cap, c);
+      break;
+    case IG_SRC_MOUNTINFO:
+      s = new MountInfoSource(cap, c);
+      break;
+    case IG_SRC_SOCK_DIAG:
+      s = new SockDiagBindSource(cap, c);
+      break;
+    case IG_SRC_KMSG_OOM:
+      s = new KmsgOomSource(cap);
+      break;
+    case IG_SRC_PTRACE:
+      s = new PtraceSyscallSource(cap, c);
+      break;
+    case IG_SRC_FANOTIFY_RUNC:
+      s = new FanotifyRuncSource(cap, c);
+      break;
+    case IG_SRC_PERF_CPU:
+      s = new PerfCpuSampler(cap, c);
+      break;
+    case IG_SRC_BLK_TRACE:
+      s = new BlkTraceSource(cap, c);
+      break;
+    case IG_SRC_TCP_BYTES:
+      s = new TcpBytesSource(cap, c);
+      break;
+    case IG_SRC_AUDIT:
+      s = new AuditSource(cap, c);
+      break;
+    case IG_SRC_CAP_TRACE:
+      s = new CapTraceSource(cap, c);
+      break;
+    case IG_SRC_FS_TRACE:
+      s = new FsTraceSource(cap, c);
+      break;
+    case IG_SRC_SOCK_STATE:
+      s = new SockStateSource(cap, c);
+      break;
+    case IG_SRC_SIG_TRACE:
+      s = new SignalTraceSource(cap, c);
+      break;
+    default:
+      return 0;
+  }
+#else
+  (void)cap;
+  return 0;
+#endif
+  s->set_kind(kind);
+  std::lock_guard<std::mutex> g(g_mu);
+  uint64_t id = g_next_id++;
+  g_sources[id] = s;
+  return id;
+}
+
+// Enumerate all live sources with self-stats — the top/ebpf contract
+// (reference pkg/gadgets/top/ebpf/tracer.go:55-418 iterates every loaded
+// BPF program with runtime/run-count from kernel stats; here every live
+// capture source reports thread CPU time, ring occupancy and loss
+// counters). Any output pointer may be null. Returns entries written.
+int64_t ig_sources_stats(uint64_t* ids, uint32_t* kinds, uint64_t* produced,
+                         uint64_t* consumed, uint64_t* drops,
+                         uint64_t* filtered, uint64_t* ring_len,
+                         uint64_t* ring_cap, uint64_t* cpu_ns, int64_t cap) {
+  if (cap <= 0) return -1;
+  std::lock_guard<std::mutex> g(g_mu);  // also blocks concurrent destroy
+  int64_t n = 0;
+  for (auto& kv : g_sources) {
+    if (n >= cap) break;
+    Source* s = kv.second;
+    if (ids) ids[n] = kv.first;
+    if (kinds) kinds[n] = s->kind();
+    if (produced) produced[n] = s->produced();
+    // the ring's own tail counter — deriving it as produced-ring_len from
+    // two separate loads can underflow when the producer advances between
+    // the reads
+    if (consumed) consumed[n] = s->consumed();
+    if (drops) drops[n] = s->drops();
+    if (filtered) filtered[n] = s->filtered();
+    if (ring_len) ring_len[n] = s->ring_len();
+    if (ring_cap) ring_cap[n] = s->ring_capacity();
+    if (cpu_ns) cpu_ns[n] = s->thread_cpu_ns();
+    n++;
+  }
+  return n;
+}
+
+// Capture-side container filter (ref: tracer-collection.go:100-134 mntns
+// map). ids=null clears; n=0 with non-null ids blocks everything.
+int ig_source_set_filter(uint64_t h, const uint64_t* ids, int64_t n) {
+  Source* s = lookup(h);
+  if (!s || n < 0) return -1;
+  s->set_filter(ids, ids ? (size_t)n : 0);
+  return 0;
+}
+
+uint64_t ig_source_filtered(uint64_t h) {
+  Source* s = lookup(h);
+  return s ? s->filtered() : 0;
+}
+
+// Exit status of a ptrace-spawned command (-1 while running, -2 not ptrace).
+int ig_ptrace_exit_status(uint64_t h) {
+#ifdef __linux__
+  Source* s = lookup(h);
+  auto* p = dynamic_cast<PtraceSyscallSource*>(s);
+  return p ? p->exit_status() : -2;
+#else
+  return -2;
+#endif
+}
+
+int ig_perf_supported() {
+#ifdef __linux__
+  return PerfCpuSampler::supported() ? 1 : 0;
+#else
+  return 0;
+#endif
+}
+
+// Per-IO block window available? (tracefs block events readable)
+int ig_blktrace_supported() {
+#ifdef __linux__
+  return BlkTraceSource::supported() ? 1 : 0;
+#else
+  return 0;
+#endif
+}
+
+// Per-connection TCP byte counters available? (sock_diag INET_DIAG_INFO)
+int ig_tcpinfo_supported() {
+#ifdef __linux__
+  return TcpBytesSource::supported() ? 1 : 0;
+#else
+  return 0;
+#endif
+}
+
+// Host-wide audit window available? (NETLINK_AUDIT + READLOG multicast)
+int ig_audit_supported() {
+#ifdef __linux__
+  return AuditSource::supported() ? 1 : 0;
+#else
+  return 0;
+#endif
+}
+
+// cap_capable tracepoint window available? (tracefs, kernel >= 6.7)
+int ig_captrace_supported() {
+#ifdef __linux__
+  return CapTraceSource::supported() ? 1 : 0;
+#else
+  return 0;
+#endif
+}
+
+// raw_syscalls tracepoint window available? (host-wide fsslower)
+int ig_fstrace_supported() {
+#ifdef __linux__
+  return FsTraceSource::supported() ? 1 : 0;
+#else
+  return 0;
+#endif
+}
+
+// inet_sock_set_state tracepoint window available? (event-driven trace/tcp)
+int ig_sockstate_supported() {
+#ifdef __linux__
+  return SockStateSource::supported() ? 1 : 0;
+#else
+  return 0;
+#endif
+}
+
+// signal_generate tracepoint window available? (full sigsnoop parity)
+int ig_sigtrace_supported() {
+#ifdef __linux__
+  return SignalTraceSource::supported() ? 1 : 0;
+#else
+  return 0;
+#endif
+}
+
+int ig_source_start(uint64_t h) {
+  Source* s = lookup(h);
+  if (!s) return -1;
+  s->start();
+  return 0;
+}
+
+int ig_source_stop(uint64_t h) {
+  Source* s = lookup(h);
+  if (!s) return -1;
+  s->stop();
+  return 0;
+}
+
+int ig_source_destroy(uint64_t h) {
+  Source* s;
+  {
+    std::lock_guard<std::mutex> g(g_mu);
+    auto it = g_sources.find(h);
+    if (it == g_sources.end()) return -1;
+    s = it->second;
+    g_sources.erase(it);
+  }
+  delete s;
+  return 0;
+}
+
+// Pop up to n events as struct-of-arrays into caller buffers. Any pointer
+// may be null to skip that column. Returns count popped.
+int64_t ig_source_pop_batch(uint64_t h, int64_t n, uint64_t* ts,
+                            uint64_t* key_hash, uint64_t* aux1, uint64_t* aux2,
+                            uint64_t* mntns, uint32_t* pid, uint32_t* ppid,
+                            uint32_t* uid, uint32_t* kind, char* comm /*8n*/) {
+  Source* s = lookup(h);
+  if (!s || n <= 0) return -1;
+  static thread_local std::vector<Event> tmp;
+  tmp.resize((size_t)n);
+  size_t got = s->pop(tmp.data(), (size_t)n);
+  for (size_t i = 0; i < got; i++) {
+    const Event& e = tmp[i];
+    if (ts) ts[i] = e.ts_ns;
+    if (key_hash) key_hash[i] = e.key_hash;
+    if (aux1) aux1[i] = e.aux1;
+    if (aux2) aux2[i] = e.aux2;
+    if (mntns) mntns[i] = e.mntns;
+    if (pid) pid[i] = e.pid;
+    if (ppid) ppid[i] = e.ppid;
+    if (uid) uid[i] = e.uid;
+    if (kind) kind[i] = e.kind;
+    if (comm) memcpy(comm + i * 8, e.comm, 8);
+  }
+  return (int64_t)got;
+}
+
+// Folded SoA batch exporter — the zero-copy sketch-ingest hot path.
+//
+// The classic pop (ig_source_pop_batch) hands Python nine 64/32-bit
+// columns which the sketch plane then folds to uint32 and re-copies into
+// a staging buffer: at 100M+ ev/s the fold + copy + per-column ctypes
+// bookkeeping IS the pipeline wall (BENCH_r04: host plane ~130M vs
+// device plane 2.6B ev/s). This call drains the ring straight into the
+// caller's pre-folded uint32 lanes — keys (xor-folded key_hash, the
+// sketch key width), weights (per-event weight, 1 today; the lane exists
+// so a capture shim may pre-aggregate runs of equal keys), and mntns
+// (xor-folded, exact for real mount-ns inode numbers < 2^32) — so Python
+// does ZERO per-event work and the lanes land directly in the pinned H2D
+// staging buffer. weights/mntns may be null to skip those lanes.
+int64_t ig_source_pop_folded(uint64_t h, int64_t n, uint32_t* keys,
+                             uint32_t* weights, uint32_t* mntns) {
+  Source* s = lookup(h);
+  if (!s || n <= 0 || !keys) return -1;
+  static thread_local std::vector<Event> tmp;
+  tmp.resize((size_t)n);
+  size_t got = s->pop(tmp.data(), (size_t)n);
+  for (size_t i = 0; i < got; i++) {
+    const Event& e = tmp[i];
+    keys[i] = (uint32_t)((e.key_hash >> 32) ^ (e.key_hash & 0xFFFFFFFFull));
+    if (weights) weights[i] = 1u;
+    if (mntns)
+      mntns[i] = (uint32_t)((e.mntns >> 32) ^ (e.mntns & 0xFFFFFFFFull));
+  }
+  return (int64_t)got;
+}
+
+// Value-lane variant of ig_source_pop_folded (quantile plane): one more
+// uint32 out column carrying the per-event magnitude — latency ns or byte
+// count, whatever the kind keeps in aux1 (fsslower/file-rw latency,
+// block-io latency, tcp interval bytes). Kinds without a magnitude write
+// 0, which the DDSketch accounts in its zero bucket instead of a
+// positive latency bin. Saturating cast: aux1 past 2^32-1 (a ~4.3 s
+// latency) clamps to UINT32_MAX — still inside the sketch's top bucket
+// span, so the quantile read degrades gracefully instead of wrapping.
+int64_t ig_source_pop_folded2(uint64_t h, int64_t n, uint32_t* keys,
+                              uint32_t* weights, uint32_t* mntns,
+                              uint32_t* values) {
+  Source* s = lookup(h);
+  if (!s || n <= 0 || !keys) return -1;
+  static thread_local std::vector<Event> tmp;
+  tmp.resize((size_t)n);
+  size_t got = s->pop(tmp.data(), (size_t)n);
+  for (size_t i = 0; i < got; i++) {
+    const Event& e = tmp[i];
+    keys[i] = (uint32_t)((e.key_hash >> 32) ^ (e.key_hash & 0xFFFFFFFFull));
+    if (weights) weights[i] = 1u;
+    if (mntns)
+      mntns[i] = (uint32_t)((e.mntns >> 32) ^ (e.mntns & 0xFFFFFFFFull));
+    if (values) {
+      switch (e.kind) {
+        case EV_FSSLOWER:
+        case EV_FILE_RW:
+        case EV_BLOCK_IO:
+        case EV_TCP_BYTES:
+          values[i] = (e.aux1 > 0xFFFFFFFFull) ? 0xFFFFFFFFu
+                                               : (uint32_t)e.aux1;
+          break;
+        default:
+          values[i] = 0u;
+      }
+    }
+  }
+  return (int64_t)got;
+}
+
+uint64_t ig_source_drops(uint64_t h) {
+  Source* s = lookup(h);
+  return s ? s->drops() : 0;
+}
+
+uint64_t ig_source_produced(uint64_t h) {
+  Source* s = lookup(h);
+  return s ? s->produced() : 0;
+}
+
+// Synchronous generation into caller buffers (bench path, synthetic only).
+int64_t ig_synth_generate(uint64_t h, int64_t n, uint64_t* key_hash,
+                          uint64_t* mntns, uint32_t* pid, uint32_t* uid) {
+  Source* s = lookup(h);
+  auto* syn = dynamic_cast<SyntheticSource*>(s);
+  if (!syn || n <= 0) return -1;
+  static thread_local std::vector<Event> tmp;
+  tmp.resize((size_t)n);
+  syn->generate(tmp.data(), (size_t)n);
+  for (int64_t i = 0; i < n; i++) {
+    const Event& e = tmp[i];
+    if (key_hash) key_hash[i] = e.key_hash;
+    if (mntns) mntns[i] = e.mntns;
+    if (pid) pid[i] = e.pid;
+    if (uid) uid[i] = e.uid;
+  }
+  return n;
+}
+
+// Folded fast path: zipf draws land as xor-folded uint32 keys directly in
+// the caller's staging buffer (the sketch plane's native key width).
+int64_t ig_synth_generate_folded(uint64_t h, int64_t n, uint32_t* out) {
+  Source* s = lookup(h);
+  auto* syn = dynamic_cast<SyntheticSource*>(s);
+  if (!syn || n <= 0 || !out) return -1;
+  return (int64_t)syn->generate_folded(out, (size_t)n);
+}
+
+int64_t ig_vocab_lookup(uint64_t h, uint64_t key, char* out, int64_t cap) {
+  Source* s = lookup(h);
+  if (!s || cap <= 0) return -1;
+  return (int64_t)s->vocab().get(key, out, (size_t)cap);
+}
+
+// Batch un-hash for the display decode loop: one ctypes crossing per
+// batch instead of one per row. out is n*stride bytes; lens[i] receives
+// the copied length (0 = unknown key).
+int64_t ig_vocab_lookup_batch(uint64_t h, const uint64_t* keys, int64_t n,
+                              char* out, int64_t stride, int32_t* lens) {
+  Source* s = lookup(h);
+  if (!s || n <= 0 || stride <= 0 || !keys || !out || !lens) return -1;
+  for (int64_t i = 0; i < n; i++) {
+    lens[i] = (int32_t)s->vocab().get(keys[i], out + i * stride,
+                                      (size_t)stride);
+  }
+  return n;
+}
+
+uint64_t ig_fnv1a64(const char* s, int64_t n) {
+  return fnv1a64(s, (size_t)n);
+}
+
+}  // extern "C"
+
+extern "C" int ig_fanotify_supported() {
+#ifdef __linux__
+  return ig::FanotifyExecSource::supported() ? 1 : 0;
+#else
+  return 0;
+#endif
+}
+
+// ---------------------------------------------------------------------------
+// Containers map — shared mntns → container-name table.
+//
+// Reference contract: pkg/gadgettracermanager/containers-map (a BPF hash
+// map pinned at /sys/fs/bpf/gadget/containers mapping mntns → container
+// identity so BPF programs self-enrich, containers-map/tracer.go:66,119).
+// Here the table lives in the capture library; Python mirrors the
+// ContainerCollection into it and capture threads or the display path
+// resolve identity without crossing back into Python.
+// ---------------------------------------------------------------------------
+
+namespace {
+std::mutex g_cmap_mu;
+std::unordered_map<uint64_t, std::string> g_cmap;
+}  // namespace
+
+extern "C" void ig_containers_set(uint64_t mntns, const char* name,
+                                  int64_t len) {
+  std::lock_guard<std::mutex> g(g_cmap_mu);
+  g_cmap[mntns] = std::string(name, (size_t)len);
+}
+
+extern "C" void ig_containers_remove(uint64_t mntns) {
+  std::lock_guard<std::mutex> g(g_cmap_mu);
+  g_cmap.erase(mntns);
+}
+
+extern "C" int64_t ig_containers_lookup(uint64_t mntns, char* out,
+                                        int64_t cap) {
+  std::lock_guard<std::mutex> g(g_cmap_mu);
+  auto it = g_cmap.find(mntns);
+  if (it == g_cmap.end() || cap <= 0) return 0;
+  int64_t n = (int64_t)it->second.size() < cap ? (int64_t)it->second.size() : cap;
+  memcpy(out, it->second.data(), (size_t)n);
+  return n;
+}
+
+extern "C" int64_t ig_containers_count() {
+  std::lock_guard<std::mutex> g(g_cmap_mu);
+  return (int64_t)g_cmap.size();
+}

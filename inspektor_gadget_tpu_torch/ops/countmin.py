@@ -12,7 +12,7 @@ from dataclasses import dataclass
 import torch
 
 from ..device import resolve_device
-from .hashing import row_hashes
+from .hashing import row_hashes, sum_wrap32
 
 
 @dataclass
@@ -48,7 +48,8 @@ def cms_update(state: CountMin, keys: torch.Tensor,
     idx = row_hashes(keys, state.depth, state.log2_width)
     rows = torch.arange(state.depth, device=idx.device)[:, None] * state.width
     state.table.view(-1).index_add_(0, (idx + rows).reshape(-1), w.repeat(state.depth))
-    state.total.add_(w.sum().to(torch.float32))
+    # the reference sums the int32 weights in int32, wrapping (countmin.py:59)
+    state.total.add_(sum_wrap32(w).to(torch.float32))
     return state
 
 

@@ -5,7 +5,11 @@ H = log2(N) - (1/N) * sum_i c_i*log2(c_i) over float32 bucket counts.
 The update is the K1 histogram: the hand-written CUDA kernel for CUDA
 tensors (where the reference takes its Pallas kernel on the TPU), its
 plain version for CPU tensors. Weights are integers, the bundle's
-weights lane.
+weights lane. The batch's bucket counts are exact (int64, never
+wrapping) and are rounded to float32 once, as they are added: the same
+as the reference's Pallas path whenever a bucket's batch total is below
+2**24, and the same as its CPU path, which adds each float32 weight in
+turn, whenever a bucket's running count stays below 2**24 (PERF.md §1).
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ def entropy_init(log2_width: int = 12, device: str | torch.device = "cuda") -> E
 
 def entropy_update(state: EntropySketch, keys: torch.Tensor,
                    weights: torch.Tensor | None = None) -> EntropySketch:
-    """Add the batch's weighted bucket histogram (row-0 hash). In place."""
+    """Add the batch's exact weighted bucket histogram (row-0 hash),
+    rounded to float32 once. In place."""
     if weights is None:
         weights = torch.ones(keys.shape, dtype=torch.int32, device=keys.device)
     if weights.is_floating_point():

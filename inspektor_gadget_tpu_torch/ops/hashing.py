@@ -79,6 +79,13 @@ def bits32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
+def sum_wrap32(x: torch.Tensor) -> torch.Tensor:
+    """The sum of an int32 lane wrapped to int32 (mod 2**32), as the
+    reference's int32 reduction gives it; exact before the wrap."""
+    s = bits32(x).sum(dtype=torch.int64)
+    return ((s + (1 << 31)) & MASK32) - (1 << 31)
+
+
 def mul32(a: torch.Tensor, b) -> torch.Tensor:
     """(a * b) mod 2**32 for int64 lanes in [0, 2**32); `b` is a lane or
     a Python int. Split into 16-bit halves so no product exceeds 2**48."""

@@ -14,6 +14,11 @@ rows into slices by its work, one thread block a (job, slice);
 tests/test_torch_sketch_layout.py pins it and emulates the kernel's
 partition.
 
+The entropy plane, K1's one plane and K2's entropy row, is a HIST64
+plane: its counts are exact int64 (a (low, high) word pair a bucket),
+never wrapping; every other histogram plane wraps as the reference's
+int32 tables do.
+
 For a CUDA tensor a wrapper launches its kernel or raises; for a CPU
 tensor it computes the plain version, which the tests hold against the
 JAX package and ``chip_smoke.py`` holds the kernel against on the card.
@@ -39,8 +44,10 @@ from .hll import hll_index_rank
 from .invertible import inv_lane_values, inv_row_hash
 from .quantiles import bucket_constants, bucket_index
 
-# plane kinds and key lanes, as csrc/sketch_kernels.cu numbers them
-HIST, HLL, INV_COUNT, INV_KEYSUM, INV_FPSUM, QUANT = range(6)
+# plane kinds and key lanes, as csrc/sketch_kernels.cu numbers them; a
+# HIST64 plane is a HIST plane whose signed counts do not wrap: each
+# bucket takes two words, low then high, an int64 in the flat buffer
+HIST, HLL, INV_COUNT, INV_KEYSUM, INV_FPSUM, QUANT, HIST64 = range(7)
 LANE_HH, LANE_DISTINCT, LANE_DIST, LANE_VALUES = range(4)
 
 # The launch plan's limits (csrc/sketch_kernels.cu: kThreads, kMinBlocks,
@@ -53,7 +60,7 @@ SMEM_LIMIT = 232_448      # shared memory a block may use on sm_90
 BLOCK_FIELDS = 10         # a block's row of the plan's table
 # the work of a job's row by its plane's kind: a key read, a weight read
 # and a hash, where a DDSketch bucket costs about three hashes
-ROW_COST = {HIST: 3, HLL: 3, INV_COUNT: 3, INV_KEYSUM: 3, INV_FPSUM: 3, QUANT: 5}
+ROW_COST = {HIST: 3, HLL: 3, INV_COUNT: 3, INV_KEYSUM: 3, INV_FPSUM: 3, QUANT: 5, HIST64: 3}
 
 
 # -- bind ----------------------------------------------------------------------
@@ -90,6 +97,25 @@ class Plane:
     log2_width: int  # hashed planes: bucket bits; 0 for the quantile row
     width: int
     offset: int      # first bucket of the plane in the flat delta buffer
+
+    @property
+    def span(self) -> int:
+        """Words of the flat buffer the plane takes: one a bucket, two
+        (an int64) for HIST64."""
+        return 2 * self.width if self.kind == HIST64 else self.width
+
+    def word(self, bucket: int) -> int:
+        """The flat buffer's word of `bucket` (its low word for HIST64)."""
+        return self.offset + (2 * bucket if self.kind == HIST64 else bucket)
+
+    def counts64(self, buf: torch.Tensor) -> torch.Tensor:
+        """A HIST64 plane's exact counts: a view of its words as int64
+        (the offset is even, so the view stays on 8 bytes)."""
+        return buf[self.offset:self.offset + self.span].view(torch.int64)
+
+
+def _flat_size(planes: tuple[Plane, ...]) -> int:
+    return planes[-1].offset + planes[-1].span
 
 
 @dataclass(frozen=True)
@@ -144,7 +170,7 @@ class LaunchPlan:
             j = self.jobs[ji]
             pl = self.planes[j.plane]
             rows.append((pl.kind, pl.lane, pl.mult, pl.salt, 32 - pl.log2_width, j.lo,
-                         j.width, pl.offset + j.lo, r0, r1))
+                         j.width, pl.word(j.lo), r0, r1))
         t = np.array(rows, dtype=np.int64).reshape(-1, BLOCK_FIELDS)
         return np.where(t >= 1 << 31, t - (1 << 32), t).astype(np.int32)
 
@@ -211,8 +237,7 @@ def launch_planes(planes: tuple[Plane, ...], lanes, w: torch.Tensor,
     """Zero the flat int32 delta buffer of `planes` and launch
     ig_fused_planes on it under the card's `launch_plan`. No launch for
     an empty batch."""
-    last = planes[-1]
-    out = torch.zeros(last.offset + last.width, dtype=torch.int32, device=dev)
+    out = torch.zeros(_flat_size(planes), dtype=torch.int32, device=dev)
     if n == 0:
         return out
     plan = launch_plan(planes, n, sm_count(dev))
@@ -230,30 +255,30 @@ def launch_planes(planes: tuple[Plane, ...], lanes, w: torch.Tensor,
 
 def histogram_plain(keys: torch.Tensor, weights: torch.Tensor, *, log2_width: int,
                     mult: int = 0x9E3779B1, salt: int = 0) -> torch.Tensor:
-    """hist[b] = sum of weights[n] with fmix32(keys[n]*mult+salt) >>
-    (32-log2_width) == b, as int32 (wrapping)."""
+    """hist[b] = sum of the signed int32 weights[n] with
+    fmix32(keys[n]*mult+salt) >> (32-log2_width) == b, exact, as int64."""
     idx = hashed_bucket(keys, mult, salt, log2_width)
     out = torch.zeros(1 << log2_width, dtype=torch.int64, device=keys.device)
-    out.index_add_(0, idx, weights.to(torch.int64))
-    return bits32(out & MASK32)
+    return out.index_add_(0, idx, bits32(weights).to(torch.int64))
 
 
 def histogram(keys: torch.Tensor, weights: torch.Tensor, *, log2_width: int,
               mult: int = 0x9E3779B1, salt: int = 0) -> torch.Tensor:
-    """K1: (n,) uint32 keys + (n,) int32 weights -> (2**log2_width,) int32
-    histogram. CUDA tensors launch the kernel, CPU tensors take
-    `histogram_plain`."""
+    """K1: (n,) uint32 keys + (n,) int32 weights -> (2**log2_width,) int64
+    histogram, exact (a HIST64 plane: no count wraps). CUDA tensors
+    launch the kernel, CPU tensors take `histogram_plain`."""
     if on_cpu(keys, weights):
         return histogram_plain(keys, weights, log2_width=log2_width, mult=mult, salt=salt)
     dev = keys.device
     n = keys.shape[0]
     k = _kernel_lane(keys, n, dev, "keys")
     w = _kernel_lane(weights.to(torch.int32), n, dev, "weights")
-    plane = Plane(HIST, LANE_HH, mult & MASK32, salt & MASK32, log2_width, 1 << log2_width, 0)
+    width = 1 << log2_width
+    plane = Plane(HIST64, LANE_HH, mult & MASK32, salt & MASK32, log2_width, width, 0)
     out = launch_planes((plane,), (k, k, k), w, None, n, dev)
     if n:
         histogram.launches += 1
-    return out
+    return plane.counts64(out)
 
 
 histogram.launches = 0
@@ -275,12 +300,13 @@ class FusedGeometry:
 
     @functools.cached_property
     def planes(self) -> tuple[Plane, ...]:
-        """The planes in the reference's order: depth count-min rows, the
-        entropy row, the HLL row, 3 lanes per invertible row (count,
-        keysum, fpsum), the DDSketch row."""
+        """The planes in the reference's order: depth count-min rows
+        (wrapping int32, as the reference's table does), the entropy row
+        (HIST64: exact, its high words after it), the HLL row, 3 lanes per
+        invertible row (count, keysum, fpsum), the DDSketch row."""
         spec = [(HIST, LANE_HH, int(_row_multiplier(d)), row_salt(d), self.log2_width)
                 for d in range(self.depth)]
-        spec.append((HIST, LANE_DIST, int(_row_multiplier(0)), 0, self.ent_log2_width))
+        spec.append((HIST64, LANE_DIST, int(_row_multiplier(0)), 0, self.ent_log2_width))
         spec.append((HLL, LANE_DISTINCT, 0, 0, self.hll_p))
         for r in range(self.inv_rows):
             mult, salt = inv_row_hash(r)
@@ -289,15 +315,16 @@ class FusedGeometry:
         out, offset = [], 0
         for kind, lane, mult, salt, lw in spec:
             out.append(Plane(kind, lane, mult, salt, lw, 1 << lw, offset))
-            offset += 1 << lw
+            assert kind != HIST64 or offset % 2 == 0  # its int64s lie on 8 bytes
+            offset += out[-1].span
         if self.qt_buckets:
             out.append(Plane(QUANT, LANE_VALUES, 0, 0, 0, self.qt_buckets, offset))
         return tuple(out)
 
     @property
     def total(self) -> int:
-        last = self.planes[-1]
-        return last.offset + last.width
+        """Words of the flat delta buffer."""
+        return _flat_size(self.planes)
 
 
 def fused_planes_plain(hh: torch.Tensor, distinct: torch.Tensor, dist: torch.Tensor,
@@ -306,13 +333,17 @@ def fused_planes_plain(hh: torch.Tensor, distinct: torch.Tensor, dist: torch.Ten
     """Plain version of K2: the flat (geom.total,) int32 delta buffer,
     plane after plane (see `FusedGeometry.planes`)."""
     lanes = (hh, distinct, dist, values)
-    w = weights.to(torch.int64)
+    w = bits32(weights).to(torch.int64)
     out = torch.zeros(geom.total, dtype=torch.int64, device=hh.device)
     inv = inv_lane_values(hh, weights) if geom.inv_rows else None
     for pl in geom.planes:
         seg = out[pl.offset:pl.offset + pl.width]
         keys = lanes[pl.lane]
-        if pl.kind == HIST:
+        if pl.kind == HIST64:  # exact sums as (low, high) word pairs
+            s = torch.zeros(pl.width, dtype=torch.int64, device=hh.device)
+            s.index_add_(0, hashed_bucket(keys, pl.mult, pl.salt, pl.log2_width), w)
+            out[pl.offset:pl.offset + pl.span] = torch.stack([s, s >> 32], 1).view(-1)
+        elif pl.kind == HIST:
             seg.index_add_(0, hashed_bucket(keys, pl.mult, pl.salt, pl.log2_width), w)
         elif pl.kind == HLL:
             idx, rank = hll_index_rank(keys, pl.log2_width)
@@ -356,9 +387,9 @@ fused_planes.launches = 0
 
 
 def split_planes(buf: torch.Tensor, geom: FusedGeometry):
-    """Flat delta buffer -> (cms (depth, W) int32, entropy (We,) float32,
-    HLL ranks (2**p,) int32, invertible (rows, 3, Wi) int64 lanes or None,
-    quantile (buckets,) int32 or None)."""
+    """Flat delta buffer -> (cms (depth, W) int32, entropy (We,) float32
+    (the exact count, rounded once), HLL ranks (2**p,) int32, invertible
+    (rows, 3, Wi) int64 lanes or None, quantile (buckets,) int32 or None)."""
     d, w = geom.depth, 1 << geom.log2_width
     pl = geom.planes
     ent, hll = pl[d], pl[d + 1]
@@ -369,7 +400,7 @@ def split_planes(buf: torch.Tensor, geom: FusedGeometry):
         inv = u32(buf[lo:lo + 3 * geom.inv_rows * wi]).view(geom.inv_rows, 3, wi)
     qt = buf[pl[-1].offset:] if geom.qt_buckets else None
     return (buf[:d * w].view(d, w),
-            buf[ent.offset:ent.offset + ent.width].to(torch.float32),
+            ent.counts64(buf).to(torch.float32),
             buf[hll.offset:hll.offset + hll.width],
             inv, qt)
 

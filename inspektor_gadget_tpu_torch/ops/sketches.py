@@ -11,8 +11,13 @@ Key streams per batch (uint32 lanes, fixed length, integer weights):
 `bundle_update_fused` takes every plane's delta from one K2 pass (the
 CUDA kernel on the card, its plain version on the CPU) and is what
 `bundle_ingest_step`, the staged-ingest step, runs. Both give
-bit-identical state, and both equal the JAX package's. Updates change
-the bundle in place, where the reference donates it, and return it.
+bit-identical state on either device, and both equal the JAX package's
+within the regimes of PERF.md §1: `cms.total` wraps its int32 sum as the
+reference does; `events` adds the batch's exact weight sum rounded to
+float32 once, where the reference sums in float32 in XLA's order (equal
+whenever a batch's weight sum is below 2**24); the entropy delta is
+exact (see `entropy.py`). Updates change the bundle in place, where the
+reference donates it, and return it.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch
 from ..device import resolve_device
 from .countmin import CountMin, cms_init, cms_merge, cms_update
 from .entropy import EntropySketch, entropy_estimate, entropy_init, entropy_merge, entropy_update
-from .hashing import MASK32, bits32, u32
+from .hashing import MASK32, bits32, sum_wrap32, u32
 from .hll import HLL, hll_estimate, hll_init, hll_merge, hll_update
 from .invertible import InvSketch, inv_init, inv_merge, inv_update
 from .kernels import FusedGeometry, fused_planes, split_planes
@@ -109,7 +114,7 @@ def bundle_update(bundle: SketchBundle, hh_keys: torch.Tensor, distinct_keys: to
     hll_update(bundle.hll, distinct_keys, w)
     entropy_update(bundle.entropy, dist_keys, w)
     bundle.topk = topk_update(bundle.topk, bundle.cms, hh_keys, w)
-    bundle.events.add_(w.sum().to(torch.float32))
+    bundle.events.add_(w.sum(dtype=torch.int64).to(torch.float32))
     _add_drops(bundle, drops)
     if bundle.inv is not None:
         inv_update(bundle.inv, hh_keys, w)
@@ -130,9 +135,10 @@ def bundle_update_fused(bundle: SketchBundle, hh_keys: torch.Tensor,
     vals = _values_or_zero(values, w) if geom.qt_buckets else None
     cms_d, ent_d, ranks, inv_d, qt_d = split_planes(
         fused_planes(hh_keys, distinct_keys, dist_keys, w, vals, geom), geom)
-    wsum = w.sum()
+    wsum = w.sum(dtype=torch.int64)  # exact
+    wrapped = sum_wrap32(w)          # the reference's int32 sum
     bundle.cms.table.add_(cms_d)
-    bundle.cms.total.add_(wsum.to(torch.float32))
+    bundle.cms.total.add_(wrapped.to(torch.float32))
     torch.maximum(bundle.hll.registers, ranks, out=bundle.hll.registers)
     bundle.entropy.counts.add_(ent_d)
     bundle.topk = topk_update(bundle.topk, bundle.cms, hh_keys, w)
@@ -147,7 +153,7 @@ def bundle_update_fused(bundle: SketchBundle, hh_keys: torch.Tensor,
         qt = bundle.quantiles
         qt.counts.add_(qt_d)
         qt.zeros.add_(torch.where(u32(vals) == 0, w, torch.zeros_like(w)).sum().to(torch.int32))
-        qt.total.add_(wsum.to(torch.int32))
+        qt.total.add_(wrapped.to(torch.int32))
     return bundle
 
 

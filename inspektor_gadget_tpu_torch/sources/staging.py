@@ -9,17 +9,37 @@
   the pool only once its consumer fence (a CUDA event recorded after the
   step that read it) has completed.
 
-Hit, miss and in-flight counts are plain integers on the objects.
+Both count into the telemetry registry, as the reference's do: pool hits
+and misses (``ig_ingest_pool_{hits,misses}_total``) and the transfers
+not yet fenced (``ig_ingest_h2d_inflight``), labelled by device lane;
+the objects keep their own counts beside them. A stager given a
+`PipelineStats` counts each stage() as a starved tick, when the slot it
+lands on is free or its fence has completed (the card drained it, so the
+host sets the pace), or as a saturated tick, when the fence is still
+pending and the host waits on it (the wait is timed). The reference
+counts every occupied slot as saturated whether or not its fence has
+completed; its stall time is then what tells the two apart.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Sequence
 
 import torch
 
 from ..device import resolve_device
+from ..telemetry import counter, gauge
+
+_tm_pool_hits = counter("ig_ingest_pool_hits_total",
+                        "staging blocks served from the pinned pool", ("lane",))
+_tm_pool_misses = counter("ig_ingest_pool_misses_total",
+                          "staging blocks freshly allocated (pool empty "
+                          "or shape mismatch)", ("lane",))
+_tm_inflight = gauge("ig_ingest_h2d_inflight",
+                     "staged H2D transfers not yet fenced (double-buffer "
+                     "occupancy)", ("lane",))
 
 
 class PinnedBufferPool:
@@ -27,13 +47,16 @@ class PinnedBufferPool:
     page-locked when they feed a CUDA device."""
 
     def __init__(self, capacity: int, lanes: int = 3, max_free: int = 8,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", lane: int | str = 0):
         self.capacity = int(capacity)
         self.lanes = int(lanes)
         self.max_free = int(max_free)
         self.pin = resolve_device(device).type == "cuda"
+        self.lane = str(lane)
         self.hits = 0
         self.misses = 0
+        self._tm_hits = _tm_pool_hits.labels(lane=self.lane)
+        self._tm_misses = _tm_pool_misses.labels(lane=self.lane)
         self._free: list[torch.Tensor] = []
         self._mu = threading.Lock()
 
@@ -41,8 +64,10 @@ class PinnedBufferPool:
         with self._mu:
             if self._free:
                 self.hits += 1
+                self._tm_hits.inc()
                 return self._free.pop()
             self.misses += 1
+        self._tm_misses.inc()
         return torch.empty((self.lanes, self.capacity), dtype=torch.uint32,
                            pin_memory=self.pin)
 
@@ -70,21 +95,40 @@ class H2DStager:
     """
 
     def __init__(self, pool: PinnedBufferPool, depth: int = 2,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", stats: Any | None = None):
         self.pool = pool
         self.depth = max(int(depth), 1)
         self.device = resolve_device(device)
+        self.stats = stats  # a telemetry.PipelineStats, or None
+        self._lane_i = int(pool.lane) if pool.lane.isdigit() else 0
+        self._inflight = _tm_inflight.labels(lane=pool.lane)
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
         self._slots: list[tuple[torch.Tensor, Any] | None] = [None] * self.depth
         self._i = 0
         self.inflight = 0
 
+    def _pending(self, slot: tuple[torch.Tensor, Any]) -> bool:
+        """True while the slot's consumer has not finished with it: its
+        fence (a CUDA event) has not completed, or it was never fenced on
+        the card."""
+        fence = slot[1]
+        if fence is None:
+            return self._copy_stream is not None
+        return hasattr(fence, "query") and not fence.query()
+
     def stage(self, block: torch.Tensor, lanes: Sequence[torch.Tensor]) -> tuple:
         """Device copies (int32 bit views) of `lanes`, rows of `block`."""
         old = self._slots[self._i]
-        if old is not None:
+        if old is not None and self.stats is not None and self._pending(old):
+            t0 = time.perf_counter()
             self._retire(old)
+            self.stats.note_saturated(time.perf_counter() - t0, lane=self._lane_i)
+        else:
+            if old is not None:
+                self._retire(old)
+            if self.stats is not None:
+                self.stats.note_starved(lane=self._lane_i)
         views = [lane.view(torch.int32) for lane in lanes]
         if self._copy_stream is None:
             # the CPU "device" aliases the host block, as the reference's
@@ -98,8 +142,12 @@ class H2DStager:
             for d in devs:
                 d.record_stream(consumer)
         self.inflight += 1
+        self._inflight.inc()
         self._slots[self._i] = (block, None)
         self._i = (self._i + 1) % self.depth
+        if self.stats is not None:
+            self.stats.note_occupancy("h2d", self.depth - self._slots.count(None),
+                                      lane=self._lane_i)
         return devs
 
     def fence(self, token: Any) -> None:
@@ -111,12 +159,13 @@ class H2DStager:
 
     def _retire(self, slot: tuple[torch.Tensor, Any]) -> None:
         block, fence = slot
-        if isinstance(fence, torch.cuda.Event):
+        if hasattr(fence, "synchronize"):  # a CUDA event
             fence.synchronize()
         elif fence is None and self._copy_stream is not None:
             # never fenced: wait for everything queued so far instead
             torch.cuda.current_stream(self.device).synchronize()
         self.inflight -= 1
+        self._inflight.dec()
         self.pool.put(block)
 
     def drain(self) -> None:
@@ -125,3 +174,5 @@ class H2DStager:
             if slot is not None:
                 self._retire(slot)
                 self._slots[j] = None
+        if self.stats is not None:
+            self.stats.note_occupancy("h2d", 0, lane=self._lane_i)

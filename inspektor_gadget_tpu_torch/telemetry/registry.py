@@ -1,0 +1,369 @@
+"""Lock-cheap metrics registry: Counter, Gauge, Histogram and span
+timers (the port's copy of ``inspektor_gadget_tpu/telemetry/registry.py``;
+its exposition text is the reference's for the same calls).
+
+One process-wide registry that every layer records into, read as
+Prometheus text (`render_prometheus`) or as a flat map (`snapshot`).
+Increments are batch-grain (per batch, per tick, never per event), so
+the per-sample lock costs nothing next to the work measured. Histograms
+use fixed log-scale buckets, so two of one width merge bucket by bucket.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from bisect import bisect_left
+from typing import Any, Callable, Iterator
+
+# default latency buckets: log2-spaced, 1µs → ~16.8s (13 + overflow)
+DEFAULT_BUCKETS: tuple[float, ...] = tuple(
+    (1 << i) * 1e-6 for i in range(0, 26, 2))
+
+
+def _label_key(label_names: tuple[str, ...], kw: dict[str, Any]) -> tuple[str, ...]:
+    if set(kw) != set(label_names):
+        raise ValueError(
+            f"labels {sorted(kw)} != declared {sorted(label_names)}")
+    return tuple(str(kw[n]) for n in label_names)
+
+
+def _escape(v: str) -> str:
+    return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def format_labels(label_names: tuple[str, ...],
+                  values: tuple[str, ...]) -> str:
+    """Prometheus label block, '' when unlabeled."""
+    if not label_names:
+        return ""
+    inner = ",".join(f'{n}="{_escape(v)}"'
+                     for n, v in zip(label_names, values))
+    return "{" + inner + "}"
+
+
+class Counter:
+    """Monotonic counter child. inc() only; never decreases."""
+
+    __slots__ = ("_value", "_lock")
+
+    def __init__(self):
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def inc(self, n: float = 1.0) -> None:
+        if n < 0:
+            raise ValueError("counters only go up")
+        with self._lock:
+            self._value += n
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
+class Gauge:
+    """Settable gauge child; set_function defers the read to scrape time
+    (queue depths, ages — values that exist rather than accumulate)."""
+
+    __slots__ = ("_value", "_fn", "_lock")
+
+    def __init__(self):
+        self._value = 0.0
+        self._fn: Callable[[], float] | None = None
+        self._lock = threading.Lock()
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._value = float(v)
+            self._fn = None
+
+    def inc(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value += n
+
+    def dec(self, n: float = 1.0) -> None:
+        self.inc(-n)
+
+    def set_function(self, fn: Callable[[], float]) -> None:
+        with self._lock:
+            self._fn = fn
+
+    @property
+    def value(self) -> float:
+        fn = self._fn
+        if fn is not None:
+            try:
+                return float(fn())
+            except Exception:  # noqa: BLE001 — a dead callback reads as 0
+                return 0.0
+        return self._value
+
+
+class Histogram:
+    """Fixed log-scale-bucket histogram child.
+
+    counts[i] = observations <= bounds[i]; counts[-1] is the +Inf
+    overflow. Rendering emits Prometheus cumulative buckets, _sum, _count.
+    """
+
+    __slots__ = ("bounds", "_counts", "_sum", "_lock")
+
+    def __init__(self, bounds: tuple[float, ...] = DEFAULT_BUCKETS):
+        self.bounds = tuple(float(b) for b in bounds)
+        if list(self.bounds) != sorted(set(self.bounds)):
+            raise ValueError("histogram bounds must be strictly increasing")
+        self._counts = [0] * (len(self.bounds) + 1)
+        self._sum = 0.0
+        self._lock = threading.Lock()
+
+    def observe(self, v: float) -> None:
+        i = bisect_left(self.bounds, v)
+        with self._lock:
+            self._counts[i] += 1
+            self._sum += v
+
+    def time(self) -> "Span":
+        return Span(self)
+
+    @property
+    def count(self) -> int:
+        return sum(self._counts)
+
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+    def buckets(self) -> list[tuple[float, int]]:
+        """Cumulative (le, count) pairs ending with (+Inf, total)."""
+        out = []
+        acc = 0
+        with self._lock:
+            counts = list(self._counts)
+        for b, c in zip(self.bounds, counts):
+            acc += c
+            out.append((b, acc))
+        out.append((float("inf"), acc + counts[-1]))
+        return out
+
+
+class Span:
+    """Context-manager timer feeding a Histogram (pipeline span)."""
+
+    __slots__ = ("_hist", "_t0")
+
+    def __init__(self, hist: Histogram):
+        self._hist = hist
+        self._t0 = 0.0
+
+    def __enter__(self) -> "Span":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._hist.observe(time.perf_counter() - self._t0)
+
+
+_KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}
+
+
+class MetricFamily:
+    """name + kind + label names → children keyed by label values."""
+
+    def __init__(self, name: str, kind: str, help: str = "",
+                 label_names: tuple[str, ...] = (),
+                 buckets: tuple[float, ...] | None = None):
+        self.name = name
+        self.kind = kind
+        self.help = help
+        self.label_names = tuple(label_names)
+        self._buckets = buckets
+        self._children: dict[tuple[str, ...], Any] = {}
+        self._lock = threading.Lock()
+        if not label_names:
+            self._children[()] = self._new_child()
+
+    def _new_child(self):
+        if self.kind == "histogram":
+            return Histogram(self._buckets or DEFAULT_BUCKETS)
+        return _KINDS[self.kind]()
+
+    def labels(self, **kw: Any):
+        key = _label_key(self.label_names, kw)
+        child = self._children.get(key)
+        if child is None:
+            with self._lock:
+                child = self._children.setdefault(key, self._new_child())
+        return child
+
+    # unlabeled families proxy the single child for ergonomic call sites
+    def inc(self, n: float = 1.0) -> None:
+        self._children[()].inc(n)
+
+    def set(self, v: float) -> None:
+        self._children[()].set(v)
+
+    def dec(self, n: float = 1.0) -> None:
+        self._children[()].dec(n)
+
+    def set_function(self, fn: Callable[[], float]) -> None:
+        self._children[()].set_function(fn)
+
+    def observe(self, v: float) -> None:
+        self._children[()].observe(v)
+
+    def time(self) -> Span:
+        return self._children[()].time()
+
+    @property
+    def value(self) -> float:
+        return self._children[()].value
+
+    @property
+    def total(self) -> float:
+        """Sum over every child's value — the label-agnostic read for
+        counter/gauge families (e.g. pool hits across all device lanes)."""
+        with self._lock:
+            return sum(c.value for c in self._children.values())
+
+    @property
+    def count(self) -> int:
+        return self._children[()].count
+
+    @property
+    def sum(self) -> float:
+        return self._children[()].sum
+
+    def buckets(self) -> list[tuple[float, int]]:
+        return self._children[()].buckets()
+
+    def children(self) -> list[tuple[tuple[str, ...], Any]]:
+        with self._lock:
+            return sorted(self._children.items())
+
+
+class Registry:
+    """Process-wide metric store. counter/gauge/histogram are
+    get-or-create (idempotent across modules registering the same name);
+    a name re-registered with a different kind or label set raises."""
+
+    def __init__(self):
+        self._families: dict[str, MetricFamily] = {}
+        self._lock = threading.Lock()
+
+    def _get_or_create(self, name: str, kind: str, help: str,
+                       labels: tuple[str, ...],
+                       buckets: tuple[float, ...] | None = None) -> MetricFamily:
+        with self._lock:
+            fam = self._families.get(name)
+            if fam is None:
+                fam = MetricFamily(name, kind, help, labels, buckets)
+                self._families[name] = fam
+                return fam
+        if fam.kind != kind or fam.label_names != tuple(labels):
+            raise ValueError(
+                f"metric {name!r} already registered as {fam.kind}"
+                f"{fam.label_names}, not {kind}{tuple(labels)}")
+        if (kind == "histogram" and buckets is not None
+                and tuple(buckets) != (fam._buckets or DEFAULT_BUCKETS)):
+            raise ValueError(
+                f"histogram {name!r} already registered with buckets "
+                f"{fam._buckets or DEFAULT_BUCKETS}, not {tuple(buckets)}")
+        return fam
+
+    def counter(self, name: str, help: str = "",
+                labels: tuple[str, ...] = ()) -> MetricFamily:
+        return self._get_or_create(name, "counter", help, labels)
+
+    def gauge(self, name: str, help: str = "",
+              labels: tuple[str, ...] = ()) -> MetricFamily:
+        return self._get_or_create(name, "gauge", help, labels)
+
+    def histogram(self, name: str, help: str = "",
+                  labels: tuple[str, ...] = (),
+                  buckets: tuple[float, ...] | None = None) -> MetricFamily:
+        return self._get_or_create(name, "histogram", help, labels, buckets)
+
+    def families(self) -> list[MetricFamily]:
+        with self._lock:
+            return [self._families[n] for n in sorted(self._families)]
+
+    def reset(self) -> None:
+        """Test helper: drop every family."""
+        with self._lock:
+            self._families.clear()
+
+    # -- exposition ---------------------------------------------------------
+
+    def samples(self) -> Iterator[tuple[str, str, str, float]]:
+        """Flat (sample_name, kind, label_block, value) stream, sorted by
+        family name then label values — the deterministic walk snapshot()
+        and the renderers share. Histograms flatten to _bucket/_sum/_count."""
+        for fam in self.families():
+            for key, child in fam.children():
+                lbl = format_labels(fam.label_names, key)
+                if fam.kind == "histogram":
+                    for le, acc in child.buckets():
+                        le_s = "+Inf" if le == float("inf") else repr(le)
+                        blk = format_labels(fam.label_names + ("le",),
+                                            key + (le_s,))
+                        yield f"{fam.name}_bucket", fam.kind, blk, float(acc)
+                    yield f"{fam.name}_sum", fam.kind, lbl, child.sum
+                    yield f"{fam.name}_count", fam.kind, lbl, float(child.count)
+                else:
+                    yield fam.name, fam.kind, lbl, child.value
+
+    def snapshot(self) -> dict[str, float]:
+        """Deterministic flat map 'name{labels}' → value (JSON-embeddable)."""
+        return {f"{name}{lbl}": value
+                for name, _kind, lbl, value in self.samples()}
+
+    def render_prometheus(self) -> str:
+        """Prometheus text exposition format 0.0.4."""
+        lines: list[str] = []
+        last_family = None
+        for name, kind, lbl, value in self.samples():
+            fam_name = name
+            for suffix in ("_bucket", "_sum", "_count"):
+                if kind == "histogram" and name.endswith(suffix):
+                    fam_name = name[: -len(suffix)]
+                    break
+            if fam_name != last_family:
+                fam = self._families.get(fam_name)
+                if fam is not None and fam.help:
+                    lines.append(f"# HELP {fam_name} {fam.help}")
+                lines.append(f"# TYPE {fam_name} {kind}")
+                last_family = fam_name
+            if value == int(value) and abs(value) < 2**53:
+                lines.append(f"{name}{lbl} {int(value)}")
+            else:
+                lines.append(f"{name}{lbl} {value}")
+        return "\n".join(lines) + "\n"
+
+
+# The process-wide default registry and module-level conveniences every
+# instrumented layer uses.
+REGISTRY = Registry()
+
+
+def counter(name: str, help: str = "",
+            labels: tuple[str, ...] = ()) -> MetricFamily:
+    return REGISTRY.counter(name, help, labels)
+
+
+def gauge(name: str, help: str = "",
+          labels: tuple[str, ...] = ()) -> MetricFamily:
+    return REGISTRY.gauge(name, help, labels)
+
+
+def histogram(name: str, help: str = "", labels: tuple[str, ...] = (),
+              buckets: tuple[float, ...] | None = None) -> MetricFamily:
+    return REGISTRY.histogram(name, help, labels, buckets)
+
+
+def snapshot() -> dict[str, float]:
+    return REGISTRY.snapshot()
+
+
+def render_prometheus() -> str:
+    return REGISTRY.render_prometheus()

@@ -42,7 +42,7 @@ def test_histogram_plain_matches_xla_histogram(log2_width, n, row):
     before = K.histogram.launches
     got = K.histogram(torch.from_numpy(keys), torch.from_numpy(w),
                       log2_width=log2_width, mult=mult, salt=salt)
-    assert got.dtype == torch.int32
+    assert got.dtype == torch.int64  # exact: K1's counts do not wrap
     assert np.array_equal(got.numpy().astype(np.float32), want)
     assert K.histogram.launches == before  # the CPU takes the plain version
 
@@ -120,33 +120,35 @@ def test_job_table_tiles_every_plane_exactly(geom):
         pl = geom.planes[job.plane]
         assert (kind, lane, shift, lo, width) == (pl.kind, pl.lane, 32 - pl.log2_width,
                                                   job.lo, job.width)
-        assert 0 < width <= 1 << K.TILE_LOG2 and first == pl.offset + lo
+        assert 0 < width <= 1 << K.TILE_LOG2 and first == pl.word(lo)
         rows[ji] += r1 - r0
     for job in plan.jobs:
         pl = geom.planes[job.plane]
-        covered[pl.offset + job.lo:pl.offset + job.lo + job.width] += 1
-    assert (covered == 1).all() and (rows == n).all()
-    widths = [pl.width for pl in geom.planes]
-    assert geom.total == sum(widths)
-    assert [pl.offset for pl in geom.planes] == list(np.cumsum([0] + widths[:-1]))
+        covered[pl.word(job.lo):pl.word(job.lo + job.width)] += 1
+    assert (covered == 1).all()
+    assert (rows == n).all()
+    spans = [pl.span for pl in geom.planes]
+    assert geom.total == sum(spans)
+    assert [pl.offset for pl in geom.planes] == list(np.cumsum([0] + spans[:-1]))
+    assert [pl.kind for pl in geom.planes].count(K.HIST64) == 1  # the entropy row
 
 
 @pytest.mark.parametrize("log2_width", [12, 16, 17])
 def test_job_table_of_one_histogram_plane(log2_width):
-    """K1's launch: one histogram plane cut into 16384-bucket tiles (64
-    KB a block), a job each, the row hash's multiplier and salt carried
-    as int32 bit patterns."""
+    """K1's launch: one carrying histogram plane (HIST64) cut into
+    16384-bucket tiles (64 KB a block), a job each, the row hash's
+    multiplier and salt carried as int32 bit patterns."""
     mult, salt = int(_row_multiplier(3)), 0xDEADBEEF
-    plane = K.Plane(K.HIST, K.LANE_HH, mult, salt, log2_width, 1 << log2_width, 0)
+    plane = K.Plane(K.HIST64, K.LANE_HH, mult, salt, log2_width, 1 << log2_width, 0)
     plan = K.launch_plan((plane,), 1 << 17, 132)
     table = plan.table()
     tiles = max(1, (1 << log2_width) >> K.TILE_LOG2)
     tile = min(1 << log2_width, 1 << K.TILE_LOG2)
     assert len(plan.jobs) == tiles and plan.tile_words == tile
-    assert (table[:, :2] == [K.HIST, K.LANE_HH]).all()
+    assert (table[:, :2] == [K.HIST64, K.LANE_HH]).all()
     assert (table[:, 4] == 32 - log2_width).all() and (table[:, 6] == tile).all()
     assert sorted(set(table[:, 5])) == list(range(0, 1 << log2_width, tile))
-    assert (table[:, 7] == table[:, 5]).all()
+    assert (table[:, 7] == 2 * table[:, 5]).all()  # (low, high) words a bucket
     assert (table[:, 2:4].view(np.uint32) == [mult, salt]).all()
     assert table[0, 8] == 0 and table[-1, 9] == 1 << 17
 

@@ -10,7 +10,8 @@ ones, and K1's one-plane launches.
 `emulate` repeats the kernel's partition in numpy: each block adds its
 rows into its own tile of its job's buckets (adds mod 2**32, HLL ranks
 by max, as the shared-memory atomics do) and flushes the tile into the
-output. It must equal the plain versions bit for bit, and a faulty
+output; a HIST64 plane's wraps and negative weights go to each
+bucket's high word. It must equal the plain versions bit for bit, and a faulty
 partition (a bucket held by two jobs, a ragged tail slice dropped) must
 not. `layout_counts` counts one call's work as the kernel does it.
 """
@@ -47,7 +48,8 @@ H100_SMS = 132  # the H100 SXM's streaming multiprocessors
 
 
 def hist_plane(log2_width: int) -> K.Plane:
-    return K.Plane(K.HIST, K.LANE_HH, int(_row_multiplier(0)), row_salt(0), log2_width,
+    """K1's plane: a carrying histogram."""
+    return K.Plane(K.HIST64, K.LANE_HH, int(_row_multiplier(0)), row_salt(0), log2_width,
                    1 << log2_width, 0)
 
 
@@ -64,12 +66,11 @@ def test_plan_owns_every_bucket_once(name):
     a tile."""
     planes = PLANE_SETS[name]
     plan = K.launch_plan(planes, BATCH, H100_SMS)
-    total = planes[-1].offset + planes[-1].width
-    owners = np.zeros(total, np.int64)
+    owners = np.zeros(planes[-1].offset + planes[-1].span, np.int64)
     for j in plan.jobs:
         pl = planes[j.plane]
         assert 0 < j.width <= 1 << K.TILE_LOG2 and j.lo + j.width <= pl.width
-        owners[pl.offset + j.lo:pl.offset + j.lo + j.width] += 1
+        owners[pl.word(j.lo):pl.word(j.lo + j.width)] += 1
     assert (owners == 1).all()
     assert {ji for ji, _, _ in plan.slices} == set(range(len(plan.jobs)))
 
@@ -116,7 +117,7 @@ def test_plan_fits_the_card(name):
     assert table.shape == (plan.blocks, K.BLOCK_FIELDS) and table.dtype == np.int32
     rows = [(plan.jobs[ji], r0, r1) for ji, r0, r1 in plan.slices]
     assert (table[:, 2].view(np.uint32) == [planes[j.plane].mult for j, _, _ in rows]).all()
-    assert (table[:, 7] == [planes[j.plane].offset + j.lo for j, _, _ in rows]).all()
+    assert (table[:, 7] == [planes[j.plane].word(j.lo) for j, _, _ in rows]).all()
     assert (table[:, 8:] == [(r0, r1) for _, r0, r1 in rows]).all()
 
 
@@ -154,7 +155,7 @@ def _plane_values(pl: K.Plane, keys: np.ndarray, w: np.ndarray, geom) -> tuple:
     b = (fmix32_np((keys.astype(np.uint64) * np.uint64(pl.mult) + np.uint64(pl.salt))
                    .astype(np.uint32)) >> np.uint32(32 - pl.log2_width)).astype(np.int64)
     k, wu = keys.astype(np.uint64), w.astype(np.uint64)
-    val = {K.HIST: wu, K.INV_COUNT: wu, K.INV_KEYSUM: (k * wu) & MASK,
+    val = {K.HIST: wu, K.HIST64: wu, K.INV_COUNT: wu, K.INV_KEYSUM: (k * wu) & MASK,
            K.INV_FPSUM: (fmix32_np(keys ^ np.uint32(FP_SALT)).astype(np.uint64) * wu) & MASK}
     return b, val[pl.kind]
 
@@ -162,7 +163,7 @@ def _plane_values(pl: K.Plane, keys: np.ndarray, w: np.ndarray, geom) -> tuple:
 def emulate(plan: K.LaunchPlan, lanes, w: np.ndarray, geom=None, fault: str | None = None):
     """The flat uint32 output of ig_fused_planes under `plan`, in numpy."""
     planes = plan.planes
-    out = np.zeros(planes[-1].offset + planes[-1].width, np.uint64)
+    out = np.zeros(planes[-1].offset + planes[-1].span, np.uint64)
     slices = list(plan.slices)
     if fault == "tail dropped":  # each job's last slice, where shorter than its first
         last = {ji: k for k, (ji, _, _) in enumerate(slices)}
@@ -183,7 +184,20 @@ def emulate(plan: K.LaunchPlan, lanes, w: np.ndarray, geom=None, fault: str | No
             np.maximum.at(tile, b[keep], val[keep])
         else:
             np.add.at(tile, b[keep], val[keep])
-        seg = out[pl.offset + job.lo:pl.offset + job.lo + width]  # one device atomic a bucket
+        first = pl.word(job.lo)
+        if pl.kind == K.HIST64:
+            # (low, high) words a bucket: the tile's wraps less its negative
+            # weights, then the flush's wraps, go to the high word
+            seg = out[first:first + 2 * width].reshape(width, 2)
+            neg = np.zeros(width, np.uint64)
+            np.add.at(neg, b[keep], (w[rb:re][keep] < 0).astype(np.uint64))
+            carry = (tile >> np.uint64(32)) - neg
+            tile &= MASK
+            carry += (seg[:, 0] + tile) >> np.uint64(32)
+            seg[:, 0] = (seg[:, 0] + tile) & MASK
+            seg[:, 1] = (seg[:, 1] + carry) & MASK
+            continue
+        seg = out[first:first + width]  # one device atomic a bucket
         if pl.kind == K.HLL:
             np.maximum(seg, tile, out=seg)
         else:
@@ -238,8 +252,9 @@ def test_emulated_layout_equals_histogram_plain(log2_width, stream):
     plane = hist_plane(log2_width)
     want = K.histogram_plain(torch.from_numpy(lanes[0]), torch.from_numpy(w),
                              log2_width=log2_width, mult=plane.mult, salt=plane.salt)
-    got = emulate(K.launch_plan((plane,), 20011, H100_SMS), lanes, w)
-    assert np.array_equal(got, want.numpy().view(np.uint32))
+    got = emulate(K.launch_plan((plane,), 20011, H100_SMS), lanes, w).view(np.int64)
+    assert want.dtype == torch.int64 and np.array_equal(got, want.numpy())
+    assert int(want.abs().max()) >= 1 << 31 or stream != "weights near 2**31"  # no wrap
 
 
 @pytest.mark.parametrize("name", ["no optional planes", "ragged, wide rows"])
