@@ -32,6 +32,17 @@ heads, 2 layers, window 256) on the operator's token matrix with
 through ``attn="full"`` on the card and through the plain path on the
 CPU, from the same weights.
 
+The operator (phase 5c): the port's `TpuSketchInstance` at the
+production geometry with every plane on (two priority classes splitting
+the invertible budget, quantiles, history sealed once a harvest into a
+window sink, audit sample 1024, the seq scorer), fed through its own
+entry points: a NativeCapture of the synthetic exec source (vocab 2000)
+popped into `folded_block()`s and ingested with `ingest_folded`, a
+harvest every 16 batches, then 8 seeded EventBatches through
+`enrich_batch`, then `post_gadget_run` (final harvest, window and
+checkpoint). The same streams through an instance on the CPU must give
+the same summaries, sealed windows and checkpoint leaves.
+
 The launch counts are set to 0 just before each card run of a path and
 read just after it.
 
@@ -59,6 +70,10 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from inspektor_gadget_tpu_torch.profile_step import (HARVEST_EVERY, OP_CONTAINERS,
+                                                     OP_EVENT_BATCHES, WINDOW, operator_config,
+                                                     operator_event_batches)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor, f32 CUDA cores
@@ -205,8 +220,6 @@ def run_ticks(scorer, batches, attn: str = "flash", noise=None):
     return losses, scores, secs
 
 
-WINDOW = dict(n_slots=8, depth=4, log2_width=12)  # tpusketch.py:423-427, :751-754
-HARVEST_EVERY = 16
 CAPTURE_BATCHES = 32
 
 
@@ -261,63 +274,47 @@ class CaptureRun:
         """The run on the card; returns its rates and harvest times."""
         from inspektor_gadget_tpu_torch.ops import sketches as S, window as W
         from inspektor_gadget_tpu_torch.sources import H2DStager, PinnedBufferPool
-        from inspektor_gadget_tpu_torch.sources.bridge import NativeCapture, SRC_SYNTH_EXEC
+        from inspektor_gadget_tpu_torch.sources.bridge import SRC_SYNTH_EXEC, drain_synthetic
         b = self.batch
-        total = batches * b
         bundle, wcms, whll = self._state(dev)
         pool = PinnedBufferPool(b, lanes=4, max_free=8, device=dev)
         stager = H2DStager(pool, depth=4, device=dev, stats=stats)
-        # a ring that holds the whole run: the producer stops once it has
-        # made `total` events, so nothing is dropped and the stream is the seed's
-        cap = NativeCapture(SRC_SYNTH_EXEC, seed=self.seed, rate=2e8, vocab=self.vocab,
-                            ring_pow2=max(20, (total + (1 << 21)).bit_length()))
-        dev_s = host_s = 0.0
-        consumed, stopped, produced_at = 0, False, None
-        cap.start()
-        t_start = time.perf_counter()
+        timed = {"dev": 0.0, "host": 0.0}
+
+        def on_batch(blk, fb) -> None:
+            blk.numpy()[:, fb.count:] = 0  # the operator zeroes the pad: keys, weights, values 0
+            self.counts.append(fb.count)
+            k, w, v = stager.stage(blk, (blk[0], blk[1], blk[3]))
+            _, fence = S.bundle_ingest_step(bundle, k, k, k, w, values=v)
+            W.wcms_ingest_step(wcms, k, w)
+            W.hll_ingest_step(whll, k, w)
+            if dev.type == "cuda":  # one event after all three steps fences the block
+                fence = torch.cuda.Event()
+                fence.record(torch.cuda.current_stream(dev))
+            stager.fence(fence)
+            if len(self.counts) % HARVEST_EVERY == 0:
+                rec, d, h = self._harvest(bundle, wcms, whll, dev)
+                self.harvests.append(rec)
+                timed["dev"] += d
+                timed["host"] += h
+
         try:
-            while consumed < total:
-                if not stopped and cap.produced() >= total:
-                    cap.stop()
-                    stopped, produced_at = True, time.perf_counter() - t_start
-                blk = pool.get()
-                fb = cap.pop_folded(blk[:, :min(b, total - consumed)] if total - consumed < b
-                                    else blk, with_values=True)
-                if fb.count == 0:
-                    pool.put(blk)
-                    time.sleep(0.0002)
-                    continue
-                arr = blk.numpy()
-                arr[:, fb.count:] = 0  # the operator zeroes the pad: keys, weights, values 0
-                self.counts.append(fb.count)
-                consumed += fb.count
-                k, w, v = stager.stage(blk, (blk[0], blk[1], blk[3]))
-                _, fence = S.bundle_ingest_step(bundle, k, k, k, w, values=v)
-                W.wcms_ingest_step(wcms, k, w)
-                W.hll_ingest_step(whll, k, w)
-                if dev.type == "cuda":  # one event after all three steps fences the block
-                    fence = torch.cuda.Event()
-                    fence.record(torch.cuda.current_stream(dev))
-                stager.fence(fence)
-                if len(self.counts) % HARVEST_EVERY == 0:
-                    rec, d, h = self._harvest(bundle, wcms, whll, dev)
-                    self.harvests.append(rec)
-                    dev_s, host_s = dev_s + d, host_s + h
+            src = drain_synthetic(SRC_SYNTH_EXEC, self.seed, self.vocab, batches * b,
+                                  pool.get, on_batch, release=pool.put)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-            e2e_s = time.perf_counter() - t_start
+            e2e_s = time.perf_counter() - src["started"]
         finally:
-            cap.stop()
             stager.drain()
-        require(cap.drops() == 0, f"native capture dropped {cap.drops()} events")
+        require(src["drops"] == 0, f"native capture dropped {src['drops']} events")
+        consumed, dev_s, host_s = src["consumed"], timed["dev"], timed["host"]
         self.final = S.bundle_to_numpy(bundle)
         self.final_window = (wcms.slots.cpu().numpy(), whll.registers.cpu().numpy())
-        cap.close()
         n_h = max(1, len(self.harvests))
         return {"events": consumed, "batches": len(self.counts), "e2e_s": e2e_s,
                 "e2e_ev_per_s": consumed / e2e_s,
                 "ingest_ev_per_s": consumed / (e2e_s - dev_s - host_s),
-                "source_ev_per_s": total / produced_at if produced_at else None,
+                "source_ev_per_s": batches * b / src["source_s"],
                 "full_batches": sum(c == b for c in self.counts),
                 "harvests": len(self.harvests), "harvest_device_ms": dev_s / n_h * 1e3,
                 "harvest_host_ms": host_s / n_h * 1e3,
@@ -326,12 +323,8 @@ class CaptureRun:
 
     def stream(self) -> np.ndarray:
         """The run's folded keys, rebuilt from the seed."""
-        from inspektor_gadget_tpu_torch.ops.hashing import fold64_to_32
-        from inspektor_gadget_tpu_torch.sources.bridge import NativeCapture, SRC_SYNTH_EXEC
-        src = NativeCapture(SRC_SYNTH_EXEC, seed=self.seed, vocab=self.vocab)
-        ev = src.generate(sum(self.counts))
-        src.close()
-        return fold64_to_32(ev.cols["key_hash"])
+        from inspektor_gadget_tpu_torch.sources.bridge import SRC_SYNTH_EXEC, synthetic_stream
+        return synthetic_stream(SRC_SYNTH_EXEC, self.seed, self.vocab, sum(self.counts))[0]
 
     def fold_cpu(self) -> tuple[list[dict], list[np.ndarray], tuple, np.ndarray]:
         """The same stream folded on the CPU -> (harvest records, final
@@ -355,6 +348,213 @@ class CaptureRun:
                 out.append(self._harvest(bundle, wcms, whll, cpu)[0])
         return (out, S.bundle_to_numpy(bundle),
                 (wcms.slots.numpy().copy(), whll.registers.numpy().copy()), keys)
+
+
+# the card's and the CPU's seq scorer after the same steps: largest gap of
+# a leaf over that leaf's largest magnitude (sound runs on an H100 read at
+# most 0.0215, the embedding; the weight matrices 0.006-0.009)
+SCORER_RTOL = 0.05
+
+
+class OperatorRun:
+    """The port's `TpuSketchInstance` driven as a gadget run drives the
+    reference operator, through its own entry points. Feed (a): a
+    NativeCapture of the synthetic exec source popped into the instance's
+    pinned blocks (``folded_block`` → ``pop_folded(with_values=True)`` →
+    ``ingest_folded``), `batches` full batches' worth at vocab `vocab`,
+    with an explicit ``harvest()`` every HARVEST_EVERY batches and one at
+    the end. Feed (b): OP_EVENT_BATCHES seeded `EventBatch`es whose
+    heavy-hitter (key_hash), distinct (pid) and distribution (aux2)
+    columns differ, with mntns, kind and a latency in aux1, through
+    ``enrich_batch``, harvested after the 4th and at teardown
+    (``post_gadget_run``, which also writes the checkpoint). Every
+    harvest seals a window into the run's window sink. `replay` feeds
+    the same streams, feed (a) rebuilt from the seed at the same batch
+    boundaries, to an instance on another device."""
+
+    def __init__(self, seed: int, vocab: int, batch: int, geometry: dict) -> None:
+        self.seed, self.vocab, self.batch = seed, vocab, batch
+        self.config = operator_config(geometry)
+        self.counts: list[int] = []
+
+    def _instance(self, device):
+        from inspektor_gadget_tpu_torch.operators import (SketchConfig, SketchContext,
+                                                          TpuSketchInstance)
+        clock = iter(range(1, 1 << 30))
+        rec = {"windows": [], "summaries": [], "harvest_ms": []}
+        ctx = SketchContext(gadget="trace/exec", run_id=f"chip-smoke-{self.seed}", node="node-0",
+                            batch_size=self.batch, history_clock=lambda: 1.7e9 + next(clock),
+                            window_sink=lambda h, p: rec["windows"].append((h, p)),
+                            on_sketch_summary=rec["summaries"].append)
+        return TpuSketchInstance(SketchConfig(**self.config), ctx, device=device), rec
+
+    def event_batches(self) -> list:
+        return operator_event_batches(self.seed + 1, self.batch)
+
+    def _harvest(self, inst, rec) -> None:
+        inst.harvest()
+        rec["harvest_ms"].append(dict(inst.last_harvest_ms))
+
+    def _ingest(self, inst, rec, fb) -> None:
+        """Feed (a)'s step: one batch, and a harvest every HARVEST_EVERY."""
+        inst.ingest_folded(fb)
+        self.counts.append(fb.count)
+        if len(self.counts) % HARVEST_EVERY == 0:
+            self._harvest(inst, rec)
+
+    def _feed_events(self, inst, rec, batches, ckpt_dir: Path) -> None:
+        from inspektor_gadget_tpu_torch.operators import set_checkpoint_dir
+        for i, b in enumerate(batches):
+            inst.enrich_batch(b)
+            if i + 1 == OP_EVENT_BATCHES // 2:
+                self._harvest(inst, rec)
+        set_checkpoint_dir(ckpt_dir)
+        try:
+            inst.post_gadget_run()  # the final harvest and window, then the checkpoint
+        finally:
+            set_checkpoint_dir(None)
+        rec["harvest_ms"].append(dict(inst.last_harvest_ms))
+
+    def drive(self, dev, batches: int, ckpt_dir: Path) -> tuple[dict, dict]:
+        """The run on `dev` -> (its record, its rates and harvest times)."""
+        from inspektor_gadget_tpu_torch.sources.bridge import SRC_SYNTH_EXEC, drain_synthetic
+        inst, rec = self._instance(dev)
+        events = self.event_batches()
+        src = drain_synthetic(SRC_SYNTH_EXEC, self.seed, self.vocab, batches * self.batch,
+                              inst.folded_block, lambda _blk, fb: self._ingest(inst, rec, fb))
+        if len(self.counts) % HARVEST_EVERY:
+            self._harvest(inst, rec)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        folded_s = time.perf_counter() - src["started"]
+        h_s = sum(h["total"] for h in rec["harvest_ms"]) / 1e3
+        consumed = src["consumed"]
+        require(src["drops"] == 0 and src["produced"] == consumed,
+                f"native capture: {src['drops']} dropped, {src['produced']} made, "
+                f"{consumed} ingested")
+        n_ev = sum(b.count for b in events)
+        t0 = time.perf_counter()
+        self._feed_events(inst, rec, events, ckpt_dir)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        events_s = time.perf_counter() - t0
+        rec["scorer"] = inst.scorer
+        info = {"folded_events": consumed, "folded_batches": len(self.counts),
+                "full_batches": sum(c == self.batch for c in self.counts),
+                "folded_e2e_ev_per_s": consumed / folded_s,
+                "folded_ingest_ev_per_s": consumed / max(folded_s - h_s, 1e-9),
+                "event_batch_events": n_ev, "event_batch_e2e_ev_per_s": n_ev / events_s,
+                "harvests": len(rec["summaries"]), "windows": len(rec["windows"]),
+                "harvest_ms": rec["harvest_ms"]}
+        return rec, info
+
+    def replay(self, dev, ckpt_dir: Path) -> dict:
+        """The same two feeds on `dev`, feed (a) rebuilt from the seed."""
+        from inspektor_gadget_tpu_torch.sources.batch import FoldedBatch
+        from inspektor_gadget_tpu_torch.sources.bridge import SRC_SYNTH_EXEC, synthetic_stream
+        counts, self.counts = self.counts, []
+        keys, mntns = synthetic_stream(SRC_SYNTH_EXEC, self.seed, self.vocab, sum(counts))
+        self.keys = keys
+        inst, rec = self._instance(dev)
+        off = 0
+        for c in counts:
+            blk = inst.folded_block()
+            arr = blk.numpy()
+            arr[:4] = 0
+            arr[0, :c], arr[1, :c], arr[2, :c] = keys[off:off + c], 1, mntns[off:off + c]
+            off += c
+            self._ingest(inst, rec, FoldedBatch(lanes=arr, count=c, has_values=True, block=blk))
+        if len(self.counts) % HARVEST_EVERY:
+            self._harvest(inst, rec)
+        require(self.counts == counts, "replay: batch boundaries differ")
+        self._feed_events(inst, rec, self.event_batches(), ckpt_dir)
+        return rec
+
+
+def _same(got, want, rtol: float, what: str) -> None:
+    """Recursive equality: floats to `rtol`, everything else exactly."""
+    if isinstance(want, dict):
+        require(isinstance(got, dict) and list(got) == list(want), f"{what}: keys differ")
+        for k in want:
+            _same(got[k], want[k], rtol, f"{what}.{k}")
+    elif isinstance(want, (list, tuple)):
+        require(len(got) == len(want), f"{what}: {len(got)} != {len(want)} items")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same(g, w, rtol, f"{what}[{i}]")
+    elif isinstance(want, float):
+        require(bool(np.isclose(got, want, rtol=rtol, atol=1e-7)), f"{what}: {got} != {want}")
+    else:
+        require(got == want, f"{what}: {got!r} != {want!r}")
+
+
+def compare_operator_runs(got: dict, want: dict, got_dir: Path, want_dir: Path) -> dict:
+    """Hold one operator run to another: every summary field but
+    `pipeline` (the HLL and entropy estimates and what derives from them
+    to rtol 1e-5 and 1e-4, anomaly scores to 0.05 nats, the rest
+    exactly), every sealed window's header, digest and payload arrays
+    (dtype and value; the npz's zip entries carry each run's wall clock),
+    and the checkpoint's bundle and class leaves exactly. The scorer's
+    leaves (bf16 steps on two devices) are held leaf by leaf to
+    SCORER_RTOL of the leaf's largest magnitude, its integer leaves
+    exactly; the seq key bias, which moves by rounding noise, to Adam's
+    step bound instead. Returns the largest gaps."""
+    import io
+    from inspektor_gadget_tpu_torch.models import scorer_leaf_names
+    from inspektor_gadget_tpu_torch.utils.checkpoint import load_pytree
+    gs, ws = got["summaries"], want["summaries"]
+    require(len(gs) == len(ws) > 0, f"{len(gs)} harvests against {len(ws)}")
+    worst = {"anomaly_nats": 0.0, "scorer_leaf_rel": 0.0, "scorer_leaf_rel_by_leaf": {}}
+    for i, (g, w) in enumerate(zip(gs, ws)):
+        g, w = dataclasses.asdict(g), dataclasses.asdict(w)
+        for key in ("distinct", "entropy_bits"):
+            _same(g.pop(key), w.pop(key), 1e-5, f"harvest {i} {key}")
+        _same(g.pop("accuracy"), w.pop("accuracy"), 1e-4, f"harvest {i} accuracy")
+        ga, wa = g.pop("anomaly"), w.pop("anomaly")
+        require((ga is None) == (wa is None) and list(ga or {}) == list(wa or {}),
+                f"harvest {i}: scored containers differ")
+        if wa:
+            gap = max(abs(ga[k] - wa[k]) for k in wa)
+            require(gap <= 0.05, f"harvest {i}: seq scores differ by {gap} nats")
+            worst["anomaly_nats"] = max(worst["anomaly_nats"], gap)
+        g.pop("pipeline"), w.pop("pipeline")
+        _same(g, w, 0.0, f"harvest {i}")
+    require(len(got["windows"]) == len(want["windows"]) > 0, "sealed window count differs")
+    for i, ((gh, gp), (wh, wp)) in enumerate(zip(got["windows"], want["windows"])):
+        require(gh == wh, f"window {i}: header differs")
+        with np.load(io.BytesIO(gp)) as a, np.load(io.BytesIO(wp)) as b:
+            require(a.files == b.files, f"window {i}: payload arrays differ")
+            for name in b.files:
+                require(a[name].dtype == b[name].dtype and np.array_equal(a[name], b[name]),
+                        f"window {i}: payload array {name} differs")
+    scorer = got["scorer"]
+    names = scorer_leaf_names(scorer)
+    d, key_bound = scorer.config.d_model, 2 * scorer.config.lr * scorer.steps
+    for stem in ("trace-exec", "trace-exec-invclasses", "trace-exec-scorer"):
+        gl, wl = load_pytree(got_dir / stem), load_pytree(want_dir / stem)
+        require(len(gl) == len(wl), f"checkpoint {stem}: leaf count differs")
+        for j, (x, y) in enumerate(zip(gl, wl)):
+            require(x.dtype == y.dtype and x.shape == y.shape, f"checkpoint {stem} leaf {j}")
+            if not (stem.endswith("scorer") and x.dtype.kind == "f"):
+                require(np.array_equal(x, y), f"checkpoint {stem} leaf {j} differs")
+                continue
+            x, y = x.astype(np.float64), y.astype(np.float64)
+            if names[j].endswith("qkv.b") and not names[j].startswith(("mu.", "nu.")):
+                # tests/test_torch_seqmodel.py: the key bias moves by rounding noise
+                kb = max(np.abs(x[d:2 * d]).max(), np.abs(y[d:2 * d]).max())
+                require(kb <= key_bound, f"scorer {names[j]}: key bias {kb} > {key_bound}")
+                x, y = np.delete(x, np.s_[d:2 * d]), np.delete(y, np.s_[d:2 * d])
+            gap, scale = np.abs(x - y).max(initial=0.0), np.abs(y).max(initial=0.0)
+            rel = gap / scale if scale else (0.0 if gap == 0 else float("inf"))
+            worst["scorer_leaf_rel_by_leaf"][names[j]] = rel
+            worst["scorer_leaf_rel"] = max(worst["scorer_leaf_rel"], rel)
+    by_leaf = worst["scorer_leaf_rel_by_leaf"]
+    log("[operator] scorer leaves, largest gap over the leaf's scale, worst 8 of "
+        f"{len(by_leaf)}: " + ", ".join(f"{k} {by_leaf[k]:.3g}" for k in sorted(
+            by_leaf, key=lambda k: -by_leaf[k])[:8]))
+    for name, rel in by_leaf.items():
+        require(rel <= SCORER_RTOL, f"scorer {name}: {rel:.3g} of the leaf's scale apart "
+                                    f"(bound {SCORER_RTOL})")
+    return worst
 
 
 def main() -> int:
@@ -747,6 +947,66 @@ def main() -> int:
     log(f"[capture] device-only events/s: " + ", ".join(f"{k} {v:.0f}" for k, v in rates.items())
         + f"; native generate_folded fills {native_fill:.0f} events/s on one host thread")
     report["capture"] = capture
+
+    # -- 5c. the operator: TpuSketchInstance through its entry points ------------
+    ckpt_root = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    op_run = OperatorRun(args.seed + 21, 2000, batch, prod)
+    reset_launches()
+    op_rec, op_info = op_run.drive(dev, CAPTURE_BATCHES, ckpt_root / "gpu")
+    launched = read_launches()
+    n_ingest = op_info["folded_batches"] + OP_EVENT_BATCHES
+    require(launched == {"K1": 0, "K2": n_ingest, "K3": 0},
+            f"operator run launched {launched}, expected K2 {n_ingest} (once an ingest)")
+    launches["K2"] += launched["K2"]
+    t0 = time.perf_counter()
+    cpu_rec = op_run.replay(torch.device("cpu"), ckpt_root / "cpu")
+    op_info["cpu_replay_s"] = time.perf_counter() - t0
+    op_info.update(launches=launched, worst=compare_operator_runs(
+        op_rec, cpu_rec, ckpt_root / "gpu", ckpt_root / "cpu"))
+    n_a = -(-op_info["folded_batches"] // HARVEST_EVERY)  # harvests of feed (a)
+    seen = sum(op_run.counts[:HARVEST_EVERY])
+    uniq, cnt = np.unique(op_run.keys[:seen], return_counts=True)
+    first = op_rec["summaries"][0]
+    require(first.inv["complete"] and first.decoded == sorted(
+        zip(uniq.tolist(), cnt.tolist()), key=lambda kv: (-kv[1], kv[0])),
+            "operator: the first harvest's decode differs from the exact tally")
+    for sm in op_rec["summaries"]:
+        require(all(np.isfinite([sm.distinct, sm.entropy_bits])) and sm.events > 0
+                and len(sm.heavy_hitters) == prod["k"] and set(sm.classes) == {"hot", "rest"},
+                f"operator: harvest {sm.epoch} is malformed")
+    require(op_rec["summaries"][-1].anomaly is not None
+            and len(op_rec["summaries"][-1].anomaly) == OP_CONTAINERS
+            and all(np.isfinite(list(op_rec["summaries"][-1].anomaly.values()))),
+            "operator: the seq scorer did not score every container")
+    hm = op_info["harvest_ms"]
+    log(f"[operator] feed (a): {op_info['folded_events']} events in "
+        f"{op_info['folded_batches']} batches ({op_info['full_batches']} full) through "
+        f"folded_block -> pop_folded -> ingest_folded, {n_a} harvests; launches {launched}")
+    log(f"[operator] feed (a): end-to-end {op_info['folded_e2e_ev_per_s']:.0f} events/s with "
+        f"harvests and seals, {op_info['folded_ingest_ev_per_s']:.0f} without; phase 5b's "
+        f"hand-driven path at vocab 2000 in this run: "
+        f"{capture['under capacity']['e2e_ev_per_s']:.0f} with harvests, "
+        f"{capture['under capacity']['ingest_ev_per_s']:.0f} without")
+    log(f"[operator] feed (b): {op_info['event_batch_events']} events in {OP_EVENT_BATCHES} "
+        f"EventBatches through enrich_batch, {op_info['event_batch_e2e_ev_per_s']:.0f} events/s "
+        f"with 2 harvests, their seals and the checkpoint")
+    for i, h in enumerate(hm):
+        log(f"[operator] harvest {i + 1}: " + ", ".join(f"{k} {v:.2f}" for k, v in h.items())
+            + " ms (digest + device decode, host finisher and reads, seq step, seal)")
+    last = op_rec["summaries"][-1]
+    log(f"[operator] last harvest: events {last.events}, drops {last.drops}, distinct "
+        f"~{last.distinct:.0f}, inv {last.inv}, classes "
+        f"{ {k: (v['recovered'], v['complete']) for k, v in last.classes.items()} }, "
+        f"p99 {last.quantiles['p99']:.0f}, accuracy ratio {last.accuracy['ratio']:.3g}")
+    log(f"[operator] {len(op_rec['summaries'])} summaries, {len(op_rec['windows'])} sealed "
+        f"windows and the checkpoint equal the CPU instance's on the same streams "
+        f"({op_info['cpu_replay_s']:.1f} s); seq scores within "
+        f"{op_info['worst']['anomaly_nats']:.3g} nats, scorer leaves within "
+        f"{op_info['worst']['scorer_leaf_rel']:.3g} of each leaf's scale; the first decode "
+        f"equals the exact tally of "
+        f"{len(uniq)} keys")
+    report["operator"] = op_info
 
     # -- 6. K3 against its plain version ----------------------------------------
     # the plain versions' float32 matmuls run in full f32, not TF32

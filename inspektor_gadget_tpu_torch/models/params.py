@@ -115,3 +115,74 @@ def adam_state_from_optax(scorer: Any, mu: Any, nu: Any, count: int) -> None:
             "exp_avg": torch.from_numpy(np.asarray(m, np.float32)).to(p.device),
             "exp_avg_sq": torch.from_numpy(np.asarray(nus[id(p)], np.float32)).to(p.device),
         }
+
+
+# -- scorer checkpoint leaves -------------------------------------------------
+# The reference's AE and VAE scorers flatten as (params, optax Adam state,
+# [the VAE's PRNG key], steps): the parameters in sorted-key order, then
+# Adam's count, mu and nu, then the key and the step count. The port
+# writes and reads that order, so either package resumes the other's AE
+# or VAE. The reference's seq scorer is not a pytree (its checkpoint
+# holds one pickled object); the port's seq file has the same layout as
+# an AE's, which only the port reads.
+
+def _sorted_names(tree: Any, prefix: str = "") -> list[str]:
+    """Dotted leaf names in jax's flatten order: dict keys sorted, list
+    items in order."""
+    if isinstance(tree, dict):
+        items = [(k, tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = list(enumerate(tree))
+    else:
+        return [prefix]
+    out: list[str] = []
+    for key, sub in items:
+        out += _sorted_names(sub, f"{prefix}.{key}" if prefix else str(key))
+    return out
+
+
+def scorer_leaves(scorer: Any) -> list[np.ndarray]:
+    """`scorer`'s state as the reference scorer's checkpoint leaves."""
+    names = _sorted_names(params_to_numpy(scorer))
+    params = dict(scorer.model.named_parameters())
+    state = [scorer.opt.state.get(params[n], {}) for n in names]
+
+    def moment(key: str) -> list[np.ndarray]:
+        return [s[key].detach().cpu().numpy().copy() if key in s
+                else np.zeros(tuple(params[n].shape), np.float32)
+                for n, s in zip(names, state)]
+
+    count = int(state[0]["step"]) if state and "step" in state[0] else 0
+    out = [params[n].detach().cpu().numpy().copy() for n in names]
+    out += [np.asarray(count, np.int32), *moment("exp_avg"), *moment("exp_avg_sq")]
+    if hasattr(scorer, "gen"):  # the VAE: the reference's PRNG key
+        out.append(np.zeros(2, np.uint32))
+    out.append(np.asarray(scorer.steps, np.int32))
+    return out
+
+
+def scorer_leaf_names(scorer: Any) -> list[str]:
+    """The name of each of `scorer_leaves(scorer)`: the parameters by
+    their dotted names, ``count``, ``mu.<name>`` and ``nu.<name>`` (Adam's
+    moments), the VAE's ``key``, then ``steps``."""
+    names = _sorted_names(params_to_numpy(scorer))
+    out = names + ["count"] + [f"mu.{n}" for n in names] + [f"nu.{n}" for n in names]
+    return out + (["key"] if hasattr(scorer, "gen") else []) + ["steps"]
+
+
+def scorer_from_leaves(scorer: Any, leaves) -> None:
+    """Load checkpoint leaves (`scorer_leaves`' layout) into `scorer`:
+    weights, Adam state and step count. The VAE's PRNG key is not
+    carried (the port's noise generator goes on with its own draws)."""
+    names = _sorted_names(params_to_numpy(scorer))
+    n = len(names)
+    extra = 1 if hasattr(scorer, "gen") else 0
+    if len(leaves) != 3 * n + 2 + extra:
+        raise ValueError(f"scorer checkpoint has {len(leaves)} leaves, expected "
+                         f"{3 * n + 2 + extra}")
+    params_from_numpy(scorer, dict(zip(names, leaves[:n])))
+    count = int(np.asarray(leaves[n]))
+    if count:
+        adam_state_from_optax(scorer, dict(zip(names, leaves[n + 1:2 * n + 1])),
+                              dict(zip(names, leaves[2 * n + 1:3 * n + 1])), count)
+    scorer.steps = int(np.asarray(leaves[-1]))

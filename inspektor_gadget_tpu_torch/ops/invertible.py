@@ -1,6 +1,6 @@
 """Invertible heavy-key sketch (PyTorch port of
-``inspektor_gadget_tpu/ops/invertible.py:1-435``: state, update, merge
-and decode).
+``inspektor_gadget_tpu/ops/invertible.py``: state, update, merge,
+decode and the priority classes).
 
 Per (row, bucket) three integer lanes: ``count`` (sum of weights),
 ``keysum`` (sum of key*weight mod 2**32) and ``fpsum`` (sum of
@@ -348,3 +348,138 @@ def inv_decode(state, *, device_sweeps: int = 4, host_sweeps: int = 32, cap: int
     fpsum = np.asarray(fpsum).astype(np.uint32)
     return _finish(count, keysum, fpsum, int(count.shape[1]).bit_length() - 1, {},
                    host_sweeps, min_count)
+
+
+# -- priority classes --------------------------------------------------------
+# Per-tenant accuracy classes under one fixed memory budget (the
+# reference's ``ops/invertible.py:438-572``): each class is its own
+# invertible sketch over the events of its tenants (mntns), and the
+# classes partition the base geometry's bytes.
+
+@dataclasses.dataclass(frozen=True)
+class InvClass:
+    """One accuracy class: its own bucket geometry and the tenant
+    (mntns) set it serves. `tenants is None` marks the '*' catch-all."""
+
+    name: str
+    log2_buckets: int
+    tenants: tuple[int, ...] | None
+
+    @property
+    def is_default(self) -> bool:
+        return self.tenants is None
+
+
+def parse_priority_classes(text: str) -> list[InvClass]:
+    """Parse ``name=log2buckets:tenant|tenant,...`` (one class must take
+    ``*``, the catch-all). Raises ValueError naming the offending class
+    on any malformed entry — the loud-validation contract."""
+    classes: list[InvClass] = []
+    names: set[str] = set()
+    tenants_seen: dict[int, str] = {}
+    defaults = 0
+    if not text.strip():
+        raise ValueError("empty priority-classes spec")
+    for part in text.split(","):
+        part = part.strip()
+        if not part:
+            raise ValueError("empty class entry (stray comma?)")
+        if "=" not in part:
+            raise ValueError(f"class {part!r}: expected "
+                             "name=log2buckets:tenants")
+        name, rest = part.split("=", 1)
+        name = name.strip()
+        if not name:
+            raise ValueError(f"class {part!r}: empty class name")
+        if name in names:
+            raise ValueError(f"duplicate class name {name!r}")
+        names.add(name)
+        if ":" not in rest:
+            raise ValueError(f"class {name!r}: expected "
+                             "log2buckets:tenants after '='")
+        lb_s, ten_s = rest.split(":", 1)
+        try:
+            lb = int(lb_s)
+        except ValueError:
+            raise ValueError(f"class {name!r}: log2buckets {lb_s!r} is "
+                             "not an integer") from None
+        if not 6 <= lb <= 20:
+            raise ValueError(f"class {name!r}: log2buckets {lb} outside "
+                             "[6, 20]")
+        ten_s = ten_s.strip()
+        if ten_s == "*":
+            defaults += 1
+            if defaults > 1:
+                raise ValueError(f"class {name!r}: second '*' catch-all "
+                                 "(exactly one default class)")
+            classes.append(InvClass(name=name, log2_buckets=lb,
+                                    tenants=None))
+            continue
+        tenants: list[int] = []
+        for t in ten_s.split("|"):
+            t = t.strip()
+            if not t:
+                raise ValueError(f"class {name!r}: empty tenant entry")
+            try:
+                tv = int(t)
+            except ValueError:
+                raise ValueError(f"class {name!r}: tenant {t!r} is not a "
+                                 "mntns integer") from None
+            if tv in tenants_seen:
+                raise ValueError(
+                    f"class {name!r}: tenant {tv} already claimed by "
+                    f"class {tenants_seen[tv]!r}")
+            tenants_seen[tv] = name
+            tenants.append(tv)
+        if not tenants:
+            raise ValueError(f"class {name!r}: no tenants")
+        classes.append(InvClass(name=name, log2_buckets=lb,
+                                tenants=tuple(tenants)))
+    if defaults == 0:
+        raise ValueError("no '*' catch-all class — every stream needs a "
+                         "home (add e.g. rest=<log2b>:*)")
+    return classes
+
+
+def validate_class_budget(classes: list[InvClass], *, rows: int,
+                          log2_buckets: int) -> None:
+    """The classes PARTITION the base geometry's memory: sum of per-class
+    state bytes must fit inside inv-rows × 2^inv-log2-buckets — priority
+    is a reallocation, never a growth. Raises ValueError with the exact
+    byte arithmetic."""
+    budget = inv_bytes(rows, log2_buckets)
+    spent = sum(inv_bytes(rows, c.log2_buckets) for c in classes)
+    if spent > budget:
+        detail = " + ".join(
+            f"{c.name}:{inv_bytes(rows, c.log2_buckets)}" for c in classes)
+        raise ValueError(
+            f"priority classes need {spent} bytes ({detail}) but the "
+            f"base geometry budgets {budget} (inv-rows {rows} x "
+            f"2^{log2_buckets} buckets x 3 lanes x 4B) — shrink a class "
+            "or grow inv-log2-buckets")
+
+
+def class_weights(classes: list[InvClass], mntns: np.ndarray,
+                  weights: np.ndarray) -> list[np.ndarray]:
+    """Per-class effective weight vectors for one batch: an event's
+    weight lands in exactly one class (its tenant's, else the '*'
+    catch-all), so summing per-class decodes reproduces whole-stream
+    totals exactly."""
+    mntns = np.asarray(mntns)
+    weights = np.asarray(weights)
+    claimed = np.zeros(mntns.shape, bool)
+    out: list[np.ndarray] = []
+    masks: list[np.ndarray] = []
+    for c in classes:
+        if c.is_default:
+            masks.append(None)
+            continue
+        m = np.isin(mntns, np.asarray(c.tenants, dtype=mntns.dtype))
+        claimed |= m
+        masks.append(m)
+    for c, m in zip(classes, masks):
+        if m is None:
+            m = ~claimed
+        out.append((weights * m).astype(np.uint32))
+    return out
+

@@ -169,3 +169,48 @@ def dd_quantile(state: DDSketch, q) -> torch.Tensor:
 def dd_merge(a: DDSketch, b: DDSketch) -> DDSketch:
     return DDSketch(counts=a.counts + b.counts, zeros=a.zeros + b.zeros,
                     total=a.total + b.total, alpha=a.alpha, min_value=a.min_value)
+
+
+# -- host twins (numpy, float64) --------------------------------------------
+# Harvests and sealed windows read quantiles off host copies of the
+# DDSketch lanes; same formulas as `dd_quantile`, in float64.
+
+def dd_quantile_np(counts: np.ndarray, zeros: float, total: float, q,
+                   *, alpha: float = 0.01,
+                   min_value: float = 1e-9) -> np.ndarray:
+    """Host-side quantile read over raw DDSketch lanes (e.g. a merged
+    window fold). Scalar q → scalar; array q → array."""
+    gamma = (1.0 + alpha) / (1.0 - alpha)
+    qs = np.atleast_1d(np.asarray(q, np.float64))
+    total = float(total)
+    rank = qs * max(total - 1.0, 0.0)
+    cum = float(zeros) + np.cumsum(np.asarray(counts, np.float64))
+    bucket = (cum[None, :] <= rank[:, None]).sum(axis=1)
+    bucket = np.clip(bucket, 0, len(cum) - 1)
+    log_gamma = math.log(gamma)
+    offset = math.log(min_value) / log_gamma
+    mid = 2.0 * np.exp((bucket + offset) * log_gamma) / (gamma + 1.0)
+    out = np.where(rank < float(zeros), 0.0, mid)
+    out = np.where(total > 0, out, np.nan)
+    return out[0] if np.ndim(q) == 0 else out
+
+
+def dd_histogram_log2_np(counts: np.ndarray, *, alpha: float = 0.01,
+                         min_value: float = 1e-9,
+                         n_slots: int = 27,
+                         unit_scale: float = 1e6) -> np.ndarray:
+    """Host-side log2 re-binning (the biolatency ASCII render input).
+    `unit_scale` converts bucket midpoints into the display unit before
+    the log2: 1e6 for seconds→µs (the device twin's convention), 1.0 to
+    bin raw integer-domain values (the bundle plane's ns lane) as-is."""
+    gamma = (1.0 + alpha) / (1.0 - alpha)
+    n = len(counts)
+    log_gamma = math.log(gamma)
+    offset = math.log(min_value) / log_gamma
+    mids = np.exp((np.arange(n, dtype=np.float64) + offset)
+                  * log_gamma) * unit_scale
+    slot = np.clip(np.floor(np.log2(np.maximum(mids, 1.0))),
+                   0, n_slots - 1).astype(np.int64)
+    out = np.zeros((n_slots,), np.int64)
+    np.add.at(out, slot, np.asarray(counts, np.int64))
+    return out

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..native import HostLibrary
+from ..ops.hashing import fold64_to_32
 from .batch import EventBatch, FoldedBatch
 
 SRC_SYNTH_EXEC = 1
@@ -266,3 +267,54 @@ class NativeCapture:
         raw = out.raw
         return [raw[i * stride:i * stride + ln].decode("utf-8", "replace") if ln > 0 else ""
                 for i, ln in enumerate(lens.tolist())]
+
+
+def drain_synthetic(kind: int, seed: int, vocab: int, total: int, get_block, on_batch,
+                    release=None) -> dict:
+    """Run a synthetic NativeCapture of `kind` (rate 2e8 events/s) until
+    it has made `total` events, then drain its ring. Each pop fills
+    `get_block()` with the value lane and hands every non-empty
+    FoldedBatch to `on_batch(block, fb)`; an empty pop keeps its block
+    for the next one, and the last such block goes to `release(block)`.
+    The ring holds the whole run, so nothing drops and what was consumed
+    is the seed's stream from its start, `generate` rebuilds it. Returns
+    the events consumed, made and dropped, the `time.perf_counter()` at
+    which capture started, and the seconds the source took from then to
+    make `total` (the capture thread's rate)."""
+    cap = NativeCapture(kind, seed=seed, rate=2e8, vocab=vocab,
+                        ring_pow2=max(20, (total + (1 << 21)).bit_length()))
+    consumed, made_s, blk = 0, None, None
+    cap.start()
+    t0 = time.perf_counter()
+    try:
+        while True:
+            if made_s is None and cap.produced() >= total:
+                cap.stop()  # joins the capture thread: the ring holds the rest
+                made_s = time.perf_counter() - t0
+            blk = get_block() if blk is None else blk
+            fb = cap.pop_folded(blk, with_values=True)
+            if fb.count == 0:
+                if made_s is not None:
+                    break
+                time.sleep(0.0002)
+                continue
+            on_batch(blk, fb)
+            blk, consumed = None, consumed + fb.count
+        return {"consumed": consumed, "produced": cap.produced(), "drops": cap.drops(),
+                "started": t0, "source_s": made_s}
+    finally:
+        if blk is not None and release is not None:
+            release(blk)
+        cap.stop()
+        cap.close()
+
+
+def synthetic_stream(kind: int, seed: int, vocab: int, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """The first `n` events of a synthetic source's seeded stream, folded
+    as `pop_folded` folds them -> (keys, mntns) uint32 lanes."""
+    src = NativeCapture(kind, seed=seed, vocab=vocab)
+    try:
+        ev = src.generate(n)
+    finally:
+        src.close()
+    return fold64_to_32(ev.cols["key_hash"]), fold64_to_32(ev.cols["mntns"])

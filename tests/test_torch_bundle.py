@@ -168,8 +168,10 @@ def test_state_carries_over_both_ways():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (the native binding, the window sketches
-    and the telemetry included) imports without JAX or the JAX package,
+    """Every module of the port (the native binding, the window sketches,
+    the telemetry, the operator, the history windows, the checkpoint
+    files and the accuracy plane included) imports without JAX or the
+    JAX package,
     and no source file of it names either. Importing `sources.bridge`
     builds nothing: with no compiler to be found, the import still
     succeeds and its library is neither built nor loaded."""
@@ -177,7 +179,11 @@ def test_port_imports_no_jax():
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in PORT.rglob("*.py"))
     assert {"inspektor_gadget_tpu_torch.sources.bridge", "inspektor_gadget_tpu_torch.ops.window",
-            "inspektor_gadget_tpu_torch.telemetry.pipeline"} <= set(mods)
+            "inspektor_gadget_tpu_torch.telemetry.pipeline",
+            "inspektor_gadget_tpu_torch.operators", "inspektor_gadget_tpu_torch.operators.tpusketch",
+            "inspektor_gadget_tpu_torch.history", "inspektor_gadget_tpu_torch.history.window",
+            "inspektor_gadget_tpu_torch.utils", "inspektor_gadget_tpu_torch.utils.checkpoint",
+            "inspektor_gadget_tpu_torch.ops.accuracy"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bridge = sys.modules['inspektor_gadget_tpu_torch.sources.bridge']\n"

@@ -166,3 +166,27 @@ def test_pop_folded_with_values_matches_reference_and_the_seed(reference_capture
     port.close()
     ref.close()
 
+
+
+def test_drain_synthetic_hands_over_the_seed_stream():
+    """`drain_synthetic` runs the capture until it made `total` events,
+    drains the ring into the blocks `get_block` gives, drops nothing, and
+    what it hands over is the stream `synthetic_stream` rebuilds; the
+    block of the last empty pop goes back through `release`."""
+    pool = PinnedBufferPool(2048, lanes=4, device="cpu")
+    lanes, released = [], []
+
+    def on_batch(blk, fb):
+        assert fb.count > 0 and fb.block is blk
+        lanes.append(fb.lanes[:, :fb.count].copy())
+        pool.put(blk)
+
+    got = B.drain_synthetic(B.SRC_SYNTH_EXEC, 9, 300, 20000, pool.get, on_batch,
+                            release=released.append)
+    cat = np.concatenate(lanes, axis=1)
+    assert got["drops"] == 0 and got["consumed"] == got["produced"] == cat.shape[1] >= 20000
+    assert got["source_s"] > 0 and len(released) == 1
+    keys, mntns = B.synthetic_stream(B.SRC_SYNTH_EXEC, 9, 300, cat.shape[1])
+    assert keys.dtype == mntns.dtype == np.uint32
+    assert np.array_equal(cat[0], keys) and np.array_equal(cat[2], mntns)
+    assert (cat[1] == 1).all()
