@@ -43,6 +43,18 @@ harvest every 16 batches, then 8 seeded EventBatches through
 checkpoint). The same streams through an instance on the CPU must give
 the same summaries, sealed windows and checkpoint leaves.
 
+The gadget framework (phase 5d): ``trace/exec`` with the sketch plane
+at the production geometry (every plane the CLI path turns on:
+invertible, quantiles on aux1, audit sample 1024, the ae scorer). (a)
+`LocalRuntime().run_gadget` on the pysynthetic source (seed 7, vocab
+2000), cancelled from the batch callback after 32 batches of 2**17, on
+the card and then on the CPU: the final summaries must agree (estimates
+to rtol 1e-5, ae scores within 5%) and K2 must run once a batch. (b)
+The CLI, ``trace exec --source synthetic --rate 30000000 --timeout 10
+-F uid:99`` with the same sketch flags, as a subprocess: it must exit 0
+and print at least 5 sketch epochs, each with heavy hitters; its
+events/s, drops and harvest times are logged beside phase 5c's.
+
 The launch counts are set to 0 just before each card run of a path and
 read just after it.
 
@@ -58,7 +70,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import queue
+import re
 import shutil
 import statistics
 import subprocess
@@ -84,8 +98,12 @@ TICKS = 8
 SEQ_WINDOW = 256
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One report line, behind the seconds since the script started."""
+    print(f"{time.perf_counter() - T0:7.1f}s {msg}", flush=True)
 
 
 def fill_block(src, block: np.ndarray, i: int) -> None:
@@ -487,6 +505,32 @@ def _same(got, want, rtol: float, what: str) -> None:
         require(got == want, f"{what}: {got!r} != {want!r}")
 
 
+def compare_summaries(got, want, what: str, *, anomaly_abs: float | None = None,
+                      anomaly_rel: float | None = None) -> float:
+    """Hold one SketchSummary to another: every field but `pipeline`;
+    `distinct` and `entropy_bits` to rtol 1e-5, the accuracy block to
+    1e-4, each container's anomaly score within `anomaly_abs` (nats) or
+    `anomaly_rel` of the score, the rest exactly. Returns the largest
+    anomaly gap (absolute, or relative with `anomaly_rel`)."""
+    g, w = dataclasses.asdict(got), dataclasses.asdict(want)
+    for key in ("distinct", "entropy_bits"):
+        _same(g.pop(key), w.pop(key), 1e-5, f"{what} {key}")
+    _same(g.pop("accuracy"), w.pop("accuracy"), 1e-4, f"{what} accuracy")
+    ga, wa = g.pop("anomaly"), w.pop("anomaly")
+    require((ga is None) == (wa is None) and list(ga or {}) == list(wa or {}),
+            f"{what}: scored containers differ")
+    gap = 0.0
+    if wa and anomaly_rel is not None:
+        gap = max(abs(ga[k] - wa[k]) / max(abs(wa[k]), 1e-12) for k in wa)
+        require(gap <= anomaly_rel, f"{what}: anomaly scores differ by {gap:.3g} of a score")
+    elif wa:
+        gap = max(abs(ga[k] - wa[k]) for k in wa)
+        require(gap <= anomaly_abs, f"{what}: anomaly scores differ by {gap} nats")
+    g.pop("pipeline"), w.pop("pipeline")
+    _same(g, w, 0.0, what)
+    return gap
+
+
 def compare_operator_runs(got: dict, want: dict, got_dir: Path, want_dir: Path) -> dict:
     """Hold one operator run to another: every summary field but
     `pipeline` (the HLL and entropy estimates and what derives from them
@@ -505,19 +549,8 @@ def compare_operator_runs(got: dict, want: dict, got_dir: Path, want_dir: Path) 
     require(len(gs) == len(ws) > 0, f"{len(gs)} harvests against {len(ws)}")
     worst = {"anomaly_nats": 0.0, "scorer_leaf_rel": 0.0, "scorer_leaf_rel_by_leaf": {}}
     for i, (g, w) in enumerate(zip(gs, ws)):
-        g, w = dataclasses.asdict(g), dataclasses.asdict(w)
-        for key in ("distinct", "entropy_bits"):
-            _same(g.pop(key), w.pop(key), 1e-5, f"harvest {i} {key}")
-        _same(g.pop("accuracy"), w.pop("accuracy"), 1e-4, f"harvest {i} accuracy")
-        ga, wa = g.pop("anomaly"), w.pop("anomaly")
-        require((ga is None) == (wa is None) and list(ga or {}) == list(wa or {}),
-                f"harvest {i}: scored containers differ")
-        if wa:
-            gap = max(abs(ga[k] - wa[k]) for k in wa)
-            require(gap <= 0.05, f"harvest {i}: seq scores differ by {gap} nats")
-            worst["anomaly_nats"] = max(worst["anomaly_nats"], gap)
-        g.pop("pipeline"), w.pop("pipeline")
-        _same(g, w, 0.0, f"harvest {i}")
+        gap = compare_summaries(g, w, f"harvest {i}", anomaly_abs=0.05)
+        worst["anomaly_nats"] = max(worst["anomaly_nats"], gap)
     require(len(got["windows"]) == len(want["windows"]) > 0, "sealed window count differs")
     for i, ((gh, gp), (wh, wp)) in enumerate(zip(got["windows"], want["windows"])):
         require(gh == wh, f"window {i}: header differs")
@@ -555,6 +588,143 @@ def compare_operator_runs(got: dict, want: dict, got_dir: Path, want_dir: Path) 
         require(rel <= SCORER_RTOL, f"scorer {name}: {rel:.3g} of the leaf's scale apart "
                                     f"(bound {SCORER_RTOL})")
     return worst
+
+
+# phase 5d: the gadget framework. The sketch flags of every plane the CLI
+# path can turn on, at the production geometry (tpusketch.py:302-488)
+GADGET_SKETCH = {"depth": "4", "log2-width": "16", "hll-p": "14", "entropy-log2-width": "12",
+                 "topk": "128", "invertible": "true", "inv-rows": "3", "inv-log2-buckets": "12",
+                 "quantiles": "true", "quantile-field": "aux1", "audit-sample": "1024",
+                 "anomaly": "true", "anomaly-model": "ae"}
+GADGET_BATCHES = 32
+CLI_SECONDS = 10
+# runs the CLI module as `python -m` does (runpy, as __main__), with an
+# exit hook that writes the process's metrics snapshot, K2's launches, the
+# run span and the operator chain's batch spans to the path given as the
+# first argument
+CLI_DRIVER = """\
+import atexit, json, runpy, sys
+dump = sys.argv.pop(1)
+def _dump():
+    from inspektor_gadget_tpu_torch.ops import kernels as K
+    from inspektor_gadget_tpu_torch.telemetry import TRACER, snapshot
+    spans = TRACER.export()
+    with open(dump, "w") as f:
+        json.dump({"metrics": snapshot(), "k2_launches": K.fused_planes.launches,
+                   "runs": [s for s in spans if s["name"] == "run/trace/exec"],
+                   "batch_starts": [s["start"] for s in spans if s["name"] == "op/tpusketch"]},
+                  f)
+atexit.register(_dump)
+runpy.run_module("inspektor_gadget_tpu_torch.cli.main", run_name="__main__", alter_sys=True)
+"""
+EPOCH_RE = re.compile(r"^— sketch epoch (\d+): events=([\d,]+) distinct≈([\d,]+) "
+                      r"entropy=([\d.]+)b drops=(\d+)$")
+
+
+def _metric(snap: dict, name: str) -> float:
+    return float(snap.get(f'{name}{{gadget="trace/exec"}}', 0.0))
+
+
+def gadget_run(device: str, batches: int, batch: int) -> dict:
+    """``trace/exec`` through the port's `LocalRuntime`: the pysynthetic
+    source (seed 7, vocab 2000, zipf 1.2, batches of `batch` paced at
+    1e9 events/s), the sketch plane with GADGET_SKETCH and a harvest
+    interval of 1h (so the only harvest is post_gadget_run's), the
+    context cancelled from the batch callback after `batches` batches.
+    Returns the final summary, the run's seconds and its harvest ms
+    (``ig_tpusketch_harvest_seconds``)."""
+    from inspektor_gadget_tpu_torch import all_gadgets  # noqa: F401 — registers trace/exec
+    from inspektor_gadget_tpu_torch.gadgets import GadgetContext, get
+    from inspektor_gadget_tpu_torch.operators import get as get_op
+    from inspektor_gadget_tpu_torch.params import Collection
+    from inspektor_gadget_tpu_torch.runtime import LocalRuntime
+    from inspektor_gadget_tpu_torch.telemetry import snapshot
+    desc = get("trace", "exec")
+    gp = desc.params().to_params()
+    for k, v in {"source": "pysynthetic", "seed": "7", "vocab": "2000", "zipf": "1.2",
+                 "batch-size": str(batch), "rate": "1e9"}.items():
+        gp.set(k, v)
+    sp = get_op("tpusketch").instance_params().to_params()
+    for k, v in {"enable": "true", **GADGET_SKETCH, "harvest-interval": "1h"}.items():
+        sp.set(k, v)
+    summaries: list = []
+    ctx = GadgetContext(desc, gadget_params=gp,
+                        operator_params=Collection({"operator.tpusketch.": sp}),
+                        extra={"on_sketch_summary": summaries.append}, device=device)
+    seen = [0]
+
+    def on_batch(_batch) -> None:
+        seen[0] += 1
+        if seen[0] == batches:
+            ctx.cancel()
+
+    before = snapshot()
+    t0 = time.perf_counter()
+    res = LocalRuntime().run_gadget(ctx, on_batch=on_batch)["local"]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    require(res.error is None, f"gadget run on {device}: {res.error}")
+    require(seen[0] == batches and len(summaries) == 1,
+            f"gadget run on {device}: {seen[0]} batches, {len(summaries)} harvests")
+    after = snapshot()
+    h_n = (_metric(after, "ig_tpusketch_harvest_seconds_count")
+           - _metric(before, "ig_tpusketch_harvest_seconds_count"))
+    h_s = (_metric(after, "ig_tpusketch_harvest_seconds_sum")
+           - _metric(before, "ig_tpusketch_harvest_seconds_sum"))
+    return {"summary": summaries[-1], "seconds": secs, "ev_per_s": batches * batch / secs,
+            "harvest_ms": h_s / max(h_n, 1) * 1e3}
+
+
+def cli_run(device: str, batch: int, seconds: int, dump: Path, sketch: dict) -> dict:
+    """``trace exec`` of the port's CLI as a subprocess on the native
+    synthetic source at a rate above what its capture thread makes, the
+    display filtered to nothing (``-F uid:99``; the synthetic uids are
+    0-3) so only the sketch summaries print. Returns its sketch epochs
+    (each with its heavy-hitter lines), the run span's seconds, K2's
+    launches and the metrics of the run; the tracer's ring is sized to
+    keep every span of the run."""
+    args = ["trace", "exec", "--device", device, "--source", "synthetic", "--rate", "30000000",
+            "--vocab", "2000", "--batch-size", str(batch), "--timeout", str(seconds),
+            "-F", "uid:99", "--tpusketch-enable", "true", "--tpusketch-harvest-interval", "1s"]
+    for k, v in sketch.items():
+        args += [f"--tpusketch-{k}", v]
+    dump.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_DRIVER, str(dump), *args],
+                          capture_output=True, text=True, timeout=seconds + 170,
+                          cwd=Path(__file__).resolve().parent,
+                          env=dict(os.environ, IG_TRACE_CAPACITY="65536"))
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"CLI run exited {proc.returncode}: {proc.stderr[-2000:]}")
+    epochs: list[dict] = []
+    for line in proc.stdout.splitlines():
+        m = EPOCH_RE.match(line)
+        if m:
+            epochs.append({"epoch": int(m[1]), "events": int(m[2].replace(",", "")),
+                           "drops": int(m[5]), "heavy_hitters": 0})
+        elif epochs and line.startswith("  ") and not line.startswith("  anomaly"):
+            epochs[-1]["heavy_hitters"] += 1
+    info = json.loads(dump.read_text())
+    (run,) = info["runs"]
+    m = info["metrics"]
+    starts = info["batch_starts"]
+    steps = _metric(m, "ig_tpusketch_steps_total")
+    require(0 < len(starts) == steps, f"CLI run: {len(starts)} batch spans for {steps} steps")
+    return {"epochs": epochs, "run_s": run["duration"], "process_s": wall,
+            "setup_s": min(starts) - run["start"],
+            "batches_s": run["start"] + run["duration"] - min(starts),
+            "k2_launches": info["k2_launches"],
+            "steps": steps,
+            "source_events": _metric(m, "ig_source_events_total"),
+            "source_drops": _metric(m, "ig_source_events_dropped_total"),
+            "harvests": _metric(m, "ig_tpusketch_harvest_seconds_count"),
+            "harvest_ms": _metric(m, "ig_tpusketch_harvest_seconds_sum")
+            / max(_metric(m, "ig_tpusketch_harvest_seconds_count"), 1) * 1e3,
+            "update_ms": _metric(m, "ig_tpusketch_update_seconds_sum")
+            / max(_metric(m, "ig_tpusketch_update_seconds_count"), 1) * 1e3,
+            "h2d_ms": _metric(m, "ig_tpusketch_h2d_seconds_sum")
+            / max(_metric(m, "ig_tpusketch_h2d_seconds_count"), 1) * 1e3}
 
 
 def main() -> int:
@@ -1007,6 +1177,60 @@ def main() -> int:
         f"equals the exact tally of "
         f"{len(uniq)} keys")
     report["operator"] = op_info
+
+    # -- 5d. the gadget framework: trace/exec with the sketch plane --------------
+    # (a) LocalRuntime on the card, then the same seeded run on the CPU
+    reset_launches()
+    g_card = gadget_run("cuda", GADGET_BATCHES, batch)
+    launched = read_launches()
+    require(launched == {"K1": 0, "K2": GADGET_BATCHES, "K3": 0},
+            f"gadget run launched {launched}, expected K2 {GADGET_BATCHES} (once a batch)")
+    launches["K2"] += launched["K2"]
+    g_cpu = gadget_run("cpu", GADGET_BATCHES, batch)
+    gsum, csum = g_card["summary"], g_cpu["summary"]
+    ae_gap = compare_summaries(gsum, csum, "gadget run, card vs CPU", anomaly_rel=5e-2)
+    require(gsum.events == GADGET_BATCHES * batch and gsum.inv is not None
+            and gsum.quantiles is not None and gsum.accuracy is not None
+            and len(gsum.heavy_hitters) == prod["k"] and gsum.anomaly
+            and all(np.isfinite(list(gsum.anomaly.values()))),
+            "gadget run: the final summary is malformed")
+    log(f"[gadget] (a) LocalRuntime trace/exec, pysynthetic seed 7, {GADGET_BATCHES} x {batch} "
+        f"events, every plane on: card {g_card['ev_per_s']:.0f} events/s end to end "
+        f"({g_card['seconds']:.2f} s, harvest {g_card['harvest_ms']:.1f} ms), CPU "
+        f"{g_cpu['ev_per_s']:.0f} ({g_cpu['seconds']:.2f} s); launches {launched}")
+    log(f"[gadget] (a) final summary equal to the CPU run's: events {gsum.events}, distinct "
+        f"~{gsum.distinct:.0f}, entropy {gsum.entropy_bits:.4f} b, inv {gsum.inv}, p99 "
+        f"{gsum.quantiles['p99']:.0f}, {len(gsum.anomaly)} containers scored (ae within "
+        f"{ae_gap:.3g} of a score)")
+    # (b) the CLI as a user runs it, on the native synthetic source
+    cli = cli_run("cuda", batch, CLI_SECONDS, ckpt_root.parent / "chip_smoke_cli.json",
+                  GADGET_SKETCH)
+    ep = cli["epochs"]
+    require(len(ep) >= 5 and all(e["heavy_hitters"] > 0 for e in ep),
+            f"CLI run: {len(ep)} sketch epochs, heavy hitters {[e['heavy_hitters'] for e in ep]}")
+    require(cli["k2_launches"] == cli["steps"] > 0,
+            f"CLI run: K2 launched {cli['k2_launches']} times over {cli['steps']} steps")
+    launches["K2"] += cli["k2_launches"]
+    cli["ev_per_s"] = ep[-1]["events"] / cli["run_s"]
+    cli["batches_ev_per_s"] = ep[-1]["events"] / cli["batches_s"]
+    log(f"[gadget] (b) CLI trace exec --device cuda --source synthetic --rate 30000000 "
+        f"--timeout {CLI_SECONDS}: exit 0, {len(ep)} sketch epochs, last events "
+        f"{ep[-1]['events']} in a {cli['run_s']:.2f} s run ({cli['process_s']:.1f} s of "
+        f"process): {cli['ev_per_s']:.0f} events/s end to end; the run's set-up (to its first "
+        f"batch) {cli['setup_s']:.2f} s, {cli['batches_ev_per_s']:.0f} events/s from the first "
+        f"batch to the run's end; drops {ep[-1]['drops']} in the "
+        f"last summary ({cli['source_drops']:.0f} counted at the source, "
+        f"{cli['source_events']:.0f} popped); {cli['harvests']:.0f} harvests of "
+        f"{cli['harvest_ms']:.1f} ms on average; h2d {cli['h2d_ms']:.2f} ms and update "
+        f"{cli['update_ms']:.2f} ms a batch (host); K2 launched {cli['k2_launches']} times; "
+        f"device idle share not measured here")
+    log(f"[gadget] beside phase 5c in this run: its folded feed "
+        f"{op_info['folded_e2e_ev_per_s']:.0f} events/s with harvests, enrich_batch "
+        f"{op_info['event_batch_e2e_ev_per_s']:.0f}; the gadget run (a) "
+        f"{g_card['ev_per_s']:.0f}, the CLI (b) {cli['ev_per_s']:.0f}")
+    report["gadget"] = {"card": {k: v for k, v in g_card.items() if k != "summary"},
+                        "cpu": {k: v for k, v in g_cpu.items() if k != "summary"},
+                        "launches": launched, "ae_rel_gap": ae_gap, "cli": cli}
 
     # -- 6. K3 against its plain version ----------------------------------------
     # the plain versions' float32 matmuls run in full f32, not TF32

@@ -1,0 +1,323 @@
+"""ig-tpu-torch CLI: commands generated from the gadget registry.
+
+Reference contract: cmd/common/registry.go:46-101 builds a cobra tree with
+one command per category/gadget, flags materialized from ParamDescs
+(gadget + operators + runtime); RunE wires runtime.Init → gadgetcontext →
+parser callback → formatter (registry.go:172-346). `ig` uses the local
+runtime (cmd/ig/main.go:36-57).
+
+The port's copy of ``inspektor_gadget_tpu/cli/main.py``: ``list``,
+``catalog``, ``version`` and the gadget commands on the local runtime,
+with one more flag, ``--device {cuda,cpu}`` (default ``cuda``), the
+device the run's operators put their state on. Subcommands and flags
+whose modules are not ported exit 2 naming their ROADMAP item.
+
+    python -m inspektor_gadget_tpu_torch.cli.main trace exec --device cpu \\
+        --source pysynthetic --timeout 3 --tpusketch-enable true
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import signal
+import sys
+
+# a Ctrl-C during the (slow, torch-importing) startup must not dump a
+# KeyboardInterrupt traceback: remember it, finish loading, exit cleanly.
+# Only armed when this module IS the program (python -m …cli.main) — a
+# library import must not hijack the host process's SIGINT handling.
+_early_interrupt = False
+_prev_sigint = None
+
+
+def _early_sigint(signum, frame):
+    global _early_interrupt
+    _early_interrupt = True
+
+
+if __name__ == "__main__":
+    import threading as _threading
+    if _threading.current_thread() is _threading.main_thread():
+        _prev_sigint = signal.signal(signal.SIGINT, _early_sigint)
+
+from .. import all_gadgets  # noqa: F401,E402 — registers everything ported
+from ..columns import (TextFormatter, match_event, parse_filters, parse_sort,  # noqa: E402
+                       sort_events)
+from ..gadgets import GadgetContext  # noqa: E402
+from ..gadgets import registry as gadget_registry  # noqa: E402
+from ..gadgets.interface import GadgetType  # noqa: E402
+from ..operators import operators as op_registry  # noqa: E402
+from ..params import Collection, ParamError  # noqa: E402
+
+__version__ = "0.1.0"
+
+# the reference's subcommands whose modules the port has not yet: each
+# exits 2 naming the ROADMAP item that ports it
+UNPORTED_COMMANDS = {
+    "deploy": ("render agent manifests / start local agents", "18"),
+    "undeploy": ("stop local agents / render deletion", "18"),
+    "agent": ("run the per-node agent daemon", "18"),
+    "debug": ("agent debugging: state dump, flight recorder, trace export", "18"),
+    "traces": ("Trace-resource lifecycle on agents", "18"),
+    "record": ("capture recordings on agents", "14"),
+    "replay": ("deterministic replay of a recording", "14"),
+    "alerts": ("active alerts, rule validation and dry runs", "15"),
+    "query": ("range queries over sealed history windows", "10c"),
+    "watch": ("standing-query answers", "10c"),
+    "history": ("the sealed-window store's tiers and lifecycle", "10c"),
+    "fleet": ("fleet health and shared runs", "11"),
+    "bench": ("benchmark runs and the perf ledger", "20"),
+    "doctor": ("probe capture windows per gadget", "19"),
+}
+REMOTE_ITEM = "18"  # --remote runs through the agent's gRPC runtime
+
+
+def _unported(what: str, item: str) -> int:
+    print(f"error: {what} is not ported to ig-tpu-torch yet (ROADMAP item {item})",
+          file=sys.stderr)
+    return 2
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="ig-tpu-torch",
+        description="streaming observability framework (PyTorch/CUDA port)",
+    )
+    sub = ap.add_subparsers(dest="category")
+
+    lp = sub.add_parser("list", help="list gadgets")
+    lp.set_defaults(func=cmd_list)
+
+    cp = sub.add_parser("catalog", help="print the full catalog as JSON")
+    cp.set_defaults(func=cmd_catalog)
+
+    vp = sub.add_parser("version", help="print version")
+    vp.set_defaults(func=lambda a: (print(f"ig-tpu-torch {__version__}"), 0)[1])
+
+    # help-listing stubs only: main() answers them before argparse
+    for name, (help_, item) in UNPORTED_COMMANDS.items():
+        sub.add_parser(name, help=f"{help_} (not ported yet: ROADMAP item {item})")
+
+    for category, descs in gadget_registry.categories().items():
+        catp = sub.add_parser(category, help=f"{category} gadgets")
+        catsub = catp.add_subparsers(dest="gadget")
+        for desc in descs:
+            gp = catsub.add_parser(desc.name, help=desc.description)
+            _add_common_flags(gp)
+            for p in desc.params().to_params():
+                d = p.desc
+                try:
+                    gp.add_argument(
+                        f"--{d.key}", default=d.default, dest=f"param_{d.key}",
+                        help=d.description or d.key,
+                    )
+                except argparse.ArgumentError:
+                    # a common flag (e.g. --max-rows, --sort) owns the option;
+                    # its value is copied into the gadget param in cmd_run
+                    pass
+            for op in op_registry.get_all():
+                if not op.can_operate_on(desc):
+                    continue
+                for p in op.instance_params().to_params():
+                    d = p.desc
+                    gp.add_argument(
+                        f"--{op.name}-{d.key}", default=d.default,
+                        dest=f"opparam_{op.name}.{d.key}",
+                        help=f"[operator {op.name}] {d.description or d.key}",
+                    )
+            gp.set_defaults(func=cmd_run, desc=desc)
+    return ap
+
+
+def _add_common_flags(gp: argparse.ArgumentParser) -> None:
+    gp.add_argument("--remote", default="",
+                    help="fan out to agents: name=target[,name=target...] "
+                         f"(not ported yet: ROADMAP item {REMOTE_ITEM})")
+    gp.add_argument("--node", default="", help="restrict --remote to one node")
+    gp.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="device of the run's operator state (no fallback: cuda "
+                         "without a card fails)")
+    gp.add_argument("-o", "--output", default="columns",
+                    choices=["columns", "json"], help="output format")
+    gp.add_argument("--timeout", type=float, default=0.0,
+                    help="stop after N seconds")
+    gp.add_argument("-F", "--filter", default="",
+                    help="column filters, e.g. comm:bash,pid:>100")
+    gp.add_argument("--sort", default="", help="sort spec, e.g. -count,comm")
+    gp.add_argument("--max-rows", type=int, default=50)
+    gp.add_argument("--columns", default="", help="comma-separated columns to show")
+    gp.add_argument("--no-header", action="store_true")
+
+
+def cmd_list(args) -> int:
+    for desc in gadget_registry.get_all():
+        print(f"{desc.category:10s} {desc.name:18s} {desc.description}")
+    return 0
+
+
+def cmd_catalog(args) -> int:
+    from ..runtime.runtime import build_catalog
+    print(json.dumps(build_catalog(), indent=2))
+    return 0
+
+
+def print_sketch_summary(s) -> None:
+    """The sketch plane's harvest as the reference's CLI prints it."""
+    sys.stdout.write(
+        f"\n— sketch epoch {s.epoch}: events={s.events:,} "
+        f"distinct≈{s.distinct:,.0f} entropy={s.entropy_bits:.2f}b "
+        f"drops={s.drops}\n")
+    for key32, count in s.heavy_hitters[:10]:
+        label = s.names.get(key32, f"0x{key32:08x}")
+        sys.stdout.write(f"  {label:<24s}  {count:>10,}\n")
+    if s.anomaly:
+        worst = sorted(s.anomaly.items(), key=lambda kv: -kv[1])[:5]
+        for ns, score in worst:
+            sys.stdout.write(f"  anomaly mntns={ns}: {score:.4f}\n")
+    sys.stdout.flush()
+
+
+def cmd_run(args) -> int:
+    if args.remote:
+        return _unported("--remote (the agent's gRPC runtime)", REMOTE_ITEM)
+    desc = args.desc
+    gadget_params = desc.params().to_params()
+    common = {"max-rows": str(args.max_rows), "sort": args.sort or None}
+    for p in list(gadget_params):
+        v = getattr(args, f"param_{p.key}", None)
+        if v is None and p.key in common:
+            v = common[p.key]
+        if v is not None:
+            try:
+                gadget_params.set(p.key, v)
+            except ParamError as e:
+                print(f"error: {e}", file=sys.stderr)
+                return 2
+
+    op_params = Collection()
+    for op in op_registry.get_all():
+        prefix = f"operator.{op.name}."
+        params = op.instance_params().to_params()
+        for p in list(params):
+            # argparse keeps the dots of a dest: look up both spellings
+            v = getattr(args, f"opparam_{op.name}.{p.key}".replace(".", "_"), None)
+            if v is None:
+                v = getattr(args, f"opparam_{op.name}.{p.key}", None)
+            if v is not None:
+                try:
+                    params.set(p.key, v)
+                except ParamError as e:
+                    print(f"error: {e}", file=sys.stderr)
+                    return 2
+        op_params[prefix] = params
+
+    extra = {}
+    if "operator.tpusketch." in op_params:
+        sp = op_params["operator.tpusketch."]
+        if sp.get("enable").as_bool():
+            extra["on_sketch_summary"] = print_sketch_summary
+
+    extra["output"] = args.output
+    ctx = GadgetContext(
+        desc,
+        gadget_params=gadget_params,
+        operator_params=op_params,
+        timeout=args.timeout,
+        extra=extra,
+        device=args.device,
+    )
+
+    cols = ctx.columns
+    filters = parse_filters(args.filter, cols) if args.filter and cols else []
+    if filters:
+        # push filters into the gadget's batch loop: rows that can't match
+        # are dropped columnar and never become Python objects (batch-
+        # capable gadgets set display_filters_applied and on_event skips
+        # the re-check)
+        extra["display_filters"] = filters
+        extra["display_columns"] = cols
+    if cols is not None:
+        from ..environment import Environment, current
+        if current() == Environment.LOCAL:
+            cols.hide_tagged(["kubernetes"])
+    if args.columns and cols:
+        cols.set_visible(args.columns.split(","))
+    formatter = TextFormatter(cols) if cols else None
+
+    out = sys.stdout
+    printed_header = False
+
+    def on_event(ev):
+        nonlocal printed_header
+        if (filters and not extra.get("display_filters_applied")
+                and not match_event(ev, filters, cols)):
+            return
+        if args.output == "json":
+            out.write(cols.to_json(ev) + "\n")
+        else:
+            if not printed_header and not args.no_header:
+                out.write(formatter.header() + "\n")
+                printed_header = True
+            out.write(formatter.format_event(ev) + "\n")
+        out.flush()
+
+    def on_event_array(evs):
+        rows = [e for e in evs if not filters or match_event(e, filters, cols)]
+        if args.sort:
+            rows = sort_events(rows, parse_sort(args.sort, cols), cols)
+        if desc.gadget_type == GadgetType.TRACE_INTERVALS:
+            rows = rows[: args.max_rows]  # top-gadget truncation only
+        if args.output == "json":
+            out.write(json.dumps([cols.to_dict(e) for e in rows], default=str) + "\n")
+        else:
+            out.write("\n" + formatter.format_table(rows) + "\n")
+        out.flush()
+
+    def on_sigint(signum, frame):
+        ctx.cancel()
+
+    signal.signal(signal.SIGINT, on_sigint)
+
+    from ..runtime.local import LocalRuntime
+    runtime = LocalRuntime()
+    result = runtime.run_gadget(
+        ctx,
+        on_event=on_event if desc.gadget_type in (GadgetType.TRACE,) else None,
+        on_event_array=on_event_array
+        if desc.gadget_type in (GadgetType.TRACE_INTERVALS, GadgetType.ONE_SHOT)
+        else None,
+    )
+    errs = result.errors()
+    if errs:
+        for node, err in errs.items():
+            print(f"error on {node}: {err}", file=sys.stderr)
+        return 1
+    res = result.first()
+    if res is not None:
+        if isinstance(res, bytes):
+            sys.stdout.buffer.write(res)
+        else:
+            print(res)
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    if _early_interrupt:
+        return 0
+    if _prev_sigint is not None:
+        signal.signal(signal.SIGINT, _prev_sigint)
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] in UNPORTED_COMMANDS:
+        return _unported(f"'{argv[0]}'", UNPORTED_COMMANDS[argv[0]][1])
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if not hasattr(args, "func"):
+        ap.print_help()
+        return 0
+    return args.func(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

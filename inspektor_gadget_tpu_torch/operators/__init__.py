@@ -1,9 +1,18 @@
-"""Operators over a gadget's event batches: the tpusketch sketch plane."""
+"""Operators over a gadget's events (the port's copy of
+``inspektor_gadget_tpu/operators``): the registry, the dependency sort and
+the enrich chain (`operators.operators`), and the tpusketch sketch plane,
+registered here like any other operator."""
 
+from .operators import (Operator, OperatorInstance, Operators, get, get_all,
+                        get_operators_for_gadget, install_operators, register,
+                        sort_operators)
+from .operators import clear as registry_clear
 from .tpusketch import (HeavyHitterRow, ParamError, SketchConfig, SketchContext, SketchSummary,
-                        TpuSketchInstance, checkpoint_all, checkpoint_dir, live_instances,
-                        set_checkpoint_dir)
+                        TpuSketch, TpuSketchInstance, checkpoint_all, checkpoint_dir,
+                        live_instances, set_checkpoint_dir)
 
-__all__ = ["HeavyHitterRow", "ParamError", "SketchConfig", "SketchContext", "SketchSummary",
-           "TpuSketchInstance", "checkpoint_all", "checkpoint_dir", "live_instances",
-           "set_checkpoint_dir"]
+__all__ = ["HeavyHitterRow", "Operator", "OperatorInstance", "Operators", "ParamError",
+           "SketchConfig", "SketchContext", "SketchSummary", "TpuSketch", "TpuSketchInstance",
+           "checkpoint_all", "checkpoint_dir", "get", "get_all", "get_operators_for_gadget",
+           "install_operators", "live_instances", "register",
+           "registry_clear", "set_checkpoint_dir", "sort_operators"]

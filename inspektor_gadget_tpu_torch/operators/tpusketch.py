@@ -1,5 +1,6 @@
-"""The tpusketch operator's sketch plane on one device (PyTorch port of
-``inspektor_gadget_tpu/operators/tpusketch.py``, `TpuSketchInstance`).
+"""The tpusketch operator on one device (PyTorch port of
+``inspektor_gadget_tpu/operators/tpusketch.py``: `TpuSketch`,
+`TpuSketchInstance`).
 
 Event batches flow into a per-run `SketchBundle` on the device
 (count-min, HLL, entropy, top-k, and optionally the invertible and
@@ -12,24 +13,30 @@ cumulative state and hands it, encoded, to the run's ``window_sink``.
 Checkpoints are the reference's files, so either package resumes the
 other's bundle.
 
-The gadget-framework shell (params, registration, ``GadgetContext``)
-waits for its ROADMAP item (10b): an instance takes a `SketchConfig`
-(the reference's instance params, ``-`` written ``_``) and a
-`SketchContext` (what it reads from the gadget context). Sharded
-ingest, standing queries and the history store's lifecycle raise,
-naming the ROADMAP item that ports them.
+The gadget framework builds an instance as the reference does:
+`TpuSketch.instance_params` holds the reference's 38 instance params,
+and ``TpuSketchInstance(op, ctx, gadget, params)`` reads them and the
+`GadgetContext` (its ``device``, and ``extra``'s hooks, read live). The
+same instance can be built without the framework from a `SketchConfig`
+(the params, ``-`` written ``_``) and a `SketchContext` (what it reads
+from the gadget context): ``TpuSketchInstance(config, context,
+device=...)``. Both routes validate through the same `ParamDesc`
+validators. Sharded ingest, standing queries and the history store's
+lifecycle raise, naming the ROADMAP item that ports them; on the
+framework's route so does the history plane (item 10c: the store the
+``window_sink`` stands in for).
 
 The reference donates its bundle to each step; the port updates it in
 place under ``_bundle_mu``, and every host snapshot that must outlive
 the next step is a copy (on the CPU a tensor's ``.numpy()`` is the
-live state). Spans are ``torch.profiler.record_function`` ranges named
-as the reference's spans (without their attributes).
+live state). Spans are the reference's `TRACER` spans under the run
+span, each also a ``torch.profiler.record_function`` range.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import logging
 import threading
 import time
 import uuid
@@ -38,9 +45,11 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..device import resolve_device
+from ..gadgets.context import GadgetContext
+from ..gadgets.interface import GadgetDesc
+from ..history.schedule import DEFAULT_SCHEDULE, validate_schedule
 from ..models.autoencoder import AEConfig, ae_init, ae_score, ae_train_step, normalize_counts
 from ..models.params import scorer_from_leaves, scorer_leaves
 from ..models.seqmodel import SeqConfig, seq_init, seq_score, seq_train_step, tokens_from_keys
@@ -54,12 +63,17 @@ from ..ops.invertible import (InvSketch, class_weights, inv_capacity, inv_decode
 from ..ops.sketches import (bundle_digest, bundle_from_numpy, bundle_ingest_step, bundle_init,
                             bundle_merge, bundle_to_numpy, decode_digest)
 from ..ops.window import hll_ingest_step, wcms_advance, wcms_ingest_step, wcms_init, wcms_query
+from ..params import ParamDesc, ParamDescs, ParamError, Params, TypeHint
+from ..params.validators import validate_int_range
 from ..sources.batch import BATCH_COLUMNS, EventBatch, FoldedBatch
 from ..sources.staging import H2DStager, PinnedBufferPool
 from ..telemetry import counter, histogram
 from ..telemetry.pipeline import PipelineStats
+from ..telemetry.tracing import TRACER, SpanContext, device_annotation
+from ..utils.logger import get_logger
+from .operators import Operator, OperatorInstance, register
 
-_log = logging.getLogger("ig-tpu.tpusketch")
+_log = get_logger("ig-tpu.tpusketch")
 
 # device-plane telemetry (batch grain; the histograms time the host side,
 # the card's completion surfaces in the next blocking read)
@@ -99,22 +113,46 @@ _tm_qt_zero = counter(
     "they land in the sketch's zero bucket, not a log bucket)")
 
 
-class ParamError(ValueError):
-    """A configuration the operator refuses, with the reference's message."""
+# -- the params layer: one copy of each rule, for both construction routes ----
+
+def _validate_chips(value: str) -> None:
+    """`chips` is 'auto' or a positive int."""
+    if value == "auto":
+        return
+    try:
+        v = int(value)
+    except ValueError:
+        raise ValueError(f"{value!r} is not an integer or 'auto'") from None
+    if v < 1:
+        raise ValueError(f"chips must be >= 1, got {v}")
 
 
-def _int_range(key: str, v: int, lo: int | None = None, hi: int | None = None) -> None:
-    """The reference's ``validate_int_range`` at the params layer."""
-    if lo is not None and v < lo:
-        raise ParamError(f"param {key!r}: {v} below minimum {lo}")
-    if hi is not None and v > hi:
-        raise ParamError(f"param {key!r}: {v} above maximum {hi}")
+def _validate_priority_classes(value: str) -> None:
+    """Grammar only: the budget needs inv-rows and inv-log2-buckets and is
+    checked at instantiation."""
+    parse_priority_classes(value)
+
+
+def _validate_quantile_alpha(value: str) -> None:
+    """The DDSketch relative-error target: a float in (0, 0.3]."""
+    try:
+        v = float(value)
+    except ValueError:
+        raise ValueError(f"{value!r} is not a float") from None
+    if not (0.0 < v <= 0.3):
+        raise ValueError(f"quantile-alpha must be in (0, 0.3], got {v}")
+
+
+# the instance params of the history store's lifecycle and the standing
+# queries: on the framework's route a value other than the default raises
+_STORE_KEYS = ("history-dir", "history-schedule", "history-archive-cache-bytes",
+               "query-cache-bytes", "query-refresh", "query-max-range")
 
 
 @dataclasses.dataclass
 class SketchConfig:
-    """The reference's tpusketch instance params (``tpusketch.py:302-489``)
-    with their defaults; durations are seconds."""
+    """The instance params the sketch plane runs on (``-`` written
+    ``_``), with the reference's defaults; durations are seconds."""
 
     depth: int = 4
     log2_width: int = 16
@@ -149,40 +187,43 @@ class SketchConfig:
     standing_queries: str = ""
 
     def validate(self) -> None:
-        """The checks the reference's params layer makes when a value is
-        set (validators, possible values), as ParamError."""
-        if self.anomaly_model not in ("ae", "vae", "seq"):
-            raise ParamError(f"param 'anomaly-model': {self.anomaly_model!r} not one of "
-                             "['ae', 'vae', 'seq']")
-        _int_range("inv-log2-buckets", self.inv_log2_buckets, 6, 20)
-        _int_range("inv-rows", self.inv_rows, 2, 8)
-        _int_range("audit-sample", self.audit_sample, 0)
-        if not 0.0 < float(self.quantile_alpha) <= 0.3:
-            raise ParamError(f"param 'quantile-alpha': quantile-alpha must be in (0, 0.3], "
-                             f"got {float(self.quantile_alpha)}")
-        if self.priority_classes:
-            try:
-                parse_priority_classes(self.priority_classes)
-            except ValueError as e:
-                raise ParamError(f"param 'priority-classes': {e}") from None
-        if self.chips != "auto":
-            try:
-                chips = int(self.chips)
-            except ValueError:
-                raise ParamError(f"param 'chips': {self.chips!r} is not an integer or "
-                                 "'auto'") from None
-            if chips < 1:
-                raise ParamError(f"param 'chips': chips must be >= 1, got {chips}")
+        """Set every field on the params layer, which runs the
+        `ParamDesc` checks (possible values, validators, type hints) and
+        raises their ParamError."""
+        params = TpuSketch().instance_params().to_params()
+        for f in dataclasses.fields(self):
+            params.set(f.name.replace("_", "-"), getattr(self, f.name))
+
+    @classmethod
+    def from_params(cls, params: Params) -> "SketchConfig":
+        """The config of a validated `Params` of `TpuSketch.instance_params`."""
+        kw: dict[str, Any] = {}
+        for f in dataclasses.fields(cls):
+            p = params.get(f.name.replace("_", "-"))
+            if isinstance(f.default, bool):
+                kw[f.name] = p.as_bool()
+            elif isinstance(f.default, int):
+                kw[f.name] = p.as_int()
+            elif f.name.endswith("_interval"):
+                kw[f.name] = p.as_duration()
+            elif isinstance(f.default, float):
+                kw[f.name] = float(p.as_string())
+            else:
+                kw[f.name] = p.as_string()
+        return cls(**kw)
 
 
 @dataclasses.dataclass
 class SketchContext:
     """What the instance reads from the reference's ``GadgetContext``:
     the run's identity, the gadget's batch size, the history clock, the
-    summary and window hooks (read live, as the reference reads
-    ``ctx.extra``), and the gadget's key resolver. ``window_sink`` takes
-    each sealed window as `encode_window` gives it, (header, payload):
-    it stands in for the reference's history store."""
+    summary and window hooks, the gadget's key resolver and the run
+    span. ``window_sink`` takes each sealed window as `encode_window`
+    gives it, (header, payload): it stands in for the reference's
+    history store. Where the framework built the instance, ``extra`` is
+    the gadget context's, read live: its ``on_sketch_summary``,
+    ``on_window_sealed`` and ``replay`` keys stand over the fields of
+    the same names."""
 
     gadget: str = "trace/exec"
     run_id: str = dataclasses.field(default_factory=lambda: uuid.uuid4().hex[:12])
@@ -195,6 +236,25 @@ class SketchContext:
     window_sink: Callable[[dict, bytes], None] | None = None
     resolve_key: Callable[[int], str] | None = None
     replay: bool = False
+    trace_parent: SpanContext | None = None
+    extra: dict[str, Any] | None = None
+
+    @classmethod
+    def from_gadget_context(cls, ctx: GadgetContext, gadget: Any) -> "SketchContext":
+        p = ctx.gadget_params
+        return cls(gadget=ctx.desc.full_name, run_id=ctx.run_id,
+                   node=ctx.extra.get("node", "") or "",
+                   batch_size=p.get("batch-size").as_int() if "batch-size" in p else 0,
+                   history_gadget=ctx.extra.get("history_gadget") or "",
+                   history_clock=ctx.extra.get("history_clock"),
+                   resolve_key=getattr(gadget, "resolve_key", None),
+                   trace_parent=ctx.extra.get("trace_ctx"), extra=ctx.extra)
+
+    def hook(self, key: str) -> Any:
+        """`key` from the live ``extra`` where it is set, else the field."""
+        if self.extra is not None and key in self.extra:
+            return self.extra[key]
+        return getattr(self, key)
 
 
 @dataclasses.dataclass
@@ -283,18 +343,169 @@ def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32)).to(dev, copy=True)
 
 
-class TpuSketchInstance:
-    """One run's sketch plane on one device (the reference's single-chip
-    path, ``tpusketch.py:495-2117``)."""
+class TpuSketch(Operator):
+    name = "tpusketch"
 
-    def __init__(self, config: SketchConfig | None = None,
-                 context: SketchContext | None = None,
+    def dependencies(self) -> list[str]:
+        return []
+
+    def can_operate_on(self, desc: GadgetDesc) -> bool:
+        return True  # any batch-emitting gadget
+
+    def instance_params(self) -> ParamDescs:
+        """The reference's instance params (``tpusketch.py:302-488``):
+        keys, defaults, type hints, possible values and validators."""
+        return ParamDescs([
+            ParamDesc(key="enable", default="false", type_hint=TypeHint.BOOL,
+                      description="enable the sketch plane"),
+            ParamDesc(key="depth", default="4", type_hint=TypeHint.INT),
+            ParamDesc(key="log2-width", default="16", type_hint=TypeHint.INT),
+            ParamDesc(key="hll-p", default="14", type_hint=TypeHint.INT),
+            ParamDesc(key="entropy-log2-width", default="12", type_hint=TypeHint.INT),
+            ParamDesc(key="topk", default="128", type_hint=TypeHint.INT),
+            ParamDesc(key="hh-column", default="key_hash",
+                      description="wire column feeding the heavy-hitter stream"),
+            ParamDesc(key="distinct-column", default="key_hash"),
+            ParamDesc(key="dist-column", default="key_hash",
+                      description="wire column feeding entropy/anomaly"),
+            ParamDesc(key="anomaly", default="false", type_hint=TypeHint.BOOL,
+                      description="train the autoencoder anomaly scorer"),
+            ParamDesc(key="anomaly-model", default="ae", possible_values=("ae", "vae", "seq"),
+                      description="anomaly scorer family (distribution AE, "
+                                  "distribution VAE, or sequence LM)"),
+            ParamDesc(key="seq-window", default="256", type_hint=TypeHint.INT,
+                      description="per-container token window for the sequence scorer"),
+            ParamDesc(key="harvest-interval", default="1s", type_hint=TypeHint.DURATION),
+            ParamDesc(key="h2d-depth", default="2", type_hint=TypeHint.INT,
+                      description="H2D double-buffer depth: transfers of batch k+1..k+N-1 "
+                                  "overlap device compute of batch k"),
+            ParamDesc(key="invertible", default="false", type_hint=TypeHint.BOOL,
+                      description="add the invertible heavy-key plane: decode of (merged) "
+                                  "state recovers exact (key, count) pairs with zero "
+                                  "per-key storage"),
+            ParamDesc(key="inv-log2-buckets", default="12", type_hint=TypeHint.INT,
+                      validator=validate_int_range(lo=6, hi=20),
+                      description="buckets per invertible row (decode capacity ~ "
+                                  "rows*buckets/4 distinct keys)"),
+            ParamDesc(key="inv-rows", default="3", type_hint=TypeHint.INT,
+                      validator=validate_int_range(lo=2, hi=8),
+                      description="invertible hash rows (peeling redundancy; 3 is the "
+                                  "sweet spot)"),
+            ParamDesc(key="priority-classes", default="", validator=_validate_priority_classes,
+                      description="PSketch-style accuracy classes: "
+                                  "name=log2buckets:mntns|mntns,... with one '*' catch-all "
+                                  "(e.g. hot=12:101|102,rest=10:*); classes partition the "
+                                  "base invertible memory budget so hot tenants keep decode "
+                                  "fidelity when the whole stream overflows it"),
+            ParamDesc(key="quantiles", default="false", type_hint=TypeHint.BOOL,
+                      description="add the DDSketch latency quantile plane: per-event "
+                                  "magnitudes (latency ns / bytes) bucket into one more fused "
+                                  "grid plane; harvests carry p50/p90/p99/p99.9"),
+            ParamDesc(key="quantile-alpha", default="0.01", validator=_validate_quantile_alpha,
+                      description="DDSketch relative-error target: every quantile read is "
+                                  "within alpha of the true value (0.01 = 1%)"),
+            ParamDesc(key="quantile-field", default="aux1",
+                      description="wire column feeding the value lane on the EventBatch "
+                                  "path (aux1 carries latency ns / byte counts for the "
+                                  "value-bearing kinds; folded batches carry their own lane)"),
+            ParamDesc(key="audit-sample", default="0", type_hint=TypeHint.INT,
+                      validator=validate_int_range(lo=0),
+                      description="shadow-sample capacity for the accuracy audit plane (keys "
+                                  "held as ground truth; 0 = plane off — summaries then carry "
+                                  "analytic bounds only)"),
+            ParamDesc(key="shard-ingest", default="false", type_hint=TypeHint.BOOL,
+                      description="shard the staged ingest plane across local devices "
+                                  "(not ported yet: ROADMAP item 11)"),
+            ParamDesc(key="chips", default="auto", validator=_validate_chips,
+                      description="device lanes for shard-ingest: 'auto' = all local "
+                                  "devices; 1 = the exact single-device path"),
+            ParamDesc(key="history", default="false", type_hint=TypeHint.BOOL,
+                      description="seal time-windowed sketch snapshots into the node's "
+                                  "history store (not ported yet: ROADMAP item 10c)"),
+            ParamDesc(key="history-interval", default="10s", type_hint=TypeHint.DURATION,
+                      description="window length; 0 seals one window per harvest (the "
+                                  "deterministic-replay mode)"),
+            ParamDesc(key="history-dir", default="",
+                      description="override the node history area for this run"),
+            ParamDesc(key="history-log2-width", default="12", type_hint=TypeHint.INT,
+                      description="per-window CMS width (the WindowedCMS ring's table)"),
+            ParamDesc(key="history-slots", default="8", type_hint=TypeHint.INT,
+                      description="WindowedCMS ring slots (live last-k window view)"),
+            ParamDesc(key="history-max-slices", default="256", type_hint=TypeHint.INT,
+                      description="subpopulation slices tracked per window (overflow "
+                                  "dropped and accounted)"),
+            ParamDesc(key="history-compact", default="false", type_hint=TypeHint.BOOL,
+                      description="run time-decayed compaction over this run's history "
+                                  "store"),
+            ParamDesc(key="history-schedule", default=DEFAULT_SCHEDULE,
+                      validator=validate_schedule,
+                      description="resolution schedule res@horizon[,res@horizon...] (e.g. "
+                                  "1m@24h,10m@7d,1h@inf); the last horizon must be inf"),
+            ParamDesc(key="history-archive-dir", default="",
+                      description="offload fully-compacted cold segments to this archive "
+                                  "root"),
+            ParamDesc(key="history-archive-cache-bytes", default=str(64 << 20),
+                      type_hint=TypeHint.INT, validator=validate_int_range(lo=1 << 16),
+                      description="rehydration cache budget (LRU by bytes)"),
+            ParamDesc(key="standing-queries", default="",
+                      description="standing-query document (JSON/YAML list of {id, stats, "
+                                  "range, key?, top?, every?}) or @/path/to/file"),
+            ParamDesc(key="query-cache-bytes", default=str(8 << 20), type_hint=TypeHint.INT,
+                      validator=validate_int_range(lo=1 << 10),
+                      description="digest-keyed result cache budget (LRU by bytes)"),
+            ParamDesc(key="query-refresh", default="1", type_hint=TypeHint.INT,
+                      validator=validate_int_range(lo=1),
+                      description="default publish cadence in seal ticks for queries "
+                                  "without an explicit 'every'"),
+            ParamDesc(key="query-max-range", default="24h",
+                      description="cap on any standing query's sliding range (duration, "
+                                  "e.g. 24h)"),
+        ])
+
+    def instantiate(self, ctx: GadgetContext, gadget: Any,
+                    instance_params: Params) -> "TpuSketchInstance":
+        return TpuSketchInstance(self, ctx, gadget, instance_params)
+
+
+def _unported_store_keys(params: Params) -> None:
+    """The framework's route runs no history store, standing queries or
+    lifecycle: their params must keep their defaults."""
+    for key in _STORE_KEYS:
+        p = params.get(key)
+        if p.value != p.desc.default:
+            raise ParamError(f"param {key!r}: the history store, its lifecycle and the "
+                             "standing queries are not ported yet (ROADMAP item 10c)")
+
+
+class TpuSketchInstance(OperatorInstance):
+    """One run's sketch plane on one device (the reference's single-chip
+    path, ``tpusketch.py:495-2117``). Built by the framework as
+    ``TpuSketchInstance(op, ctx, gadget, params)`` (``enable=false``
+    gives a no-op instance, and the device is the context's), or without
+    it as ``TpuSketchInstance(config, context, device=...)``."""
+
+    def __init__(self, op: "TpuSketch | SketchConfig | None" = None,
+                 ctx: "GadgetContext | SketchContext | None" = None,
+                 gadget: Any = None, params: Params | None = None, *,
                  device: str | torch.device = "cuda"):
-        cfg = config if config is not None else SketchConfig()
-        ctx = context if context is not None else SketchContext()
-        cfg.validate()
+        super().__init__(TpuSketch.name)
+        if isinstance(op, TpuSketch):
+            p = params if params is not None else op.instance_params().to_params()
+            self.enabled = p.get("enable").as_bool()
+            if not self.enabled:
+                return
+            _unported_store_keys(p)
+            cfg = SketchConfig.from_params(p)
+            device = ctx.device
+            ctx = SketchContext.from_gadget_context(ctx, gadget)
+        else:
+            self.enabled = True
+            cfg = op if op is not None else SketchConfig()
+            ctx = ctx if ctx is not None else SketchContext()
+            cfg.validate()
         self.device = resolve_device(device)
         self.config, self.ctx = cfg, ctx
+        self.gadget = gadget
         self.hh_col = cfg.hh_column
         self.distinct_col = cfg.distinct_column
         self.dist_col = cfg.dist_column
@@ -414,6 +625,10 @@ class TpuSketchInstance:
         self._lbl_k32 = np.zeros(self._lbl_cap, np.uint32)
         self._lbl_comm = np.zeros((self._lbl_cap, 8), np.uint8)
         self._lbl_i = 0
+        # self-observability feed for top/sketch
+        from ..gadgets.top.sketch import SketchStatsSource
+        self._stats = SketchStatsSource(ctx.run_id, g)
+        self._stats.register()
         self._pstats = PipelineStats(ctx.run_id, g)
         self._pstats.register()
         if self._astats is not None:
@@ -444,6 +659,16 @@ class TpuSketchInstance:
             self._win_qt0 = self._qt_host(self.bundle)
         with _live_mu:
             _live[ctx.run_id] = self
+
+    @contextlib.contextmanager
+    def _span(self, name: str, **attrs):
+        """A device-plane span: under the enrich span when called from the
+        operator chain (the ambient current), else under the run span;
+        the same name is a ``record_function`` range."""
+        cur = TRACER.current_context()
+        with TRACER.span(name, parent=cur if cur is not None else self.ctx.trace_parent,
+                         attrs=attrs) as span, device_annotation(name):
+            yield span
 
     def _note_watermarks(self, pop_ts: float, oldest_ts: float) -> None:
         """Batch-grain lag watermarks: host lag = pop − oldest event,
@@ -567,14 +792,14 @@ class TpuSketchInstance:
     # -- the columnar hot path ------------------------------------------------
 
     def enrich_batch(self, batch: EventBatch) -> None:
-        if batch.count == 0:
+        if not self.enabled or batch.count == 0:
             return
         n = batch.count
         pad = self._pad
         while pad < n:
             pad *= 2
         t0 = time.perf_counter()
-        with record_function("tpusketch/h2d"):
+        with self._span("tpusketch/h2d", events=n, pad=pad):
             pool, stager = self._staging_for(pad)
             block = pool.get()
             arr = block.numpy()
@@ -608,7 +833,7 @@ class TpuSketchInstance:
             w_d = by_row[3]
             v_d = by_row.get(4) if vals is not None else None
         t1 = time.perf_counter()
-        with record_function("tpusketch/update"), record_function("ig:tpusketch_update"):
+        with self._span("tpusketch/update", events=n), device_annotation("ig:tpusketch_update"):
             with self._bundle_mu:
                 _, tok = bundle_ingest_step(self.bundle, hh_d, distinct_d, dist_d, w_d,
                                             float(max(new_drops, 0)), v_d)
@@ -628,6 +853,9 @@ class TpuSketchInstance:
         self._qt_count(vals, n)
         if new_drops > 0:
             self._m_drops.inc(new_drops)
+        self._stats.steps += 1
+        self._stats.events += n
+        self._stats.drops = batch.drops
         oldest = batch.oldest_ts
         if oldest <= 0.0:
             tmin = float(batch.cols["ts"][:n].min())
@@ -647,11 +875,11 @@ class TpuSketchInstance:
         once the step's fence completes. Sealed windows carry no slices
         and the anomaly plane sees nothing on this path (no kind or
         per-event mntns columns), as in the reference."""
-        if fb.count == 0:
+        if not self.enabled or fb.count == 0:
             return
         n = fb.count
         t0 = time.perf_counter()
-        with record_function("tpusketch/h2d"):
+        with self._span("tpusketch/h2d", events=n, pad=fb.capacity):
             _pool, stager = self._staging_for(fb.capacity)
             block = fb.block if fb.block is not None else torch.from_numpy(fb.lanes)
             fvals = fb.values if self._qt_on else None
@@ -667,7 +895,7 @@ class TpuSketchInstance:
             else:
                 (k_d, w_d), v_d = stager.stage(block, (block[0], block[1])), None
         t1 = time.perf_counter()
-        with record_function("tpusketch/update"), record_function("ig:tpusketch_update"):
+        with self._span("tpusketch/update", events=n), device_annotation("ig:tpusketch_update"):
             with self._bundle_mu:
                 # without a value lane the step zero-fills: every event lands
                 # in the zero bucket and totals stay honest
@@ -688,6 +916,9 @@ class TpuSketchInstance:
         self._qt_count(fvals, n)
         if new_drops > 0:
             self._m_drops.inc(new_drops)
+        self._stats.steps += 1
+        self._stats.events += n
+        self._stats.drops = fb.drops
         self._note_watermarks(fb.pop_ts, fb.oldest_ts)
         # folded batches carry real integer weights: the shadow honours them
         self._shadow_feed(fb.keys[:n], fb.weights[:n])
@@ -883,12 +1114,12 @@ class TpuSketchInstance:
             approx=overflow, **kw)
         win.digest = window_digest(win)
         try:
-            with record_function("tpusketch/seal-window"):
+            with self._span("tpusketch/seal-window", window=self._win_n, events=win_events):
                 self.ctx.window_sink(*encode_window(win))
         except (OSError, ValueError) as e:
             _log.warning("window seal failed (window %d was dropped): %r", self._win_n, e)
         else:
-            hook = self.ctx.on_window_sealed
+            hook = self.ctx.hook("on_window_sealed")
             if hook is not None:
                 try:
                     hook({"gadget": win.gadget, "window": win.window,
@@ -913,7 +1144,8 @@ class TpuSketchInstance:
     # -- harvest ---------------------------------------------------------------
 
     def harvest(self) -> SketchSummary:
-        with record_function("tpusketch/harvest"), record_function("ig:tpusketch_harvest"):
+        with self._span("tpusketch/harvest", epoch=self._epoch + 1), \
+                device_annotation("ig:tpusketch_harvest"):
             return self._harvest_traced()
 
     def _harvest_traced(self) -> SketchSummary:
@@ -974,9 +1206,19 @@ class TpuSketchInstance:
             qt_out = {"p50": float(ps[0]), "p90": float(ps[1]), "p99": float(ps[2]),
                       "p999": float(ps[3]), "zeros": int(z), "total": int(t),
                       "underflow": int(c[0]), "alpha": float(self._qt_alpha)}
-        # the reference's per-stage spans carry the snapshot's watermarks as
-        # span attributes: they wait for the span tree (ROADMAP 10b)
+        # one span a pipeline stage under the harvest's, the snapshot's
+        # watermarks as its attributes
         pipe_out = self._pstats.snapshot()
+        for stage, row in pipe_out["stages"].items():
+            with self._span(f"tpusketch/stage/{stage}", watermark_s=row["watermark_s"],
+                            p50_s=row["p50_s"], p99_s=row["p99_s"], count=row["count"]):
+                pass
+        if pipe_out["starved"] or pipe_out["saturated"]:
+            with self._span("tpusketch/stage/stager", starved=pipe_out["starved"],
+                            saturated=pipe_out["saturated"],
+                            starved_ratio=pipe_out["starved_ratio"],
+                            stall_s=pipe_out["stall_s"]):
+                pass
         acc_out = None
         if self._shadow is not None:
             from ..ops.accuracy import accuracy_block
@@ -1001,7 +1243,7 @@ class TpuSketchInstance:
             names={k: self._names[k] for k, _ in hh if k in self._names}, approx=approx,
             decoded=decoded, decoded_only=decoded_only, inv=inv_info, classes=classes_out,
             quantiles=qt_out, pipeline=pipe_out, accuracy=acc_out)
-        cb = self.ctx.on_sketch_summary
+        cb = self.ctx.hook("on_sketch_summary")
         if cb is not None:
             cb(summary)
         self._m_harvests.inc()
@@ -1020,12 +1262,15 @@ class TpuSketchInstance:
         """Teardown: the final harvest (none in a replay, which harvests
         only at recorded boundaries) and the final partial window, the
         stager drained, the stats unregistered, the shutdown checkpoint."""
-        if not self.ctx.replay:
+        if not self.enabled:
+            return
+        if not self.ctx.hook("replay"):
             self.harvest()
         if self._hist_on:
             self.seal_window()
         if self._stager is not None:
             self._stager.drain()
+        self._stats.unregister()
         self._pstats.unregister()
         if self._astats is not None:
             self._astats.unregister()
@@ -1048,7 +1293,7 @@ class TpuSketchInstance:
         from ..utils.checkpoint import load_pytree
         base = _ckpt_dir / self._ckpt_key
         try:
-            with record_function("tpusketch/resume"):
+            with self._span("tpusketch/resume"):
                 prior = load_pytree(base, like=bundle_to_numpy(self.bundle))
                 t0 = time.perf_counter()
                 self.bundle = bundle_merge(self.bundle, bundle_from_numpy(
@@ -1095,7 +1340,8 @@ class TpuSketchInstance:
             return
         from ..utils.checkpoint import save_pytree
         base = _ckpt_dir / self._ckpt_key
-        with record_function("tpusketch/checkpoint"), record_function("ig:tpusketch_checkpoint"):
+        with self._span("tpusketch/checkpoint", key=self._ckpt_key), \
+                device_annotation("ig:tpusketch_checkpoint"):
             with self._bundle_mu:
                 bundle_host = bundle_to_numpy(self.bundle)
                 scorer_host = scorer_leaves(self.scorer) if self.scorer is not None else None
@@ -1125,3 +1371,6 @@ class TpuSketchInstance:
                                        count=int(counts[i]),
                                        share=float(counts[i]) / total))
         return rows
+
+
+register(TpuSketch())

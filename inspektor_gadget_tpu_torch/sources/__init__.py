@@ -3,6 +3,7 @@ capture binding is `sources.bridge`)."""
 
 from .batch import EventBatch, FoldedBatch
 from .staging import H2DStager, PinnedBufferPool
-from .synthetic import ZipfFoldedSource
+from .synthetic import PySyntheticSource, ZipfFoldedSource
 
-__all__ = ["EventBatch", "FoldedBatch", "H2DStager", "PinnedBufferPool", "ZipfFoldedSource"]
+__all__ = ["EventBatch", "FoldedBatch", "H2DStager", "PinnedBufferPool", "PySyntheticSource",
+           "ZipfFoldedSource"]

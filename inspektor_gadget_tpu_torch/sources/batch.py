@@ -49,6 +49,16 @@ class EventBatch:
         comm = np.zeros((capacity, 8), dtype=np.uint8) if with_comm else None
         return cls(cols=cols, count=0, comm=comm)
 
+    def mask(self) -> np.ndarray:
+        m = np.zeros(self.capacity, dtype=bool)
+        m[: self.count] = True
+        return m
+
+    def comm_str(self, i: int) -> str:
+        if self.comm is None:
+            return ""
+        raw = bytes(self.comm[i])
+        return raw.split(b"\0", 1)[0].decode("utf-8", "replace")
 
 
 @dataclasses.dataclass

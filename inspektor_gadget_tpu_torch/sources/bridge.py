@@ -6,15 +6,19 @@ into ``build/native/``), made at the first call that needs it, never at
 import. A missing compiler, a failed build or a failed load raises; the
 reference returns None instead and degrades.
 
-`NativeCapture.pop_folded` drains a capture ring straight into the rows
-of a uint32 block with one native call: the port's pinned pool blocks
-(torch tensors) are filled in place through their ``.numpy()`` view, so
-the lanes the C++ exporter writes are the H2D staging buffer.
+`NativeCapture.pop` pops up to a batch of events into an EventBatch
+(the gadgets' per-event path); `native_available` answers whether the
+library builds and loads here. `NativeCapture.pop_folded` drains a
+capture ring straight into the rows of a uint32 block with one native
+call: the port's pinned pool blocks (torch tensors) are filled in place
+through their ``.numpy()`` view, so the lanes the C++ exporter writes
+are the H2D staging buffer.
 """
 
 from __future__ import annotations
 
 import ctypes
+import logging
 import time
 
 import numpy as np
@@ -82,9 +86,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ig_source_set_filter.restype = ctypes.c_int
     lib.ig_source_filtered.argtypes = [u64]
     lib.ig_source_filtered.restype = u64
+    lib.ig_ptrace_exit_status.argtypes = [u64]
+    lib.ig_ptrace_exit_status.restype = ctypes.c_int
     for fn in ("ig_source_start", "ig_source_stop", "ig_source_destroy"):
         getattr(lib, fn).argtypes = [u64]
         getattr(lib, fn).restype = ctypes.c_int
+    lib.ig_source_pop_batch.argtypes = [u64, i64] + [p64] * 5 + [p32] * 4 + [ctypes.c_char_p]
+    lib.ig_source_pop_batch.restype = i64
     lib.ig_source_pop_folded.argtypes = [u64, i64, p32, p32, p32]
     lib.ig_source_pop_folded.restype = i64
     lib.ig_source_pop_folded2.argtypes = [u64, i64, p32, p32, p32, p32]
@@ -105,6 +113,23 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = HostLibrary(_bind)
+_log = logging.getLogger("ig-tpu.bridge")
+_unavailable: str | None = None  # why the library did not build or load
+
+
+def native_available() -> bool:
+    """Whether the capture library builds and loads on this host. The
+    first call builds it (never the import); a failure is logged once,
+    kept, and answered False from then on. `NativeCapture` raises the
+    failure instead."""
+    global _unavailable
+    if _unavailable is None:
+        try:
+            LIBRARY.get()
+        except RuntimeError as e:
+            _unavailable = str(e)
+            _log.warning("native capture unavailable: %s", e)
+    return _unavailable is None
 
 
 def _p64(a: np.ndarray):
@@ -127,11 +152,12 @@ def _as_block(block) -> tuple[np.ndarray, torch.Tensor | None]:
 
 
 class NativeCapture:
-    """A native capture source: folded blocks popped from its ring, or
-    synthetic events generated on the caller's thread."""
+    """A native capture source: EventBatches or folded blocks popped
+    from its ring, or synthetic events generated on the caller's thread."""
 
     def __init__(self, kind: int, *, seed: int = 0, rate: float = 0.0, vocab: int = 1000,
-                 zipf_s: float = 1.2, ring_pow2: int = 20, cfg: str = ""):
+                 zipf_s: float = 1.2, ring_pow2: int = 20, batch_size: int = 8192,
+                 cfg: str = ""):
         self._lib = LIBRARY.get()
         if kind in _CFG_KINDS:
             self._h = self._lib.ig_source_create_cfg(kind, cfg.encode("utf-8", "replace"),
@@ -141,6 +167,8 @@ class NativeCapture:
         if self._h == 0:
             raise ValueError(f"unknown source kind {kind}")
         self.kind = kind
+        self.batch_size = batch_size
+        self._batch: EventBatch | None = None  # pop()'s buffers, made at its first call
         self._seq = 0
         self._last_pop_ts = 0.0  # the folded path's oldest_ts upper bound
 
@@ -168,6 +196,28 @@ class NativeCapture:
             self.close()
         except Exception:  # interpreter shutdown: nothing left to report to
             pass
+
+    def pop(self) -> EventBatch:
+        """Pop up to batch_size events into one reused EventBatch."""
+        if self._batch is None:
+            self._batch = EventBatch.alloc(self.batch_size)
+        b = self._batch
+        c = b.cols
+        got = self._lib.ig_source_pop_batch(
+            self._h, self.batch_size, _p64(c["ts"]), _p64(c["key_hash"]), _p64(c["aux1"]),
+            _p64(c["aux2"]), _p64(c["mntns"]), _p32(c["pid"]), _p32(c["ppid"]),
+            _p32(c["uid"]), _p32(c["kind"]), b.comm.ctypes.data_as(ctypes.c_char_p))
+        if got < 0:
+            raise RuntimeError("pop on destroyed source")
+        b.count = int(got)
+        b.seq = self._seq
+        self._seq += int(got)
+        b.drops = self.drops()
+        # batch-grain watermarks: the ts column is CLOCK_REALTIME ns
+        b.pop_ts = time.time()
+        b.oldest_ts = float(c["ts"][: b.count].min()) / 1e9 if b.count else b.pop_ts
+        self._last_pop_ts = b.pop_ts
+        return b
 
     def pop_folded(self, block, with_values: bool = False) -> FoldedBatch:
         """Drain the ring into a (3+, capacity) uint32 block (a pinned pool
@@ -246,6 +296,9 @@ class NativeCapture:
 
     def filtered(self) -> int:
         return int(self._lib.ig_source_filtered(self._h))
+
+    def ptrace_exit_status(self) -> int:
+        return int(self._lib.ig_ptrace_exit_status(self._h))
 
     def vocab_lookup(self, key_hash: int) -> str:
         buf = ctypes.create_string_buffer(256)

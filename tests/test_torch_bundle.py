@@ -170,11 +170,12 @@ def test_state_carries_over_both_ways():
 def test_port_imports_no_jax():
     """Every module of the port (the native binding, the window sketches,
     the telemetry, the operator, the history windows, the checkpoint
-    files and the accuracy plane included) imports without JAX or the
-    JAX package,
-    and no source file of it names either. Importing `sources.bridge`
-    builds nothing: with no compiler to be found, the import still
-    succeeds and its library is neither built nor loaded."""
+    files, the accuracy plane and the gadget framework: params, columns,
+    gadgets, runtime, the span tree and the CLI included) imports without
+    JAX or the JAX package, and no source file of it names either.
+    Importing `sources.bridge` builds nothing: with no compiler to be
+    found, the import still succeeds and its library is neither built nor
+    loaded. Importing `cli.main` arms no signal handler."""
     mods = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in PORT.rglob("*.py"))
@@ -183,11 +184,20 @@ def test_port_imports_no_jax():
             "inspektor_gadget_tpu_torch.operators", "inspektor_gadget_tpu_torch.operators.tpusketch",
             "inspektor_gadget_tpu_torch.history", "inspektor_gadget_tpu_torch.history.window",
             "inspektor_gadget_tpu_torch.utils", "inspektor_gadget_tpu_torch.utils.checkpoint",
-            "inspektor_gadget_tpu_torch.ops.accuracy"} <= set(mods)
+            "inspektor_gadget_tpu_torch.ops.accuracy",
+            "inspektor_gadget_tpu_torch.params", "inspektor_gadget_tpu_torch.params.params",
+            "inspektor_gadget_tpu_torch.columns", "inspektor_gadget_tpu_torch.columns.columns",
+            "inspektor_gadget_tpu_torch.gadgets", "inspektor_gadget_tpu_torch.gadgets.source_gadget",
+            "inspektor_gadget_tpu_torch.gadgets.trace.exec",
+            "inspektor_gadget_tpu_torch.gadgets.top.sketch", "inspektor_gadget_tpu_torch.runtime",
+            "inspektor_gadget_tpu_torch.runtime.local", "inspektor_gadget_tpu_torch.cli.main",
+            "inspektor_gadget_tpu_torch.telemetry.tracing"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bridge = sys.modules['inspektor_gadget_tpu_torch.sources.bridge']\n"
             "assert bridge.LIBRARY._lib is None and bridge.LIBRARY.path is None\n"
+            "import signal\n"
+            "assert signal.getsignal(signal.SIGINT) is signal.default_int_handler\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m.startswith('inspektor_gadget_tpu.') or m == 'inspektor_gadget_tpu']\n"
             "print(bad); sys.exit(1 if bad else 0)\n")

@@ -74,8 +74,7 @@ def _release_instances():
             inst._pstats.unregister()
             if inst._astats is not None:
                 inst._astats.unregister()
-            if mod is R:
-                inst._stats.unregister()
+            inst._stats.unregister()
     R.set_checkpoint_dir(None)
     P.set_checkpoint_dir(None)
 
@@ -463,7 +462,7 @@ def test_cross_param_errors_match_the_reference(kw, match, tmp_path, monkeypatch
     (dict(inv_rows=1), "below minimum 2"),
     (dict(audit_sample=-1), "below minimum 0"),
     (dict(quantile_alpha=0.5), "quantile-alpha must be in"),
-    (dict(anomaly_model="lstm"), "not one of"),
+    (dict(anomaly_model="lstm"), "not in \\['ae', 'vae', 'seq'\\]"),
     (dict(chips="x"), "not an integer or 'auto'"),
     (dict(shard_ingest=True), "ROADMAP item 11"),
     (dict(chips=4), "ROADMAP item 11"),
