@@ -35,13 +35,17 @@ CPU, from the same weights.
 The operator (phase 5c): the port's `TpuSketchInstance` at the
 production geometry with every plane on (two priority classes splitting
 the invertible budget, quantiles, history sealed once a harvest into a
-window sink, audit sample 1024, the seq scorer), fed through its own
-entry points: a NativeCapture of the synthetic exec source (vocab 2000)
-popped into `folded_block()`s and ingested with `ingest_folded`, a
-harvest every 16 batches, then 8 seeded EventBatches through
-`enrich_batch`, then `post_gadget_run` (final harvest, window and
-checkpoint). The same streams through an instance on the CPU must give
-the same summaries, sealed windows and checkpoint leaves.
+history store under build/chip_smoke_hist/, two standing queries, audit
+sample 1024, the seq scorer), fed through its own entry points: a
+NativeCapture of the synthetic exec source (vocab 2000) popped into
+`folded_block()`s and ingested with `ingest_folded`, a harvest every 16
+batches, then 8 seeded EventBatches through `enrich_batch`, then
+`post_gadget_run` (final harvest, window and checkpoint). The same
+streams through an instance on the CPU must give the same summaries,
+checkpoint leaves, store (every segment byte for byte, the npz entries'
+zip clock pinned) and standing answers, each of those equal to
+`answer_query` over the store's windows in its range (phase 5e(a): the
+seal's split, bytes a window and the store's shape are logged).
 
 The gadget framework (phase 5d): ``trace/exec`` with the sketch plane
 at the production geometry (every plane the CLI path turns on:
@@ -54,6 +58,17 @@ The CLI, ``trace exec --source synthetic --rate 30000000 --timeout 10
 -F uid:99`` with the same sketch flags, as a subprocess: it must exit 0
 and print at least 5 sketch epochs, each with heavy hitters; its
 events/s, drops and harvest times are logged beside phase 5c's.
+
+The history route (phase 5e(b)): 5d(b)'s CLI run again with
+``--tpusketch-history true`` (a window a second into a store under
+build/) and phase 5c's standing queries, then ``query``, ``history
+tiers``, ``history compact``, ``query``, ``history archive`` and ``query
+--archive-dir`` as subprocesses on its store, each exiting 0: the first
+answer's events must equal the listed windows' sum and the run's last
+summary; the compacted and the rehydrated answers must equal the first
+in events, distinct, entropy and heavy hitters. Each subprocess's wall
+time and the time of torch's import and of the history functions in it
+are logged.
 
 The launch counts are set to 0 just before each card run of a path and
 read just after it.
@@ -68,6 +83,7 @@ full report also goes to build/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -79,6 +95,7 @@ import subprocess
 import sys
 import threading
 import time
+import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -86,8 +103,8 @@ import torch
 import torch.nn.functional as F
 
 from inspektor_gadget_tpu_torch.profile_step import (HARVEST_EVERY, OP_CONTAINERS,
-                                                     OP_EVENT_BATCHES, WINDOW, operator_config,
-                                                     operator_event_batches)
+                                                     OP_EVENT_BATCHES, OP_MNTNS0, WINDOW,
+                                                     operator_config, operator_event_batches)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor, f32 CUDA cores
@@ -386,25 +403,33 @@ class OperatorRun:
     columns differ, with mntns, kind and a latency in aux1, through
     ``enrich_batch``, harvested after the 4th and at teardown
     (``post_gadget_run``, which also writes the checkpoint). Every
-    harvest seals a window into the run's window sink. `replay` feeds
-    the same streams, feed (a) rebuilt from the seed at the same batch
-    boundaries, to an instance on another device."""
+    harvest seals a window into the history store under
+    ``hist_root/<device type>`` and folds it into STANDING_QUERIES, whose
+    published answers the record keeps. `replay` feeds the same streams,
+    feed (a) rebuilt from the seed at the same batch boundaries, to an
+    instance on another device."""
 
-    def __init__(self, seed: int, vocab: int, batch: int, geometry: dict) -> None:
+    def __init__(self, seed: int, vocab: int, batch: int, geometry: dict,
+                 hist_root: Path) -> None:
         self.seed, self.vocab, self.batch = seed, vocab, batch
         self.config = operator_config(geometry)
+        self.hist_root = hist_root
         self.counts: list[int] = []
 
     def _instance(self, device):
         from inspektor_gadget_tpu_torch.operators import (SketchConfig, SketchContext,
                                                           TpuSketchInstance)
         clock = iter(range(1, 1 << 30))
-        rec = {"windows": [], "summaries": [], "harvest_ms": []}
+        store = self.hist_root / torch.device(device).type
+        shutil.rmtree(store, ignore_errors=True)
+        rec = {"summaries": [], "harvest_ms": [], "seal_ms": [], "answers": [], "store": store}
         ctx = SketchContext(gadget="trace/exec", run_id=f"chip-smoke-{self.seed}", node="node-0",
                             batch_size=self.batch, history_clock=lambda: 1.7e9 + next(clock),
-                            window_sink=lambda h, p: rec["windows"].append((h, p)),
+                            on_query_answer=lambda h, p: rec["answers"].append((h, p)),
                             on_sketch_summary=rec["summaries"].append)
-        return TpuSketchInstance(SketchConfig(**self.config), ctx, device=device), rec
+        cfg = SketchConfig(**self.config, history_dir=str(store),
+                           standing_queries=json.dumps(STANDING_QUERIES))
+        return TpuSketchInstance(cfg, ctx, device=device), rec
 
     def event_batches(self) -> list:
         return operator_event_batches(self.seed + 1, self.batch)
@@ -412,6 +437,7 @@ class OperatorRun:
     def _harvest(self, inst, rec) -> None:
         inst.harvest()
         rec["harvest_ms"].append(dict(inst.last_harvest_ms))
+        rec["seal_ms"].append(dict(inst.last_seal_ms))
 
     def _ingest(self, inst, rec, fb) -> None:
         """Feed (a)'s step: one batch, and a harvest every HARVEST_EVERY."""
@@ -432,6 +458,7 @@ class OperatorRun:
         finally:
             set_checkpoint_dir(None)
         rec["harvest_ms"].append(dict(inst.last_harvest_ms))
+        rec["seal_ms"].append(dict(inst.last_seal_ms))
 
     def drive(self, dev, batches: int, ckpt_dir: Path) -> tuple[dict, dict]:
         """The run on `dev` -> (its record, its rates and harvest times)."""
@@ -462,9 +489,15 @@ class OperatorRun:
                 "folded_e2e_ev_per_s": consumed / folded_s,
                 "folded_ingest_ev_per_s": consumed / max(folded_s - h_s, 1e-9),
                 "event_batch_events": n_ev, "event_batch_e2e_ev_per_s": n_ev / events_s,
-                "harvests": len(rec["summaries"]), "windows": len(rec["windows"]),
-                "harvest_ms": rec["harvest_ms"]}
+                "harvests": len(rec["summaries"]), "windows": len(self.windows(rec)),
+                "harvest_ms": rec["harvest_ms"], "seal_ms": rec["seal_ms"]}
         return rec, info
+
+    @staticmethod
+    def windows(rec) -> list:
+        """The (header, payload) frames the run's store holds."""
+        from inspektor_gadget_tpu_torch.history import HISTORY
+        return list(HISTORY.fetch_windows(base_dir=str(rec["store"])))
 
     def replay(self, dev, ckpt_dir: Path) -> dict:
         """The same two feeds on `dev`, feed (a) rebuilt from the seed."""
@@ -531,18 +564,102 @@ def compare_summaries(got, want, what: str, *, anomaly_abs: float | None = None,
     return gap
 
 
+# phase 5c's standing queries: heavy hitters over the last 4 windows (one
+# a second on the injected clock), and one container's slice with its
+# latency quantiles over the whole run
+STANDING_QUERIES = [
+    {"id": "hot", "stats": ["topk", "cardinality", "entropy"], "range": 3.5, "top": 16},
+    {"id": "tenant", "stats": ["topk", "quantiles"], "range": 3600, "key": f"mntns:{OP_MNTNS0}",
+     "top": 8}]
+
+
+@contextlib.contextmanager
+def pinned_zip_clock(t: float):
+    """The npz payload of a sealed window carries its zip entries' wall
+    clock (`zipfile` reads ``time.time()``): two instances seal the same
+    bytes only when those entries read one clock. Pins zipfile's clock
+    alone; the runs' own clocks keep running."""
+    class _Clock:
+        def time(self) -> float:
+            return t
+
+        def __getattr__(self, name):
+            return getattr(time, name)
+
+    zipfile.time = _Clock()
+    try:
+        yield
+    finally:
+        zipfile.time = time
+
+
+def _store_dir(base: Path) -> Path:
+    (store,) = [p for p in base.iterdir() if (p / "manifest.json").is_file()]
+    return store
+
+
+def compare_stores(got: Path, want: Path) -> dict:
+    """Hold one history store to another: every segment file byte for
+    byte, the index rows but their ``sealed_ts`` (the writer's wall
+    clock). Returns the segments, index rows and bytes."""
+    gs, ws = _store_dir(got), _store_dir(want)
+    segs = sorted(p.name for p in gs.glob("seg-*.igj"))
+    require(segs and segs == sorted(p.name for p in ws.glob("seg-*.igj")),
+            f"history stores: segment files differ ({segs})")
+    for name in segs:
+        require((gs / name).read_bytes() == (ws / name).read_bytes(),
+                f"history stores: {name} differs")
+
+    def rows(d: Path) -> list[dict]:
+        out = [json.loads(ln) for ln in (d / "index.jsonl").read_text().splitlines() if ln]
+        for r in out:
+            r.pop("sealed_ts")
+        return out
+    index = rows(gs)
+    require(index == rows(ws), "history stores: index rows differ")
+    return {"segments": len(segs), "index_rows": len(index),
+            "bytes": sum((gs / n).stat().st_size for n in segs)}
+
+
+def check_standing(answers: list, store: Path) -> int:
+    """Each published standing answer (header, packed window) equal to
+    `answer_query` over the windows the store held in its range at its
+    seal tick (one window a seal, so seq = tick); the count of windows
+    folded aside, since a standing answer folds one merged window and its
+    header counts what it covers. Returns the answers checked."""
+    from inspektor_gadget_tpu_torch.history import (HISTORY, answer_query, decode_frames,
+                                                    unpack_frames)
+    specs = {q["id"]: q for q in STANDING_QUERIES}
+    for i, (header, payload) in enumerate(answers):
+        q = specs[header["id"]]
+        frames, dropped = unpack_frames(payload)
+        require(dropped == 0, f"standing answer {i}: torn payload")
+        got = answer_query(decode_frames(frames), key=header["key"] or None,
+                           top=header["top"]).to_dict()
+        ranged = list(HISTORY.fetch_windows(base_dir=str(store),
+                                            start_ts=header["end_ts"] - q["range"],
+                                            end_seq=header["tick"]))
+        want = answer_query(decode_frames(ranged), key=q.get("key"), top=q["top"]).to_dict()
+        for d in (got, want):
+            del d["windows"], d["levels"]
+        require(got == want and header["windows"] == len(ranged),
+                f"standing answer {i} ({header['id']}, tick {header['tick']}) differs from "
+                f"answer_query over the store's {len(ranged)} windows")
+    return len(answers)
+
+
 def compare_operator_runs(got: dict, want: dict, got_dir: Path, want_dir: Path) -> dict:
     """Hold one operator run to another: every summary field but
     `pipeline` (the HLL and entropy estimates and what derives from them
     to rtol 1e-5 and 1e-4, anomaly scores to 0.05 nats, the rest
-    exactly), every sealed window's header, digest and payload arrays
-    (dtype and value; the npz's zip entries carry each run's wall clock),
-    and the checkpoint's bundle and class leaves exactly. The scorer's
+    exactly), the history stores (`compare_stores`), every standing
+    answer (header and payload bytes) and each one against the store
+    (`check_standing`), and the checkpoint's bundle and class leaves
+    exactly. The scorer's
     leaves (bf16 steps on two devices) are held leaf by leaf to
     SCORER_RTOL of the leaf's largest magnitude, its integer leaves
     exactly; the seq key bias, which moves by rounding noise, to Adam's
-    step bound instead. Returns the largest gaps."""
-    import io
+    step bound instead. Returns the largest gaps and the store's shape."""
     from inspektor_gadget_tpu_torch.models import scorer_leaf_names
     from inspektor_gadget_tpu_torch.utils.checkpoint import load_pytree
     gs, ws = got["summaries"], want["summaries"]
@@ -551,14 +668,12 @@ def compare_operator_runs(got: dict, want: dict, got_dir: Path, want_dir: Path) 
     for i, (g, w) in enumerate(zip(gs, ws)):
         gap = compare_summaries(g, w, f"harvest {i}", anomaly_abs=0.05)
         worst["anomaly_nats"] = max(worst["anomaly_nats"], gap)
-    require(len(got["windows"]) == len(want["windows"]) > 0, "sealed window count differs")
-    for i, ((gh, gp), (wh, wp)) in enumerate(zip(got["windows"], want["windows"])):
-        require(gh == wh, f"window {i}: header differs")
-        with np.load(io.BytesIO(gp)) as a, np.load(io.BytesIO(wp)) as b:
-            require(a.files == b.files, f"window {i}: payload arrays differ")
-            for name in b.files:
-                require(a[name].dtype == b[name].dtype and np.array_equal(a[name], b[name]),
-                        f"window {i}: payload array {name} differs")
+    worst["store"] = compare_stores(got["store"], want["store"])
+    ga, wa = got["answers"], want["answers"]
+    require(len(ga) == len(wa) > 0, f"{len(ga)} standing answers against {len(wa)}")
+    for i, (g, w) in enumerate(zip(ga, wa)):
+        require(g == w, f"standing answer {i}: header or payload bytes differ")
+    worst["standing_answers"] = check_standing(ga, got["store"])
     scorer = got["scorer"]
     names = scorer_leaf_names(scorer)
     d, key_bound = scorer.config.d_model, 2 * scorer.config.lr * scorer.steps
@@ -617,6 +732,41 @@ def _dump():
 atexit.register(_dump)
 runpy.run_module("inspektor_gadget_tpu_torch.cli.main", run_name="__main__", alter_sys=True)
 """
+# runs one ig-tpu-torch subcommand as `python -m` does (runpy, as
+# __main__), with torch's import and the history functions the command
+# calls timed; an exit hook writes the seconds to the path given as the
+# first argument
+HISTORY_DRIVER = """\
+import atexit, json, runpy, sys, time
+t0 = time.perf_counter()
+dump = sys.argv.pop(1)
+import torch  # noqa: F401 -- every command of the CLI imports it first
+spent = {"torch_import_s": time.perf_counter() - t0}
+from inspektor_gadget_tpu_torch import history as H
+def timed(owner, name, materialize=False):
+    fn = getattr(owner, name)
+    def wrapper(*a, **kw):
+        t = time.perf_counter()
+        try:
+            out = fn(*a, **kw)
+            return list(out) if materialize else out
+        finally:
+            spent[name + "_s"] = spent.get(name + "_s", 0.0) + time.perf_counter() - t
+    setattr(owner, name, wrapper)
+timed(H.HISTORY, "fetch_windows", materialize=True)
+for owner, name in ((H, "decode_frames"), (H, "answer_query"), (H.HISTORY, "stats"),
+                    (H.HISTORY, "tier_stats"), (H.CompactionEngine, "compact_store"),
+                    (H.ArchiveTier, "archive_store")):
+    timed(owner, name)
+t_cli = time.perf_counter()
+def _dump():
+    spent["cli_s"] = time.perf_counter() - t_cli
+    with open(dump, "w") as f:
+        json.dump(spent, f)
+atexit.register(_dump)
+runpy.run_module("inspektor_gadget_tpu_torch.cli.main", run_name="__main__", alter_sys=True)
+"""
+HIST_SCHEDULE = "1s@2s,1m@inf"  # a first horizon far shorter than the run: every window ages
 EPOCH_RE = re.compile(r"^— sketch epoch (\d+): events=([\d,]+) distinct≈([\d,]+) "
                       r"entropy=([\d.]+)b drops=(\d+)$")
 
@@ -676,19 +826,21 @@ def gadget_run(device: str, batches: int, batch: int) -> dict:
             "harvest_ms": h_s / max(h_n, 1) * 1e3}
 
 
-def cli_run(device: str, batch: int, seconds: int, dump: Path, sketch: dict) -> dict:
+def cli_run(device: str, batch: int, seconds: int, dump: Path, sketch: dict,
+            extra: tuple[str, ...] = ()) -> dict:
     """``trace exec`` of the port's CLI as a subprocess on the native
     synthetic source at a rate above what its capture thread makes, the
     display filtered to nothing (``-F uid:99``; the synthetic uids are
     0-3) so only the sketch summaries print. Returns its sketch epochs
     (each with its heavy-hitter lines), the run span's seconds, K2's
     launches and the metrics of the run; the tracer's ring is sized to
-    keep every span of the run."""
+    keep every span of the run. `extra` flags go after the sketch's."""
     args = ["trace", "exec", "--device", device, "--source", "synthetic", "--rate", "30000000",
             "--vocab", "2000", "--batch-size", str(batch), "--timeout", str(seconds),
             "-F", "uid:99", "--tpusketch-enable", "true", "--tpusketch-harvest-interval", "1s"]
     for k, v in sketch.items():
         args += [f"--tpusketch-{k}", v]
+    args += list(extra)
     dump.unlink(missing_ok=True)
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", CLI_DRIVER, str(dump), *args],
@@ -725,6 +877,105 @@ def cli_run(device: str, batch: int, seconds: int, dump: Path, sketch: dict) -> 
             / max(_metric(m, "ig_tpusketch_update_seconds_count"), 1) * 1e3,
             "h2d_ms": _metric(m, "ig_tpusketch_h2d_seconds_sum")
             / max(_metric(m, "ig_tpusketch_h2d_seconds_count"), 1) * 1e3}
+
+
+def history_route(device: str, batch: int, seconds: int, sketch: dict, root: Path,
+                  no_history_ev_per_s: float) -> dict:
+    """Phase 5e(b): `cli_run` with the history plane on (a window a
+    second into a store under `root`, STANDING_QUERIES), then, each a
+    subprocess through `history_cli` on that store: ``query``, ``history
+    tiers``, ``history compact`` (HIST_SCHEDULE, so every window ages
+    and merges), the query again, ``history archive`` at the final
+    level, the query a third time rehydrating from the archive. Holds
+    the first answer's events to the listed windows' sum and the run's
+    last summary, the compacted and rehydrated answers to the first (events,
+    distinct, entropy, heavy hitters) and logs each step's times. Runs on
+    the CPU too, at small sizes."""
+    from inspektor_gadget_tpu_torch.history import HISTORY
+    hist_cli, arch_cli = root / "chip_smoke_cli_hist", root / "chip_smoke_cli_archive"
+    for d in (hist_cli, arch_cli):
+        shutil.rmtree(d, ignore_errors=True)
+    hcli = cli_run(device, batch, seconds, root / "chip_smoke_cli_hist.json", sketch, extra=(
+        "--tpusketch-history", "true", "--tpusketch-history-interval", "1s",
+        "--tpusketch-history-dir", str(hist_cli),
+        "--tpusketch-standing-queries", json.dumps(STANDING_QUERIES)))
+    hep = hcli["epochs"]
+    require(len(hep) >= 5 and all(e["heavy_hitters"] > 0 for e in hep),
+            f"CLI history run: {len(hep)} sketch epochs")
+    hcli["ev_per_s"] = hep[-1]["events"] / hcli["run_s"]
+    listed = HISTORY.list_windows(base_dir=str(hist_cli))
+    dumpq = root / "chip_smoke_history_cli.json"
+    q_args = ["query", "--history", str(hist_cli), "--gadget", "trace/exec", "-o", "json"]
+    hsteps = {"query": history_cli(q_args, dumpq)}
+    hsteps["tiers"] = history_cli(["history", "tiers", "--history", str(hist_cli), "-o", "json"],
+                                 dumpq)
+    hsteps["compact"] = history_cli(["history", "compact", "--history", str(hist_cli),
+                                    "--schedule", HIST_SCHEDULE, "-o", "json"], dumpq)
+    hsteps["query compacted"] = history_cli(q_args, dumpq)
+    hsteps["archive"] = history_cli(["history", "archive", "--history", str(hist_cli),
+                                    "--archive-dir", str(arch_cli), "--schedule", HIST_SCHEDULE,
+                                    "-o", "json"], dumpq)
+    hsteps["query rehydrated"] = history_cli(q_args + ["--archive-dir", str(arch_cli)], dumpq)
+    first, compacted, rehydrated = (json.loads(hsteps[k]["stdout"]) for k in (
+        "query", "query compacted", "query rehydrated"))
+    require(first["windows"] == len(listed) > 1 and first["events"] == sum(
+        h["events"] for h in listed) == hep[-1]["events"],
+            f"CLI query: {first['windows']} windows, {first['events']} events; the store lists "
+            f"{len(listed)} windows of {sum(h['events'] for h in listed)} events, the run's last "
+            f"summary {hep[-1]['events']}")
+    tiers = json.loads(hsteps["tiers"]["stdout"])["tiers"]
+    require(tiers["levels"]["0"]["windows"] == len(listed), f"history tiers: {tiers['levels']}")
+    (cstats,) = json.loads(hsteps["compact"]["stdout"])
+    require(cstats["source_windows"] == len(listed) and cstats["super_windows"] > 0,
+            f"history compact: {cstats}")
+    (astats,) = json.loads(hsteps["archive"]["stdout"])
+    require(astats["windows"] == cstats["super_windows"] == compacted["windows"]
+            == compacted["compacted_windows"] == rehydrated["windows"]
+            and HISTORY.list_windows(base_dir=str(hist_cli)) == [],
+            f"history archive: {astats}; compacted query {compacted['windows']} windows, "
+            f"rehydrated {rehydrated['windows']}")
+    for name, ans in (("compacted", compacted), ("rehydrated", rehydrated)):
+        for k in ("events", "distinct", "entropy_bits", "heavy_hitters"):
+            require(ans[k] == first[k], f"CLI query, {name}: {k} {ans[k]} != {first[k]}")
+    log(f"[history] (5e b) CLI trace exec with --tpusketch-history true, a window a second, "
+        f"standing queries: {hcli['ev_per_s']:.0f} events/s end to end over the run span "
+        f"({hcli['run_s']:.2f} s, set-up {hcli['setup_s']:.2f} s), beside 5d(b)'s "
+        f"{no_history_ev_per_s:.0f} without history in this call; {len(listed)} windows sealed, "
+        f"{hcli['harvests']:.0f} harvests of {hcli['harvest_ms']:.1f} ms, last summary "
+        f"{hep[-1]['events']} events, drops {hep[-1]['drops']}; K2 {hcli['k2_launches']} "
+        f"launches over {hcli['steps']:.0f} steps")
+    log(f"[history] (5e b) query: {first['windows']} windows, events {first['events']} (= the "
+        f"listed windows' sum = the last summary's), distinct ~{first['distinct']:.0f}; compact "
+        f"({HIST_SCHEDULE}): {cstats['source_windows']} windows -> {cstats['super_windows']} "
+        f"super-windows, {cstats['bytes_reclaimed']} bytes reclaimed; archive: "
+        f"{astats['segments']} segment(s), {astats['bytes']} bytes; the compacted and the "
+        f"rehydrated answers equal the first in events, distinct, entropy and heavy hitters")
+    for name, st in hsteps.items():
+        timed = {k: v for k, v in st.items() if k.endswith("_s") and k != "wall_s"}
+        log(f"[history] (5e b) {name}: exit 0, {st['wall_s']:.2f} s of process; " + ", ".join(
+            f"{k[:-2]} {v * 1e3:.1f} ms" for k, v in timed.items()))
+    return {"cli_run": hcli, "windows": len(listed),
+                         "steps": {k: {x: y for x, y in v.items() if x != "stdout"}
+                                   for k, v in hsteps.items()},
+                         "compact": cstats, "archive": astats,
+                         "answer": {k: first[k] for k in ("windows", "events", "distinct",
+                                                          "entropy_bits")}}
+
+
+
+def history_cli(args: list[str], dump: Path) -> dict:
+    """One ig-tpu-torch subcommand as a subprocess through
+    HISTORY_DRIVER: it must exit 0. Returns its standard output, its wall
+    time and the seconds the driver timed in it."""
+    dump.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", HISTORY_DRIVER, str(dump), *args],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=Path(__file__).resolve().parent)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"ig-tpu-torch {' '.join(args[:2])} exited "
+                                  f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return {"stdout": proc.stdout, "wall_s": wall, **json.loads(dump.read_text())}
 
 
 def main() -> int:
@@ -1119,18 +1370,27 @@ def main() -> int:
     report["capture"] = capture
 
     # -- 5c. the operator: TpuSketchInstance through its entry points ------------
+    from inspektor_gadget_tpu_torch.telemetry import snapshot
     ckpt_root = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt_root, ignore_errors=True)
-    op_run = OperatorRun(args.seed + 21, 2000, batch, prod)
+    op_run = OperatorRun(args.seed + 21, 2000, batch, prod,
+                         ckpt_root.parent / "chip_smoke_hist")
+    before = snapshot()
     reset_launches()
-    op_rec, op_info = op_run.drive(dev, CAPTURE_BATCHES, ckpt_root / "gpu")
+    with pinned_zip_clock(1.7e9):
+        op_rec, op_info = op_run.drive(dev, CAPTURE_BATCHES, ckpt_root / "gpu")
     launched = read_launches()
+    after = snapshot()
+    hist_bytes = after["ig_history_bytes_total"] - before.get("ig_history_bytes_total", 0.0)
+    wkey = 'ig_history_windows_total{type="9"}'
+    hist_windows = after[wkey] - before.get(wkey, 0.0)
     n_ingest = op_info["folded_batches"] + OP_EVENT_BATCHES
     require(launched == {"K1": 0, "K2": n_ingest, "K3": 0},
             f"operator run launched {launched}, expected K2 {n_ingest} (once an ingest)")
     launches["K2"] += launched["K2"]
     t0 = time.perf_counter()
-    cpu_rec = op_run.replay(torch.device("cpu"), ckpt_root / "cpu")
+    with pinned_zip_clock(1.7e9):
+        cpu_rec = op_run.replay(torch.device("cpu"), ckpt_root / "cpu")
     op_info["cpu_replay_s"] = time.perf_counter() - t0
     op_info.update(launches=launched, worst=compare_operator_runs(
         op_rec, cpu_rec, ckpt_root / "gpu", ckpt_root / "cpu"))
@@ -1169,7 +1429,26 @@ def main() -> int:
         f"~{last.distinct:.0f}, inv {last.inv}, classes "
         f"{ {k: (v['recovered'], v['complete']) for k, v in last.classes.items()} }, "
         f"p99 {last.quantiles['p99']:.0f}, accuracy ratio {last.accuracy['ratio']:.3g}")
-    log(f"[operator] {len(op_rec['summaries'])} summaries, {len(op_rec['windows'])} sealed "
+    hstore = op_info["worst"]["store"]
+    require(hist_windows == op_info["windows"] > 0,
+            f"operator: {hist_windows} windows appended, {op_info['windows']} in the store")
+    sm = op_info["seal_ms"]
+    split = {k: sum(x[k] for x in sm) / len(sm) for k in sm[0]}
+    op_info["history"] = {"windows": hist_windows, "bytes": hist_bytes,
+                          "bytes_per_window": hist_bytes / hist_windows, "seal_ms_mean": split,
+                          **hstore}
+    log(f"[history] (5e a) the card's store: {hist_windows:.0f} windows sealed, "
+        f"{hist_bytes:.0f} bytes appended (ig_history_bytes_total), "
+        f"{hist_bytes / hist_windows:.0f} bytes a window; {hstore['segments']} segments, "
+        f"{hstore['index_rows']} index rows; every segment byte-identical to the CPU "
+        f"instance's store, index rows equal but sealed_ts")
+    log(f"[history] (5e a) seal per window, mean of {len(sm)}: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in split.items()) + " ms (reads off the card and the window's "
+        "build, digest + encode_window, the store append, the standing-query fold)")
+    log(f"[history] (5e a) {op_info['worst']['standing_answers']} standing answers "
+        f"({', '.join(q['id'] for q in STANDING_QUERIES)}) equal card vs CPU, header and payload "
+        f"bytes, and each equal to answer_query over the store's windows in its range")
+    log(f"[operator] {len(op_rec['summaries'])} summaries, {hist_windows:.0f} sealed "
         f"windows and the checkpoint equal the CPU instance's on the same streams "
         f"({op_info['cpu_replay_s']:.1f} s); seq scores within "
         f"{op_info['worst']['anomaly_nats']:.3g} nats, scorer leaves within "
@@ -1231,6 +1510,15 @@ def main() -> int:
     report["gadget"] = {"card": {k: v for k, v in g_card.items() if k != "summary"},
                         "cpu": {k: v for k, v in g_cpu.items() if k != "summary"},
                         "launches": launched, "ae_rel_gap": ae_gap, "cli": cli}
+
+    # -- 5e (b). the history route through the CLI --------------------------------
+    hist = history_route("cuda", batch, CLI_SECONDS, GADGET_SKETCH, ckpt_root.parent,
+                         cli["ev_per_s"])
+    hc = hist["cli_run"]
+    require(hc["k2_launches"] == hc["steps"] > 0,
+            f"CLI history run: K2 launched {hc['k2_launches']} times over {hc['steps']} steps")
+    launches["K2"] += hc["k2_launches"]
+    report["history"] = {"operator": op_info["history"], **hist}
 
     # -- 6. K3 against its plain version ----------------------------------------
     # the plain versions' float32 matmuls run in full f32, not TF32

@@ -7,8 +7,9 @@ parser callback → formatter (registry.go:172-346). `ig` uses the local
 runtime (cmd/ig/main.go:36-57).
 
 The port's copy of ``inspektor_gadget_tpu/cli/main.py``: ``list``,
-``catalog``, ``version`` and the gadget commands on the local runtime,
-with one more flag, ``--device {cuda,cpu}`` (default ``cuda``), the
+``catalog``, ``version``, the gadget commands on the local runtime, and
+``query``, ``watch`` and ``history`` on the local history store, with one
+more flag, ``--device {cuda,cpu}`` (default ``cuda``), the
 device the run's operators put their state on. Subcommands and flags
 whose modules are not ported exit 2 naming their ROADMAP item.
 
@@ -49,6 +50,10 @@ from ..gadgets import registry as gadget_registry  # noqa: E402
 from ..gadgets.interface import GadgetType  # noqa: E402
 from ..operators import operators as op_registry  # noqa: E402
 from ..params import Collection, ParamError  # noqa: E402
+from . import REMOTE_ITEM, unported  # noqa: E402
+from .history import add_history_parser  # noqa: E402
+from .query import add_query_parser  # noqa: E402
+from .watch import add_watch_parser  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -63,21 +68,10 @@ UNPORTED_COMMANDS = {
     "record": ("capture recordings on agents", "14"),
     "replay": ("deterministic replay of a recording", "14"),
     "alerts": ("active alerts, rule validation and dry runs", "15"),
-    "query": ("range queries over sealed history windows", "10c"),
-    "watch": ("standing-query answers", "10c"),
-    "history": ("the sealed-window store's tiers and lifecycle", "10c"),
     "fleet": ("fleet health and shared runs", "11"),
     "bench": ("benchmark runs and the perf ledger", "20"),
     "doctor": ("probe capture windows per gadget", "19"),
 }
-REMOTE_ITEM = "18"  # --remote runs through the agent's gRPC runtime
-
-
-def _unported(what: str, item: str) -> int:
-    print(f"error: {what} is not ported to ig-tpu-torch yet (ROADMAP item {item})",
-          file=sys.stderr)
-    return 2
-
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -94,6 +88,10 @@ def build_parser() -> argparse.ArgumentParser:
 
     vp = sub.add_parser("version", help="print version")
     vp.set_defaults(func=lambda a: (print(f"ig-tpu-torch {__version__}"), 0)[1])
+
+    add_query_parser(sub)
+    add_watch_parser(sub)
+    add_history_parser(sub)
 
     # help-listing stubs only: main() answers them before argparse
     for name, (help_, item) in UNPORTED_COMMANDS.items():
@@ -180,7 +178,7 @@ def print_sketch_summary(s) -> None:
 
 def cmd_run(args) -> int:
     if args.remote:
-        return _unported("--remote (the agent's gRPC runtime)", REMOTE_ITEM)
+        return unported("--remote (the agent's gRPC runtime)", REMOTE_ITEM)
     desc = args.desc
     gadget_params = desc.params().to_params()
     common = {"max-rows": str(args.max_rows), "sort": args.sort or None}
@@ -310,7 +308,7 @@ def main(argv: list[str] | None = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     if argv and argv[0] in UNPORTED_COMMANDS:
-        return _unported(f"'{argv[0]}'", UNPORTED_COMMANDS[argv[0]][1])
+        return unported(f"'{argv[0]}'", UNPORTED_COMMANDS[argv[0]][1])
     ap = build_parser()
     args = ap.parse_args(argv)
     if not hasattr(args, "func"):

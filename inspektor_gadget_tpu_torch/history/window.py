@@ -17,9 +17,8 @@ One sealed window carries:
   dtype, wall timestamps excluded), identical to the reference's for the
   same state, so windows sealed by GPU and TPU nodes merge and verify.
 
-Encoding is a JSON header plus one npz payload. Sealing writes, through
-the operator's ``window_sink``, what the reference appends to its
-history store.
+Encoding is a JSON header plus one npz payload, framed into history
+segments by history/store.py with the capture journal's disciplines.
 """
 
 from __future__ import annotations

@@ -9,9 +9,11 @@ harvest reads the bundle back in one digest, decodes the invertible
 plane, reads the quantiles, audits the estimates against a shadow
 sample and scores every container with the anomaly scorer. With the
 history plane on, a seal cuts one mergeable window out of the
-cumulative state and hands it, encoded, to the run's ``window_sink``.
-Checkpoints are the reference's files, so either package resumes the
-other's bundle.
+cumulative state and appends it to the node's sealed-window store
+(`history.HISTORY`), whose bytes are the reference's; standing queries
+fold each appended window, and the store's compaction and archive tiers
+run where the params ask. Checkpoints are the reference's files, so
+either package resumes the other's bundle.
 
 The gadget framework builds an instance as the reference does:
 `TpuSketch.instance_params` holds the reference's 38 instance params,
@@ -21,10 +23,8 @@ same instance can be built without the framework from a `SketchConfig`
 (the params, ``-`` written ``_``) and a `SketchContext` (what it reads
 from the gadget context): ``TpuSketchInstance(config, context,
 device=...)``. Both routes validate through the same `ParamDesc`
-validators. Sharded ingest, standing queries and the history store's
-lifecycle raise, naming the ROADMAP item that ports them; on the
-framework's route so does the history plane (item 10c: the store the
-``window_sink`` stands in for).
+validators and the reference's cross-param checks. Sharded ingest
+raises, naming the ROADMAP item that ports it.
 
 The reference donates its bundle to each step; the port updates it in
 place under ``_bundle_mu``, and every host snapshot that must outlive
@@ -49,7 +49,8 @@ import torch
 from ..device import resolve_device
 from ..gadgets.context import GadgetContext
 from ..gadgets.interface import GadgetDesc
-from ..history.schedule import DEFAULT_SCHEDULE, validate_schedule
+from ..history import (DEFAULT_SCHEDULE, HISTORY, HISTORY_METRICS, CompactionEngine,
+                       SealedWindow, encode_window, validate_schedule, window_digest)
 from ..models.autoencoder import AEConfig, ae_init, ae_score, ae_train_step, normalize_counts
 from ..models.params import scorer_from_leaves, scorer_leaves
 from ..models.seqmodel import SeqConfig, seq_init, seq_score, seq_train_step, tokens_from_keys
@@ -65,6 +66,8 @@ from ..ops.sketches import (bundle_digest, bundle_from_numpy, bundle_ingest_step
 from ..ops.window import hll_ingest_step, wcms_advance, wcms_ingest_step, wcms_init, wcms_query
 from ..params import ParamDesc, ParamDescs, ParamError, Params, TypeHint
 from ..params.validators import validate_int_range
+from ..queries import QueryError, StandingQueryEngine, load_queries, load_queries_file
+from ..queries import engine as queries_engine
 from ..sources.batch import BATCH_COLUMNS, EventBatch, FoldedBatch
 from ..sources.staging import H2DStager, PinnedBufferPool
 from ..telemetry import counter, histogram
@@ -143,12 +146,6 @@ def _validate_quantile_alpha(value: str) -> None:
         raise ValueError(f"quantile-alpha must be in (0, 0.3], got {v}")
 
 
-# the instance params of the history store's lifecycle and the standing
-# queries: on the framework's route a value other than the default raises
-_STORE_KEYS = ("history-dir", "history-schedule", "history-archive-cache-bytes",
-               "query-cache-bytes", "query-refresh", "query-max-range")
-
-
 @dataclasses.dataclass
 class SketchConfig:
     """The instance params the sketch plane runs on (``-`` written
@@ -179,12 +176,18 @@ class SketchConfig:
     chips: str | int = "auto"
     history: bool = False
     history_interval: float = 10.0
+    history_dir: str = ""
     history_log2_width: int = 12
     history_slots: int = 8
     history_max_slices: int = 256
     history_compact: bool = False
+    history_schedule: str = DEFAULT_SCHEDULE
     history_archive_dir: str = ""
+    history_archive_cache_bytes: int = 64 << 20
     standing_queries: str = ""
+    query_cache_bytes: int = 8 << 20
+    query_refresh: int = 1
+    query_max_range: float = 86400.0
 
     def validate(self) -> None:
         """Set every field on the params layer, which runs the
@@ -204,7 +207,7 @@ class SketchConfig:
                 kw[f.name] = p.as_bool()
             elif isinstance(f.default, int):
                 kw[f.name] = p.as_int()
-            elif f.name.endswith("_interval"):
+            elif f.name.endswith("_interval") or f.name == "query_max_range":
                 kw[f.name] = p.as_duration()
             elif isinstance(f.default, float):
                 kw[f.name] = float(p.as_string())
@@ -217,13 +220,12 @@ class SketchConfig:
 class SketchContext:
     """What the instance reads from the reference's ``GadgetContext``:
     the run's identity, the gadget's batch size, the history clock, the
-    summary and window hooks, the gadget's key resolver and the run
-    span. ``window_sink`` takes each sealed window as `encode_window`
-    gives it, (header, payload): it stands in for the reference's
-    history store. Where the framework built the instance, ``extra`` is
-    the gadget context's, read live: its ``on_sketch_summary``,
-    ``on_window_sealed`` and ``replay`` keys stand over the fields of
-    the same names."""
+    summary, window and standing-query hooks, the gadget's key resolver,
+    the run span, and the resolved operator params the history store's
+    manifest records. Where the framework built the instance, ``extra``
+    is the gadget context's, read live: its ``on_sketch_summary``,
+    ``on_window_sealed``, ``on_query_answer`` and ``replay`` keys stand
+    over the fields of the same names."""
 
     gadget: str = "trace/exec"
     run_id: str = dataclasses.field(default_factory=lambda: uuid.uuid4().hex[:12])
@@ -233,10 +235,11 @@ class SketchContext:
     history_clock: Callable[[], float] | None = None
     on_sketch_summary: Callable[["SketchSummary"], None] | None = None
     on_window_sealed: Callable[[dict], None] | None = None
-    window_sink: Callable[[dict, bytes], None] | None = None
+    on_query_answer: Callable[[dict, bytes], None] | None = None
     resolve_key: Callable[[int], str] | None = None
     replay: bool = False
     trace_parent: SpanContext | None = None
+    params: dict[str, str] | None = None
     extra: dict[str, Any] | None = None
 
     @classmethod
@@ -248,7 +251,8 @@ class SketchContext:
                    history_gadget=ctx.extra.get("history_gadget") or "",
                    history_clock=ctx.extra.get("history_clock"),
                    resolve_key=getattr(gadget, "resolve_key", None),
-                   trace_parent=ctx.extra.get("trace_ctx"), extra=ctx.extra)
+                   trace_parent=ctx.extra.get("trace_ctx"),
+                   params=ctx.operator_params.copy_to_map(), extra=ctx.extra)
 
     def hook(self, key: str) -> Any:
         """`key` from the live ``extra`` where it is set, else the field."""
@@ -421,12 +425,13 @@ class TpuSketch(Operator):
                                   "devices; 1 = the exact single-device path"),
             ParamDesc(key="history", default="false", type_hint=TypeHint.BOOL,
                       description="seal time-windowed sketch snapshots into the node's "
-                                  "history store (not ported yet: ROADMAP item 10c)"),
+                                  "history store"),
             ParamDesc(key="history-interval", default="10s", type_hint=TypeHint.DURATION,
                       description="window length; 0 seals one window per harvest (the "
                                   "deterministic-replay mode)"),
             ParamDesc(key="history-dir", default="",
-                      description="override the node history area for this run"),
+                      description="override the node history area for this run "
+                                  "($IG_HISTORY_DIR otherwise)"),
             ParamDesc(key="history-log2-width", default="12", type_hint=TypeHint.INT,
                       description="per-window CMS width (the WindowedCMS ring's table)"),
             ParamDesc(key="history-slots", default="8", type_hint=TypeHint.INT,
@@ -467,16 +472,6 @@ class TpuSketch(Operator):
         return TpuSketchInstance(self, ctx, gadget, instance_params)
 
 
-def _unported_store_keys(params: Params) -> None:
-    """The framework's route runs no history store, standing queries or
-    lifecycle: their params must keep their defaults."""
-    for key in _STORE_KEYS:
-        p = params.get(key)
-        if p.value != p.desc.default:
-            raise ParamError(f"param {key!r}: the history store, its lifecycle and the "
-                             "standing queries are not ported yet (ROADMAP item 10c)")
-
-
 class TpuSketchInstance(OperatorInstance):
     """One run's sketch plane on one device (the reference's single-chip
     path, ``tpusketch.py:495-2117``). Built by the framework as
@@ -494,7 +489,6 @@ class TpuSketchInstance(OperatorInstance):
             self.enabled = p.get("enable").as_bool()
             if not self.enabled:
                 return
-            _unported_store_keys(p)
             cfg = SketchConfig.from_params(p)
             device = ctx.device
             ctx = SketchContext.from_gadget_context(ctx, gadget)
@@ -562,15 +556,34 @@ class TpuSketchInstance(OperatorInstance):
             raise ParamError(
                 "param 'shard-ingest'/'chips': sharded ingest over several devices "
                 "is not ported yet (ROADMAP item 11); chips=1 is the single-device path")
-        if cfg.standing_queries:
-            raise ParamError("param 'standing-queries': the standing-query plane is not "
-                             "ported yet (ROADMAP item 10c)")
-        if cfg.history_compact or cfg.history_archive_dir:
-            raise ParamError("param 'history-compact'/'history-archive-dir': the history "
-                             "store's lifecycle is not ported yet (ROADMAP item 10c)")
-        if cfg.history and ctx.window_sink is None:
-            raise ParamError("param 'history': needs a window_sink — the sealed-window "
-                             "store is not ported yet (ROADMAP item 10c)")
+        # -- standing-query plane: every misconfig raises before the first batch
+        sq_specs = None
+        if not cfg.standing_queries:
+            if cfg.query_cache_bytes != 8 << 20:
+                raise ParamError(
+                    "param 'query-cache-bytes': needs 'standing-queries' "
+                    "— the result cache fronts materialized answers")
+            if cfg.query_refresh != 1:
+                raise ParamError(
+                    "param 'query-refresh': needs 'standing-queries' — "
+                    "the cadence applies to registered queries")
+            if cfg.query_max_range != 86400.0:
+                raise ParamError(
+                    "param 'query-max-range': needs 'standing-queries' "
+                    "— the cap bounds registered queries' ranges")
+        else:
+            if not cfg.history:
+                raise ParamError(
+                    "param 'standing-queries': needs 'history true' — "
+                    "materialized answers fold the sealed-window stream")
+            doc = cfg.standing_queries
+            try:
+                load = load_queries_file if doc.startswith("@") else load_queries
+                sq_specs = load(doc[1:] if doc.startswith("@") else doc,
+                                default_every=cfg.query_refresh,
+                                max_range_s=cfg.query_max_range)
+            except QueryError as e:
+                raise ParamError(f"param 'standing-queries': {e}") from None
         # -- accuracy audit plane --------------------------------------------
         self._shadow = self._win_shadow = self._astats = None
         if cfg.audit_sample > 0:
@@ -647,6 +660,33 @@ class TpuSketchInstance(OperatorInstance):
             self._win_start = self._hist_clock()
             self._win_slices: dict[str, Any] = {}
             self._win_slices_dropped_keys: set[str] = set()
+            # host-clock split of the last seal (ms): reads off the device,
+            # digest + encode_window, the store append, the standing queries
+            self.last_seal_ms: dict[str, float] = {}
+            try:
+                self._hist_writer = HISTORY.writer_for(
+                    self._hist_gadget, node=ctx.node, run_id=ctx.run_id, params=ctx.params,
+                    base_dir=cfg.history_dir or None, platform=self.device.type)
+            except (OSError, ValueError) as e:
+                _log.warning("history store open failed (sealing disabled for this run): "
+                             "%r", e)
+                self._hist_on = False
+        # tiered lifecycle: the archive tier (rehydration for this run's
+        # history area) and the compaction engine, aging windows on the
+        # clock that stamps them
+        self._hist_engine = None
+        if self._hist_on:
+            if cfg.history_archive_dir:
+                HISTORY.set_archive(cfg.history_archive_dir, cfg.history_archive_cache_bytes,
+                                    base_dir=cfg.history_dir or None)
+            if cfg.history_compact:
+                self._hist_engine = CompactionEngine(cfg.history_schedule,
+                                                     clock=self._hist_clock)
+        self._sq_engine = None
+        if sq_specs is not None:
+            self._sq_engine = StandingQueryEngine(
+                sq_specs, gadget=ctx.history_gadget or g, node=ctx.node,
+                cache_bytes=cfg.query_cache_bytes)
         self._ckpt_key = g.replace("/", "-")
         self._resume()
         if self._hist_on:
@@ -657,6 +697,8 @@ class TpuSketchInstance(OperatorInstance):
             self._win_ent0 = self._ent_host(self.bundle)
             self._win_inv0 = self._inv_host(self.bundle)
             self._win_qt0 = self._qt_host(self.bundle)
+        if self._sq_engine is not None:
+            queries_engine.register(ctx.run_id, self._sq_engine)
         with _live_mu:
             _live[ctx.run_id] = self
 
@@ -1054,13 +1096,16 @@ class TpuSketchInstance(OperatorInstance):
             feed(f"kind:{int(k)}", kind == k)
 
     def seal_window(self) -> None:
-        """Seal the open window and hand it to the window sink. A window
-        with no events and no slices is skipped. The window's count-min is
-        the ring's current slot and its HLL the window HLL; entropy,
-        events, drops and the invertible and DDSketch lanes are deltas of
-        the cumulative bundle (pure adds, so the subtraction is exact,
-        uint32 wrap included)."""
-        from ..history import SealedWindow, encode_window, window_digest
+        """Seal the open window into the history store: ONE frame, ONE
+        O_APPEND write (a kill mid-seal tears at most this window, and the
+        torn tail is dropped and accounted on read). A window with no
+        events and no slices is skipped. The window's count-min is the
+        ring's current slot and its HLL the window HLL; entropy, events,
+        drops and the invertible and DDSketch lanes are deltas of the
+        cumulative bundle (pure adds, so the subtraction is exact, uint32
+        wrap included). Standing queries fold the window only after the
+        append succeeded, so their coverage is what the store holds."""
+        t0 = time.perf_counter()
         end = self._hist_clock()
         with self._bundle_mu:
             b = self.bundle
@@ -1112,11 +1157,22 @@ class TpuSketchInstance(OperatorInstance):
             names={k: self._names[k] for k, _ in keep if k in self._names},
             slices_dropped=len(self._win_slices_dropped_keys),
             approx=overflow, **kw)
+        t1 = time.perf_counter()
         win.digest = window_digest(win)
+        t2 = t3 = time.perf_counter()
         try:
             with self._span("tpusketch/seal-window", window=self._win_n, events=win_events):
-                self.ctx.window_sink(*encode_window(win))
+                # HISTORY.append_window, split so the encode and the append
+                # are timed apart
+                header, payload = encode_window(win)
+                t2 = time.perf_counter()
+                win.seq = self._hist_writer.append_window_frame(
+                    header, payload, win.slice_keys, win.end_ts or None)
+                t3 = time.perf_counter()
         except (OSError, ValueError) as e:
+            if not isinstance(e, OSError):
+                # the writer's append path already counted an OSError
+                HISTORY_METRICS.drops.labels(reason="seal").inc()
             _log.warning("window seal failed (window %d was dropped): %r", self._win_n, e)
         else:
             hook = self.ctx.hook("on_window_sealed")
@@ -1127,6 +1183,31 @@ class TpuSketchInstance(OperatorInstance):
                           "events": win.events, "drops": win.drops, "digest": win.digest})
                 except Exception as he:  # noqa: BLE001 — announce only
                     _log.warning("window announce failed: %r", he)
+            if self._sq_engine is not None:
+                try:
+                    pubs = self._sq_engine.on_seal(win, now=float(end))
+                except Exception as qe:  # noqa: BLE001 — observe only
+                    _log.warning("standing-query refresh failed: %r", qe)
+                    pubs = []
+                qhook = self.ctx.hook("on_query_answer")
+                if qhook is not None:
+                    for qheader, qpayload in pubs:
+                        try:
+                            qhook(qheader, qpayload)
+                        except Exception as qe:  # noqa: BLE001
+                            _log.warning("query answer publish failed: %r", qe)
+        t4 = time.perf_counter()
+        self.last_seal_ms = {"d2h": (t1 - t0) * 1e3, "encode": (t2 - t1) * 1e3,
+                             "append": (t3 - t2) * 1e3, "queries": (t4 - t3) * 1e3,
+                             "total": (t4 - t0) * 1e3}
+        if self._hist_engine is not None:
+            # a time-gated pass: sealed segments whose windows aged past
+            # their level's horizon fold into super-windows (the active
+            # segment, where this window just landed, is never touched)
+            try:
+                self._hist_engine.maybe_compact(self._hist_writer.path)
+            except (OSError, ValueError) as e:
+                _log.warning("compaction pass failed: %r", e)
         # open the next window: rotate the ring, fresh HLL, new baselines
         wcms_advance(self._wcms)
         self._win_hll.registers.zero_()
@@ -1261,15 +1342,29 @@ class TpuSketchInstance(OperatorInstance):
     def post_gadget_run(self) -> None:
         """Teardown: the final harvest (none in a replay, which harvests
         only at recorded boundaries) and the final partial window, the
-        stager drained, the stats unregistered, the shutdown checkpoint."""
+        history store's active segment sealed and one compaction pass, the
+        stager drained, the standing queries and stats unregistered, the
+        shutdown checkpoint."""
         if not self.enabled:
             return
         if not self.ctx.hook("replay"):
             self.harvest()
         if self._hist_on:
+            # the final partial window, then seal the store's active
+            # segment so this run's windows get index rows
             self.seal_window()
+            HISTORY.release(self._hist_writer)
+            if self._hist_engine is not None:
+                # one final pass lets a short-horizon schedule compact the
+                # windows the release just sealed
+                try:
+                    self._hist_engine.compact_store(self._hist_writer.path)
+                except (OSError, ValueError) as e:
+                    _log.warning("teardown compaction failed: %r", e)
         if self._stager is not None:
             self._stager.drain()
+        if self._sq_engine is not None:
+            queries_engine.unregister(self.ctx.run_id)
         self._stats.unregister()
         self._pstats.unregister()
         if self._astats is not None:

@@ -21,8 +21,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import time
 from collections import defaultdict
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -162,8 +164,9 @@ def operator_config(geometry: dict) -> dict:
     """The tpusketch operator's configuration at `geometry`: two priority
     classes splitting the invertible plane's budget (the first OP_HOT
     containers, the rest), quantiles, history sealing once a harvest
-    (``history_interval`` 0), the audit sample and the seq scorer;
-    harvests only when asked."""
+    (``history_interval`` 0; the caller names the store's directory,
+    ``history_dir``), the audit sample and the seq scorer; harvests only
+    when asked."""
     hot = "|".join(str(OP_MNTNS0 + i) for i in range(OP_HOT))
     lb = geometry["inv_log2_buckets"]
     return dict(depth=geometry["depth"], log2_width=geometry["log2_width"],
@@ -273,12 +276,15 @@ def profile_operator(seed: int) -> dict:
 
     dev = torch.device("cuda", 0)
 
+    hist_dir = Path(__file__).resolve().parents[1] / "build" / "profile_step_hist"
+    shutil.rmtree(hist_dir, ignore_errors=True)
+
     def instance():
         clock = iter(range(1, 1 << 30))
         ctx = SketchContext(gadget="trace/exec", run_id=f"profile-{seed}", node="node-0",
-                            batch_size=BATCH, history_clock=lambda: 1.7e9 + next(clock),
-                            window_sink=lambda h, p: None)
-        return TpuSketchInstance(SketchConfig(**operator_config(GEOM)), ctx, device=dev)
+                            batch_size=BATCH, history_clock=lambda: 1.7e9 + next(clock))
+        return TpuSketchInstance(SketchConfig(**operator_config(GEOM), history_dir=str(hist_dir)),
+                                 ctx, device=dev)
 
     def folded(inst, batches: int, src_seed: int) -> list[dict]:
         harvests, seen = [], [0]

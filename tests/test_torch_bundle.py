@@ -169,9 +169,11 @@ def test_state_carries_over_both_ways():
 
 def test_port_imports_no_jax():
     """Every module of the port (the native binding, the window sketches,
-    the telemetry, the operator, the history windows, the checkpoint
-    files, the accuracy plane and the gadget framework: params, columns,
-    gadgets, runtime, the span tree and the CLI included) imports without
+    the telemetry, the operator, the history windows, store, queries,
+    lifecycle and archive, the journal, the standing queries, the
+    checkpoint files, the accuracy plane and the gadget framework:
+    params, columns, gadgets, runtime, the span tree and the CLI
+    included) imports without
     JAX or the JAX package, and no source file of it names either.
     Importing `sources.bridge` builds nothing: with no compiler to be
     found, the import still succeeds and its library is neither built nor
@@ -191,7 +193,17 @@ def test_port_imports_no_jax():
             "inspektor_gadget_tpu_torch.gadgets.trace.exec",
             "inspektor_gadget_tpu_torch.gadgets.top.sketch", "inspektor_gadget_tpu_torch.runtime",
             "inspektor_gadget_tpu_torch.runtime.local", "inspektor_gadget_tpu_torch.cli.main",
-            "inspektor_gadget_tpu_torch.telemetry.tracing"} <= set(mods)
+            "inspektor_gadget_tpu_torch.telemetry.tracing",
+            "inspektor_gadget_tpu_torch.agent.wire", "inspektor_gadget_tpu_torch.utils.journal",
+            "inspektor_gadget_tpu_torch.capture.journal",
+            "inspektor_gadget_tpu_torch.perf.provenance",
+            "inspektor_gadget_tpu_torch.history.store", "inspektor_gadget_tpu_torch.history.query",
+            "inspektor_gadget_tpu_torch.history.lifecycle",
+            "inspektor_gadget_tpu_torch.history.archive", "inspektor_gadget_tpu_torch.queries.spec",
+            "inspektor_gadget_tpu_torch.queries.cache", "inspektor_gadget_tpu_torch.queries.engine",
+            "inspektor_gadget_tpu_torch.cli.query", "inspektor_gadget_tpu_torch.cli.history",
+            "inspektor_gadget_tpu_torch.cli.watch",
+            "inspektor_gadget_tpu_torch.gadgets.top.windows"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bridge = sys.modules['inspektor_gadget_tpu_torch.sources.bridge']\n"

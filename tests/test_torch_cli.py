@@ -1,12 +1,15 @@
 """The port's CLI (`inspektor_gadget_tpu_torch.cli.main`, the
 ``ig-tpu-torch`` console script) as a black box, as ``tests/test_cli.py``
 drives the reference's: subprocesses on the CPU, beside the reference's
-CLI where the two must answer alike.
+CLI where the two must answer alike. The history route: a ``trace exec``
+with ``--tpusketch-history true`` seals into a store that ``query``,
+``history tiers|compact|archive`` of both packages read alike.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 
@@ -29,12 +32,12 @@ def test_list_and_catalog():
     r = run(PORT, "list")
     assert r.returncode == 0, r.stderr
     assert [ln.split()[:2] for ln in r.stdout.strip().splitlines()] == \
-        [["top", "sketch"], ["trace", "exec"]]
+        [["top", "sketch"], ["top", "windows"], ["trace", "exec"]]
     r = run(PORT, "catalog")
     assert r.returncode == 0, r.stderr
     cat = json.loads(r.stdout)
     assert {(g["category"], g["name"]) for g in cat["gadgets"]} == \
-        {("trace", "exec"), ("top", "sketch")}
+        {("trace", "exec"), ("top", "sketch"), ("top", "windows")}
     (op,) = cat["operators"]
     assert op["name"] == "tpusketch" and len(op["instanceParams"]) == 38
 
@@ -92,8 +95,18 @@ def test_cuda_without_a_card_exits_1():
     assert "torch.cuda.is_available() is false; pass device='cpu'" in r.stderr
 
 
-@pytest.mark.parametrize("command", sorted(cli.UNPORTED_COMMANDS))
+# the history commands run on the local store; their --remote route waits
+# for the agent's port
+REMOTE_ROUTES = {"query": ["query"], "watch": ["watch", "--id", "q"],
+                 "history": ["history", "tiers"]}
+
+
+@pytest.mark.parametrize("command", sorted({*cli.UNPORTED_COMMANDS, *REMOTE_ROUTES}))
 def test_unported_commands_exit_2_naming_their_item(command, capsys):
+    if command in REMOTE_ROUTES:
+        assert cli.main([*REMOTE_ROUTES[command], "--remote", "n0=unix:///x.sock"]) == 2
+        assert f"(ROADMAP item {cli.REMOTE_ITEM})" in capsys.readouterr().err
+        return
     assert cli.main([command, "--help"]) == 2
     err = capsys.readouterr().err
     assert f"'{command}' is not ported" in err
@@ -105,3 +118,106 @@ def test_version_and_help_run_in_process(capsys):
     assert capsys.readouterr().out.startswith("ig-tpu-torch ")
     assert cli.main([]) == 0
     assert "trace" in capsys.readouterr().out
+
+
+# -- the history route --------------------------------------------------------------
+
+QUERIES = json.dumps([{"id": "hot", "stats": ["topk", "cardinality"], "range": "4s"}])
+SCHEDULE = "1s@2s,60s@inf"
+
+
+@pytest.fixture(scope="module")
+def history_run(tmp_path_factory):
+    """One ``trace exec`` of the port with the history plane on, sealing a
+    window a second into its store."""
+    base = str(tmp_path_factory.mktemp("cli") / "hist")
+    r = run(PORT, "trace", "exec", "--device", "cpu", "--source", "pysynthetic", "--rate",
+            "40000", "--batch-size", "4096", "--timeout", "3", "-F", "uid:99",
+            "--tpusketch-enable", "true", "--tpusketch-harvest-interval", "1s", *SMALL,
+            "--tpusketch-history", "true", "--tpusketch-history-interval", "1s",
+            "--tpusketch-history-dir", base, "--tpusketch-standing-queries", QUERIES)
+    assert r.returncode == 0, r.stderr
+    return base, r.stdout
+
+
+def _answer(cmd, base, *extra):
+    r = run(cmd, "query", "--history", base, "--gadget", "trace/exec", "-o", "json", *extra)
+    assert r.returncode == 0, r.stderr
+    return json.loads(r.stdout)
+
+
+def test_query_reads_the_store_as_the_reference_does(history_run):
+    base, out = history_run
+    got, want = _answer(PORT, base), _answer(REF, base)
+    assert got == want
+    last = [ln for ln in out.splitlines() if ln.startswith("— sketch epoch")][-1]
+    assert got["windows"] >= 2
+    assert got["events"] == int(last.split("events=")[1].split()[0].replace(",", ""))
+    keyed = _answer(PORT, base, "--key", "kind:1")  # exec events are kind 1
+    assert keyed == _answer(REF, base, "--key", "kind:1")
+    assert list(keyed["slices"]) == ["kind:1"] and keyed["slices"]["kind:1"]["events"] > 0
+    pruned = _answer(PORT, base, "--key", "kind:0")  # no window carries it
+    assert pruned == _answer(REF, base, "--key", "kind:0") and pruned["windows"] == 0
+    r = run(PORT, "query", "--history", base, "--slices", "--top", "3", "--quantiles")
+    assert r.returncode == 0 and "window(s) [local]" in r.stdout, r.stderr
+    assert "quantiles: not available" in r.stdout  # sealed without the quantile plane
+
+
+def test_log2_histogram_renders_as_the_reference():
+    import numpy as np
+    from inspektor_gadget_tpu.cli.query import render_histogram_log2 as ref_render
+    from inspektor_gadget_tpu_torch.cli.query import render_histogram_log2
+    hist = np.random.default_rng(3).integers(0, 5000, 40)
+    hist[:6] = 0
+    hist[20] = 0
+    assert render_histogram_log2(hist.tolist()) == ref_render(hist.tolist())
+    assert len(render_histogram_log2(hist.tolist())) == 34 and render_histogram_log2([]) == []
+
+
+def test_history_tiers_compact_and_archive(history_run, tmp_path):
+    """`history compact` folds exactly (the answer is unchanged) and
+    `history archive` offloads what compaction left at the final level;
+    `query --archive-dir` rehydrates it to the same answer. The port's
+    and the reference's passes over two copies of the store give the
+    same segment bytes."""
+    import shutil
+    base, _ = history_run
+    first = _answer(PORT, base)
+    stores = {}
+    for name, cmd in (("port", PORT), ("ref", REF)):
+        copy = str(tmp_path / name)
+        shutil.copytree(base, copy)
+        r = run(cmd, "history", "tiers", "--history", copy, "-o", "json")
+        assert r.returncode == 0, r.stderr
+        tiers = json.loads(r.stdout)["tiers"]
+        assert tiers["levels"]["0"]["windows"] == first["windows"]
+        r = run(cmd, "history", "compact", "--history", copy, "--schedule", SCHEDULE)
+        assert r.returncode == 0 and "super-window(s)" in r.stdout, r.stderr
+        stores[name] = copy
+    (store,) = os.listdir(stores["port"])
+    segs = {n: sorted(f for f in os.listdir(os.path.join(d, store)) if f.startswith("seg-"))
+            for n, d in stores.items()}
+    assert segs["port"] == segs["ref"]
+    for f in segs["port"]:
+        with open(os.path.join(stores["port"], store, f), "rb") as a, \
+                open(os.path.join(stores["ref"], store, f), "rb") as b:
+            assert a.read() == b.read(), f
+    compacted = _answer(PORT, stores["port"])
+    assert compacted["compacted_windows"] == compacted["windows"] > 0
+    arch = str(tmp_path / "archive")
+    r = run(PORT, "history", "archive", "--history", stores["port"], "--archive-dir", arch,
+            "--schedule", SCHEDULE)
+    assert r.returncode == 0 and "segment(s) archived" in r.stdout, r.stderr
+    assert _answer(PORT, stores["port"])["windows"] == 0
+    rehydrated = _answer(PORT, stores["port"], "--archive-dir", arch)
+    for ans in (compacted, rehydrated):
+        for k in ("events", "distinct", "entropy_bits", "heavy_hitters"):
+            assert ans[k] == first[k], k
+
+
+def test_watch_list_and_local(capsys):
+    assert cli.main(["watch", "--list", "-o", "json"]) == 0
+    assert json.loads(capsys.readouterr().out) == {"queries": [], "errors": {}}
+    assert cli.main(["watch", "--local", "--id", "hot"]) == 1
+    assert "no live engine registers query 'hot'" in capsys.readouterr().err
+    assert cli.main(["watch"]) == 2

@@ -10,9 +10,11 @@ take the same numpy-seeded batches through `ingest_folded` and
 and entropy estimates and the accuracy figures derived from them to
 rtol 1e-4 (float32 sums taken in another order); the anomaly scores to
 PERF.md §2's tolerance (ae and vae 5% of each score, seq 0.05 nats).
-Every sealed window must have the reference's `window_digest` and its
-`encode_window` header and payload bytes (the npz's zip entries carry
-the wall clock, pinned here). Checkpoints resume across the packages in
+Each instance seals into its own package's history store; every window
+read back from the port's store must have the reference's
+`window_digest`, and its frame (journal header and npz payload) must be
+the bytes the reference's store holds (the npz's zip entries carry the
+wall clock, pinned here). Checkpoints resume across the packages in
 both directions. Batches stay in the parity regime of PERF.md §1 (a
 batch's weight sum below 2**24).
 """
@@ -29,12 +31,12 @@ import torch
 import inspektor_gadget_tpu.all_gadgets  # noqa: F401
 from inspektor_gadget_tpu.gadgets import GadgetContext, get
 from inspektor_gadget_tpu.history import HISTORY
-from inspektor_gadget_tpu.history import encode_window as ref_encode_window
 from inspektor_gadget_tpu.operators import tpusketch as R
 from inspektor_gadget_tpu.operators.operators import get as get_op
 from inspektor_gadget_tpu.params import ParamError as RefParamError
 from inspektor_gadget_tpu.sources.batch import EventBatch as RefEventBatch
 from inspektor_gadget_tpu.sources.batch import FoldedBatch as RefFoldedBatch
+from inspektor_gadget_tpu_torch.history import HISTORY as PORT_HISTORY
 from inspektor_gadget_tpu_torch.models import vae as PV
 from inspektor_gadget_tpu_torch.models.params import (params_from_numpy, scorer_from_leaves,
                                                       scorer_leaves)
@@ -55,16 +57,18 @@ RTOL = 1e-4
 @pytest.fixture(autouse=True)
 def _release_instances():
     """Drop the instances a test built from both packages' live tables,
-    drain their stagers and close the history writers the reference
-    instances opened, so no state (the active-store gauge included)
+    drain their stagers and close the history writers both packages'
+    instances opened, so no state (the active-store gauges included)
     leaks into other tests."""
     before_r, before_p = set(R._live), set(P._live)
-    before_w = set(HISTORY._writers)
+    before_w = {id(h): set(h._writers) for h in (HISTORY, PORT_HISTORY)}
     yield
-    with HISTORY._mu:
-        opened = [HISTORY._writers.pop(k) for k in list(HISTORY._writers) if k not in before_w]
-    for w in opened:
-        w.close()
+    for h in (HISTORY, PORT_HISTORY):
+        with h._mu:
+            opened = [h._writers.pop(k) for k in list(h._writers)
+                      if k not in before_w[id(h)]]
+        for w in opened:
+            w.close()
     for mod, before in ((R, before_r), (P, before_p)):
         with mod._live_mu:
             fresh = [mod._live.pop(rid) for rid in list(mod._live) if rid not in before]
@@ -107,13 +111,24 @@ def _config(kw: dict) -> P.SketchConfig:
     return P.SketchConfig(**{**small, **kw})
 
 
+class _Stores:
+    """The two instances' history stores, read back by each package's own
+    store reader: (header, payload) frames, oldest first."""
+
+    def __init__(self, tmp_path):
+        self.ref_dir, self.port_dir = str(tmp_path / "ref-hist"), str(tmp_path / "port-hist")
+
+    def ref(self) -> list:
+        return list(HISTORY.fetch_windows(base_dir=self.ref_dir))
+
+    def port(self) -> list:
+        return list(PORT_HISTORY.fetch_windows(base_dir=self.port_dir))
+
+
 def _pair(kw: dict, tmp_path, monkeypatch, run_id: str = "run-1"):
-    """(reference instance, port instance, reference windows, port windows)
-    for the same config, both on the CPU, windows captured where each
-    package seals them."""
-    ref_wins: list = []
-    monkeypatch.setattr(HISTORY, "append_window",
-                        lambda win, writer: ref_wins.append(win) or len(ref_wins))
+    """(reference instance, port instance, their history stores) for the
+    same config, both on the CPU, each sealing into its own store."""
+    stores = _Stores(tmp_path)
     desc = get("trace", "exec")
     ctx = GadgetContext(desc, run_id=run_id,
                         extra={"node": "n0", "history_clock": _Clock()})
@@ -122,17 +137,16 @@ def _pair(kw: dict, tmp_path, monkeypatch, run_id: str = "run-1"):
     p.set("enable", "true")
     params = {**SMALL, **_kebab(kw)}
     if kw.get("history"):
-        params["history-dir"] = str(tmp_path / "hist")
+        params["history-dir"] = stores.ref_dir
     for k, v in params.items():
         p.set(k, v)
     ref = op.instantiate(ctx, None, p)
-    port_wins: list = []
     pctx = P.SketchContext(gadget="trace/exec", run_id=run_id, node="n0",
                            batch_size=ctx.gadget_params.get("batch-size").as_int(),
-                           history_clock=_Clock(),
-                           window_sink=lambda h, b: port_wins.append((h, b)))
-    port = P.TpuSketchInstance(_config(kw), pctx, device="cpu")
-    return ref, port, ref_wins, port_wins
+                           history_clock=_Clock())
+    pkw = dict(kw, history_dir=stores.port_dir) if kw.get("history") else kw
+    port = P.TpuSketchInstance(_config(pkw), pctx, device="cpu")
+    return ref, port, stores
 
 
 def _carry_scorer(ref, port) -> None:
@@ -221,12 +235,12 @@ def _assert_summaries_equal(got: P.SketchSummary, want: R.SketchSummary, model: 
         assert (np.abs(g - w) <= 5e-2 * np.abs(w)).all(), (g, w)
 
 
-def _assert_windows_equal(port_wins, ref_wins) -> None:
+def _assert_windows_equal(stores: _Stores) -> None:
     from inspektor_gadget_tpu_torch.history import decode_window, window_digest
+    port_wins, ref_wins = stores.port(), stores.ref()
     assert len(port_wins) == len(ref_wins) > 0
-    for (header, payload), rw in zip(port_wins, ref_wins):
-        rh, rp = ref_encode_window(rw)
-        assert header["digest"] == rw.digest == window_digest(decode_window(header, payload))
+    for (header, payload), (rh, rp) in zip(port_wins, ref_wins):
+        assert header["digest"] == rh["digest"] == window_digest(decode_window(header, payload))
         assert header == rh
         assert payload == rp
 
@@ -253,7 +267,7 @@ def test_operator_matches_the_reference(case, tmp_path, monkeypatch):
     model = kw.get("anomaly_model", "")
     if kw.get("history"):
         monkeypatch.setattr(time, "time", lambda: PINNED_WALL)  # the npz entries' clock
-    ref, port, ref_wins, port_wins = _pair(
+    ref, port, stores = _pair(
         {**kw, "dist_column": "aux2", "distinct_column": "pid"}, tmp_path, monkeypatch)
     if ref.scorer is not None:
         _carry_scorer(ref, port)
@@ -277,7 +291,7 @@ def test_operator_matches_the_reference(case, tmp_path, monkeypatch):
     if kw.get("history"):
         ref.seal_window()
         port.seal_window()
-        _assert_windows_equal(port_wins, ref_wins)
+        _assert_windows_equal(stores)
     want = jax.tree.leaves(ref.bundle)
     got = bundle_to_numpy(port.bundle)
     assert len(got) == len(want)
@@ -290,7 +304,7 @@ def test_operator_matches_the_reference(case, tmp_path, monkeypatch):
 
 
 def test_heavy_hitter_rows_match_the_reference(tmp_path, monkeypatch):
-    ref, port, _, _ = _pair({}, tmp_path, monkeypatch)
+    ref, port, _ = _pair({}, tmp_path, monkeypatch)
     rng = np.random.default_rng(5)
     _feed_events(ref, port, _event_cols(rng, 3000), 3000, drops=0)
     assert port.heavy_hitter_rows(k=6) == [
@@ -299,19 +313,19 @@ def test_heavy_hitter_rows_match_the_reference(tmp_path, monkeypatch):
 
 
 def test_summary_and_window_hooks_fire(tmp_path, monkeypatch):
-    ref, port, ref_wins, port_wins = _pair(dict(history=True, history_interval=0.0),
-                                           tmp_path, monkeypatch)
+    ref, port, stores = _pair(dict(history=True, history_interval=0.0), tmp_path, monkeypatch)
     summaries, announced = [], []
     port.ctx.on_sketch_summary = summaries.append
     port.ctx.on_window_sealed = announced.append
     rng = np.random.default_rng(6)
     _feed_events(ref, port, _event_cols(rng, 2000), 2000, drops=0)
     s = port.harvest()
-    assert summaries == [s] and len(announced) == len(port_wins) == 1
-    assert announced[0]["digest"] == port_wins[0][0]["digest"]
+    assert summaries == [s] and len(announced) == len(stores.port()) == 1
+    assert announced[0]["digest"] == stores.port()[0][0]["digest"]
     assert set(port.last_harvest_ms) == {"digest_decode", "finish", "anomaly", "seal", "total"}
+    assert set(port.last_seal_ms) == {"d2h", "encode", "append", "queries", "total"}
     port.seal_window()  # an empty window is skipped
-    assert len(port_wins) == 1
+    assert len(stores.port()) == 1
 
 
 # -- checkpoints across the packages -------------------------------------------
@@ -321,7 +335,7 @@ CKPT = dict(invertible=True, inv_log2_buckets=9, priority_classes="hot=8:101,res
 
 
 def _fed_pair(tmp_path, monkeypatch, run_id: str):
-    ref, port, _, _ = _pair(CKPT, tmp_path, monkeypatch, run_id)
+    ref, port, _ = _pair(CKPT, tmp_path, monkeypatch, run_id)
     _carry_scorer(ref, port)
     rng = np.random.default_rng(7)
     cap = port._pad
@@ -350,7 +364,7 @@ def test_checkpoint_resumes_in_the_other_package(writer, tmp_path, monkeypatch):
                      "trace-exec-scorer.json", "trace-exec-scorer.npz", "trace-exec.json",
                      "trace-exec.npz"]
     written = [np.asarray(x) for x in jax.tree.leaves(ref.bundle)]
-    ref2, port2, _, _ = _pair(CKPT, tmp_path, monkeypatch, "run-b")
+    ref2, port2, _ = _pair(CKPT, tmp_path, monkeypatch, "run-b")
     # both resumed from the one file: each bundle is the checkpointed one
     for got, want in ((bundle_to_numpy(port2.bundle), written),
                       ([np.asarray(x) for x in jax.tree.leaves(ref2.bundle)], written)):
@@ -446,6 +460,13 @@ def test_a_torn_checkpoint_means_fresh_state(tmp_path, caplog):
     (dict(quantile_alpha=0.05), "needs 'quantiles true'"),
     (dict(quantile_field="aux2"), "needs 'quantiles true'"),
     (dict(quantiles=True, quantile_field="nope"), "is not a wire column"),
+    (dict(query_cache_bytes=1 << 12), "needs 'standing-queries'"),
+    (dict(query_refresh=2), "needs 'standing-queries'"),
+    (dict(query_max_range=3600.0), "needs 'standing-queries'"),
+    (dict(standing_queries='[{"id": "q", "stats": ["topk"], "range": "1m"}]'),
+     "needs 'history true'"),
+    (dict(history=True, standing_queries='[{"id": "q", "stats": ["median"], "range": 30}]'),
+     "unknown statistic"),
 ])
 def test_cross_param_errors_match_the_reference(kw, match, tmp_path, monkeypatch):
     with pytest.raises(RefParamError, match=match) as ref_err:
@@ -466,9 +487,10 @@ def test_cross_param_errors_match_the_reference(kw, match, tmp_path, monkeypatch
     (dict(chips="x"), "not an integer or 'auto'"),
     (dict(shard_ingest=True), "ROADMAP item 11"),
     (dict(chips=4), "ROADMAP item 11"),
-    (dict(standing_queries="[]"), "ROADMAP item 10c"),
-    (dict(history_compact=True), "ROADMAP item 10c"),
-    (dict(history=True), "needs a window_sink"),
+    (dict(standing_queries='[{"id": "q", "stats": ["topk"], "range": "1m"}]'),
+     "needs 'history true'"),
+    (dict(history=True, standing_queries="[]"), "no queries defined"),
+    (dict(query_refresh=3), "needs 'standing-queries'"),
 ])
 def test_param_errors(kw, match):
     with pytest.raises(P.ParamError, match=match):

@@ -9,8 +9,11 @@ plane and the ae scorer, at the small geometry of
 ``tests/test_torch_operator.py``), the final `SketchSummary`s agree to
 that file's tolerances, the port's tracer records the run span with the
 reference's ``tpusketch/*`` children, and ``top/sketch`` reads the live
-instance during the run and nothing after it. Parameters the port does
-not run yet become the node's error, naming their ROADMAP item.
+instance during the run and nothing after it. With the history plane on,
+each package's run seals into its own store the same windows, and
+``top/windows`` lists the port's. Parameters the port does not run yet
+become the node's error, naming their ROADMAP item, as do the
+reference's cross-param errors.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 import inspektor_gadget_tpu.all_gadgets  # noqa: F401
 import inspektor_gadget_tpu_torch.all_gadgets  # noqa: F401
+from inspektor_gadget_tpu.history import HISTORY as REF_HISTORY
 from inspektor_gadget_tpu import gadgets as RG
 from inspektor_gadget_tpu import params as RPm
 from inspektor_gadget_tpu.operators import operators as ROps
@@ -33,6 +37,7 @@ from inspektor_gadget_tpu.telemetry.tracing import TRACER as REF_TRACER
 from inspektor_gadget_tpu_torch import gadgets as PG
 from inspektor_gadget_tpu_torch import params as PPm
 from inspektor_gadget_tpu_torch.gadgets.top import sketch as top_sketch
+from inspektor_gadget_tpu_torch.history import HISTORY, decode_window
 from inspektor_gadget_tpu_torch.models.params import params_from_numpy
 from inspektor_gadget_tpu_torch.operators import operators as POps
 from inspektor_gadget_tpu_torch.operators import tpusketch as P
@@ -55,7 +60,7 @@ class _Run:
     """One package's LocalRuntime run of trace/exec."""
 
     def __init__(self, port: bool, sketch: dict | None, rows: bool = False,
-                 on_batch=None, batches: int = BATCHES):
+                 on_batch=None, batches: int = BATCHES, extra: dict | None = None):
         G, Pm, Ops = (PG, PPm, POps) if port else (RG, RPm, ROps)
         desc = G.get("trace", "exec")
         gp = desc.params().to_params()
@@ -71,7 +76,8 @@ class _Run:
         kw = {"device": "cpu"} if port else {}
         self.ctx = G.GadgetContext(desc, gadget_params=gp,
                                    operator_params=Pm.Collection({"operator.tpusketch.": sp}),
-                                   extra={"on_sketch_summary": self.summaries.append}, **kw)
+                                   extra={"on_sketch_summary": self.summaries.append,
+                                          **(extra or {})}, **kw)
         self.batches = 0
 
         def batch_cb(batch):
@@ -225,14 +231,60 @@ def test_top_sketch_reads_the_live_instance(sketch_runs):
 @pytest.mark.parametrize("sketch, item", [
     ({"chips": "2"}, "ROADMAP item 11"),
     ({"shard-ingest": "true"}, "ROADMAP item 11"),
-    ({"standing-queries": "[]"}, "ROADMAP item 10c"),
-    ({"history": "true"}, "ROADMAP item 10c"),
-    ({"query-refresh": "3"}, "ROADMAP item 10c"),
+    ({"standing-queries": '[{"id": "q", "stats": ["topk"], "range": "1m"}]'},
+     "needs 'history true'"),
+    ({"history": "true", "standing-queries": "[]"}, "no queries defined"),
+    ({"query-refresh": "3"}, "needs 'standing-queries'"),
 ])
 def test_unported_params_become_the_node_error(sketch, item):
     run = _Run(True, sketch)
     assert run.result.error is not None and item in run.result.error
     assert run.batches == 0
+
+
+@pytest.fixture()
+def close_writers():
+    """Close the history writers both packages' runs opened."""
+    opened = {id(h): set(h._writers) for h in (HISTORY, REF_HISTORY)}
+    yield
+    for h in (HISTORY, REF_HISTORY):
+        with h._mu:
+            fresh = [h._writers.pop(k) for k in list(h._writers) if k not in opened[id(h)]]
+        for w in fresh:
+            w.close()
+
+
+def test_history_run_writes_the_store_and_top_windows_lists_it(tmp_path, monkeypatch,
+                                                               close_writers):
+    """``history true`` through the framework: each package's run seals
+    one window a harvest into its own store, on one injected clock and
+    run id; the windows read back are the same, header and arrays, and
+    ``top/windows`` lists the port's store ($IG_HISTORY_DIR)."""
+    hist = {"history": "true", "history-interval": "0", "harvest-interval": "1h",
+            "invertible": "true", "inv-log2-buckets": "9", "quantiles": "true"}
+    frames = {}
+    for port, h in ((False, REF_HISTORY), (True, HISTORY)):
+        base = str(tmp_path / ("port" if port else "ref"))
+        tick = iter(range(1, 100))
+        extra = {"history_clock": lambda: 1.7e9 + next(tick)}
+        run = _Run(port, {**hist, "history-dir": base}, extra=extra)
+        assert run.result.error is None, run.result.error
+        frames[port] = list(h.fetch_windows(base_dir=base))
+    (got,), (want,) = frames[True], frames[False]
+    assert got[0] == {**want[0], "run_id": got[0]["run_id"]}
+    assert got[0]["events"] == BATCHES * BATCH and got[0]["ts"] == got[0]["end_ts"]
+    gw, ww = decode_window(*got), decode_window(*want)
+    for name in ("cms", "hll", "ent", "topk_keys", "topk_counts", "inv_count", "qt_counts"):
+        a, b = getattr(gw, name), getattr(ww, name)
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    assert gw.digest == ww.digest
+    monkeypatch.setenv("IG_HISTORY_DIR", str(tmp_path / "port"))
+    tctx = PG.GadgetContext(PG.get("top", "windows"))
+    top = tctx.desc.new_instance(tctx)
+    top.setup(tctx)
+    (row,) = top.collect(tctx)
+    assert (row.gadget, row.window, row.seq, row.events) == ("trace/exec", 1, 1, BATCHES * BATCH)
+    assert row.slices == len(got[0]["keys"]) > 0 and row.span_s == 1.0
 
 
 def test_a_disabled_sketch_plane_needs_no_device():
