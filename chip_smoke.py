@@ -70,6 +70,26 @@ in events, distinct, entropy and heavy hitters. Each subprocess's wall
 time and the time of torch's import and of the history functions in it
 are logged.
 
+Capture, alerts and replay (phase 5f): (a) 5d(a)'s run with the history
+plane sealing a window a harvest, a harvest every 4 batches, five JSON
+alert rules on sketch fields and the capture operator journaling it
+(unlimited retention: the journal outgrows the default 256 MB); the same
+run without capture; then `replay_journal` of the journal twice on the
+card and once on the CPU. Each card replay must reproduce the recorded
+summary digests (ae scores included) and alert transitions, launch K2
+once a replayed batch and reseal the recorded run's windows; the CPU
+replay's summaries must equal the card's (estimates to rtol 1e-5, ae
+within 5%), with the same transitions and windows; the journal must hold
+the run-end resolve. (b) The CLI, ``trace exec --source synthetic --rate
+2000000 --timeout 5 -F uid:99`` with the same flags plus
+``--capture-dir``, ``--capture-retention-bytes 0`` and
+``--alerts-rules-file``, then ``record inspect``, ``replay --verify -o
+json``, ``alerts rules`` and ``alerts test --journal``, each a subprocess
+that must exit 0, the replay reporting ``digests_match`` and
+``alerts_match``. Events/s with and without capture, journal bytes a
+batch, replay events/s on the card and on the CPU and each subprocess's
+wall time (torch's import timed) are logged.
+
 The launch counts are set to 0 just before each card run of a path and
 read just after it.
 
@@ -140,6 +160,24 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def reset_launches() -> None:
+    """Every wrapper's launch count to 0 (each adds one where it launches)."""
+    from inspektor_gadget_tpu_torch.ops import kernels as K
+    from inspektor_gadget_tpu_torch.parallel import flash_attention as FA
+    K.histogram.launches = 0
+    K.fused_planes.launches = 0
+    FA.flash_attention.launches = 0
+
+
+def read_launches() -> dict[str, int]:
+    from inspektor_gadget_tpu_torch.ops import kernels as K
+    from inspektor_gadget_tpu_torch.parallel import flash_attention as FA
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return {"K1": K.histogram.launches, "K2": K.fused_planes.launches,
+            "K3": FA.flash_attention.launches}
 
 
 def k3_bound(shape, dtype: torch.dtype, causal: bool) -> tuple[float, str]:
@@ -775,17 +813,21 @@ def _metric(snap: dict, name: str) -> float:
     return float(snap.get(f'{name}{{gadget="trace/exec"}}', 0.0))
 
 
-def gadget_run(device: str, batches: int, batch: int) -> dict:
+def gadget_run(device: str, batches: int, batch: int, *, ops: dict | None = None,
+               harvest_every: int = 0) -> dict:
     """``trace/exec`` through the port's `LocalRuntime`: the pysynthetic
     source (seed 7, vocab 2000, zipf 1.2, batches of `batch` paced at
     1e9 events/s), the sketch plane with GADGET_SKETCH and a harvest
-    interval of 1h (so the only harvest is post_gadget_run's), the
-    context cancelled from the batch callback after `batches` batches.
-    Returns the final summary, the run's seconds and its harvest ms
-    (``ig_tpusketch_harvest_seconds``)."""
-    from inspektor_gadget_tpu_torch import all_gadgets  # noqa: F401 — registers trace/exec
+    interval of 1h (so the only harvest is post_gadget_run's, unless the
+    batch callback harvests every `harvest_every` batches), the context
+    cancelled from the batch callback after `batches` batches. `ops`
+    maps operator names to more param values (``tpusketch``'s on top of
+    GADGET_SKETCH). Returns the summaries, the alert transitions, the
+    run's seconds and its harvest ms (``ig_tpusketch_harvest_seconds``)."""
+    from inspektor_gadget_tpu_torch import all_gadgets  # noqa: F401 — registers everything
     from inspektor_gadget_tpu_torch.gadgets import GadgetContext, get
     from inspektor_gadget_tpu_torch.operators import get as get_op
+    from inspektor_gadget_tpu_torch.operators.tpusketch import live_instances
     from inspektor_gadget_tpu_torch.params import Collection
     from inspektor_gadget_tpu_torch.runtime import LocalRuntime
     from inspektor_gadget_tpu_torch.telemetry import snapshot
@@ -794,17 +836,26 @@ def gadget_run(device: str, batches: int, batch: int) -> dict:
     for k, v in {"source": "pysynthetic", "seed": "7", "vocab": "2000", "zipf": "1.2",
                  "batch-size": str(batch), "rate": "1e9"}.items():
         gp.set(k, v)
-    sp = get_op("tpusketch").instance_params().to_params()
-    for k, v in {"enable": "true", **GADGET_SKETCH, "harvest-interval": "1h"}.items():
-        sp.set(k, v)
+    ops = dict(ops or {})
+    ops["tpusketch"] = {"enable": "true", **GADGET_SKETCH, "harvest-interval": "1h",
+                        **ops.get("tpusketch", {})}
+    col = Collection()
+    for name, values in ops.items():
+        col[f"operator.{name}."] = get_op(name).instance_params().to_params()
+        for k, v in values.items():
+            col[f"operator.{name}."].set(k, v)
     summaries: list = []
-    ctx = GadgetContext(desc, gadget_params=gp,
-                        operator_params=Collection({"operator.tpusketch.": sp}),
-                        extra={"on_sketch_summary": summaries.append}, device=device)
+    alerts: list[dict] = []
+    ctx = GadgetContext(desc, gadget_params=gp, operator_params=col,
+                        extra={"on_sketch_summary": summaries.append,
+                               "on_alert_event": alerts.append}, device=device)
     seen = [0]
 
     def on_batch(_batch) -> None:
         seen[0] += 1
+        if harvest_every and seen[0] % harvest_every == 0:
+            (inst,) = [i for i in live_instances() if i.ctx.run_id == ctx.run_id]
+            inst.harvest()
         if seen[0] == batches:
             ctx.cancel()
 
@@ -815,27 +866,30 @@ def gadget_run(device: str, batches: int, batch: int) -> dict:
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     require(res.error is None, f"gadget run on {device}: {res.error}")
-    require(seen[0] == batches and len(summaries) == 1,
+    harvests = (batches // harvest_every if harvest_every else 0) + 1
+    require(seen[0] == batches and len(summaries) == harvests,
             f"gadget run on {device}: {seen[0]} batches, {len(summaries)} harvests")
     after = snapshot()
     h_n = (_metric(after, "ig_tpusketch_harvest_seconds_count")
            - _metric(before, "ig_tpusketch_harvest_seconds_count"))
     h_s = (_metric(after, "ig_tpusketch_harvest_seconds_sum")
            - _metric(before, "ig_tpusketch_harvest_seconds_sum"))
-    return {"summary": summaries[-1], "seconds": secs, "ev_per_s": batches * batch / secs,
+    return {"summary": summaries[-1], "summaries": summaries, "alerts": alerts,
+            "seconds": secs, "ev_per_s": batches * batch / secs,
             "harvest_ms": h_s / max(h_n, 1) * 1e3}
 
 
 def cli_run(device: str, batch: int, seconds: int, dump: Path, sketch: dict,
-            extra: tuple[str, ...] = ()) -> dict:
+            extra: tuple[str, ...] = (), rate: str = "30000000") -> dict:
     """``trace exec`` of the port's CLI as a subprocess on the native
     synthetic source at a rate above what its capture thread makes, the
     display filtered to nothing (``-F uid:99``; the synthetic uids are
     0-3) so only the sketch summaries print. Returns its sketch epochs
     (each with its heavy-hitter lines), the run span's seconds, K2's
     launches and the metrics of the run; the tracer's ring is sized to
-    keep every span of the run. `extra` flags go after the sketch's."""
-    args = ["trace", "exec", "--device", device, "--source", "synthetic", "--rate", "30000000",
+    keep every span of the run, and the ``!! alert`` lines it printed.
+    `extra` flags go after the sketch's."""
+    args = ["trace", "exec", "--device", device, "--source", "synthetic", "--rate", rate,
             "--vocab", "2000", "--batch-size", str(batch), "--timeout", str(seconds),
             "-F", "uid:99", "--tpusketch-enable", "true", "--tpusketch-harvest-interval", "1s"]
     for k, v in sketch.items():
@@ -864,6 +918,7 @@ def cli_run(device: str, batch: int, seconds: int, dump: Path, sketch: dict,
     steps = _metric(m, "ig_tpusketch_steps_total")
     require(0 < len(starts) == steps, f"CLI run: {len(starts)} batch spans for {steps} steps")
     return {"epochs": epochs, "run_s": run["duration"], "process_s": wall,
+            "alert_lines": [ln for ln in proc.stdout.splitlines() if ln.startswith("!! alert")],
             "setup_s": min(starts) - run["start"],
             "batches_s": run["start"] + run["duration"] - min(starts),
             "k2_launches": info["k2_launches"],
@@ -976,6 +1031,226 @@ def history_cli(args: list[str], dump: Path) -> dict:
     require(proc.returncode == 0, f"ig-tpu-torch {' '.join(args[:2])} exited "
                                   f"{proc.returncode}: {proc.stderr[-2000:]}")
     return {"stdout": proc.stdout, "wall_s": wall, **json.loads(dump.read_text())}
+
+
+# phase 5f: capture, alerts and replay. Rules on sketch fields only (the
+# timed pipeline fields cannot replay identically); `busy` fires once the
+# run passes a quarter of its events (2**20 on the card) and resolves when
+# the run ends, so the engine's end-of-run resolve must reach the journal
+
+
+def capture_rules(events: int) -> list[dict]:
+    return [
+        {"id": "busy", "kind": "threshold", "field": "events", "op": ">",
+         "threshold": events // 4, "severity": "info"},
+        {"id": "entropy", "kind": "entropy_jump", "threshold": 0.05, "window": 3},
+        {"id": "distinct", "kind": "cardinality_spike", "factor": 1.5, "window": 3},
+        {"id": "churn", "kind": "heavy_hitter_churn", "threshold": 0.3},
+        {"id": "p99", "kind": "quantile_shift", "field": "p99", "factor": 1.5, "window": 3},
+    ]
+
+
+CAPTURE_BATCHES = 32
+CAPTURE_HARVEST_EVERY = 4
+CAPTURE_CLI_SECONDS = 5
+CAPTURE_HISTORY = ("--tpusketch-history", "true", "--tpusketch-history-interval", "0")
+
+
+def _transitions(alerts: list[dict]) -> list[tuple]:
+    return [(a["rule"], a.get("key", ""), a["transition"], a.get("epoch", 0)) for a in alerts]
+
+
+def capture_run(device: str, batches: int, batch: int, root: Path, rules: Path, *,
+                capture: bool) -> dict:
+    """`gadget_run` with the history plane sealing a window a harvest
+    into ``root/hist-live`` (``root/hist-plain`` without capture), the
+    alert rules of `rules`, a harvest every CAPTURE_HARVEST_EVERY
+    batches, and with `capture` the capture operator journaling into
+    ``root/journal`` with unlimited retention. Adds the run's journal and
+    its sealed windows' digests to `gadget_run`'s result."""
+    from inspektor_gadget_tpu_torch.capture import iter_journals
+    from inspektor_gadget_tpu_torch.history import HISTORY
+    hist, journal = root / ("hist-live" if capture else "hist-plain"), root / "journal"
+    shutil.rmtree(hist, ignore_errors=True)
+    if capture:
+        shutil.rmtree(journal, ignore_errors=True)
+    out = gadget_run(device, batches, batch, harvest_every=CAPTURE_HARVEST_EVERY, ops={
+        "tpusketch": {"history": "true", "history-interval": "0", "history-dir": str(hist)},
+        "alerts": {"rules-file": str(rules), "log": "false"},
+        "capture": {"dir": str(journal) if capture else "", "retention-bytes": "0"}})
+    out["windows"] = [r["digest"] for r in HISTORY.list_windows(base_dir=str(hist),
+                                                                 gadget="trace/exec")]
+    if capture:
+        (out["journal"],) = iter_journals(str(journal))
+    return out
+
+
+def replay_run(jpath: str, device: str, hist: Path) -> dict:
+    """`replay_journal` of `jpath` on `device`, its resealed windows into
+    `hist`. Returns the `ReplayResult`, the harvested `SketchSummary`s
+    (taken where the replay turns each into its digest dict), its seconds
+    and events/s and the windows' digests."""
+    from inspektor_gadget_tpu_torch.capture import replay as RP
+    from inspektor_gadget_tpu_torch.history import HISTORY
+    shutil.rmtree(hist, ignore_errors=True)
+    summaries: list = []
+    to_dict = RP.summary_to_dict
+
+    def keep(summary):
+        summaries.append(summary)
+        return to_dict(summary)
+
+    RP.summary_to_dict = keep
+    t0 = time.perf_counter()
+    try:
+        res = RP.replay_journal(jpath, device=device,
+                                param_overrides={"operator.tpusketch.history-dir": str(hist)})
+    finally:
+        RP.summary_to_dict = to_dict
+    if device == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return {"result": res, "summaries": summaries, "seconds": secs,
+            "ev_per_s": res.events / secs,
+            "windows": [r["digest"] for r in HISTORY.list_windows(base_dir=str(hist),
+                                                                   gadget="trace/exec")]}
+
+
+def capture_route(device: str, batches: int, batch: int, root: Path) -> dict:
+    """Phase 5f (a): `capture_run` with the capture operator, the same
+    run without it, then the journal replayed twice on `device` and once
+    on the CPU. Each replay on `device` must reproduce the recording's
+    digests (ae scores included) and transitions, launch K2 once a
+    replayed batch and reseal the recorded run's windows; the CPU
+    replay's summaries must equal the card's (`compare_summaries`, ae
+    within 5%), with the same transitions and windows. The recording
+    must hold a transition and the run-end resolve. Runs on the CPU too,
+    at small sizes."""
+    from inspektor_gadget_tpu_torch.capture import JournalReader
+    from inspektor_gadget_tpu_torch.capture.journal import dir_stats
+    root.mkdir(parents=True, exist_ok=True)
+    rules = root / "rules.json"
+    rules.write_text(json.dumps(capture_rules(batches * batch)))
+    on_card = device == "cuda"
+    reset_launches()
+    rec = capture_run(device, batches, batch, root, rules, capture=True)
+    rec_k2 = read_launches()["K2"]
+    require(not on_card or rec_k2 == batches, f"recorded run: K2 {rec_k2} launches")
+    plain = capture_run(device, batches, batch, root, rules, capture=False)
+    jpath = rec["journal"]
+    reader = JournalReader(jpath)
+    stats = reader.stats()
+    _segments, jbytes = dir_stats(jpath)
+    raw = sum(len(p) for _h, p in reader.records(types=(4,)))  # EV_BATCH_NPZ payloads
+    replays, k2 = [], rec_k2
+    for i, dev in enumerate((device, device, "cpu")):
+        reset_launches()
+        rp = replay_run(jpath, dev, root / f"hist-replay{i}")
+        rp["k2_launches"] = read_launches()["K2"]
+        replays.append(rp)
+        if dev == device and on_card:
+            k2 += rp["k2_launches"]
+    card1, card2, cpu = replays
+    busy = [a["transition"] for a in card1["result"].recorded_alerts if a["rule"] == "busy"]
+    require(busy == ["pending", "firing", "resolved"],
+            f"recorded `busy` transitions {busy}: the run-end resolve must be journaled")
+    for n, rp in enumerate((card1, card2), 1):
+        r = rp["result"]
+        require(r.digests_match and r.alerts_match and not r.losses,
+                f"replay {n} on {device}: digests_match {r.digests_match}, alerts_match "
+                f"{r.alerts_match}, losses {r.losses}")
+        require(r.batches == batches and (not on_card or rp["k2_launches"] == r.batches),
+                f"replay {n} on {device}: {r.batches} batches, K2 {rp['k2_launches']} launches")
+        require(rp["windows"] == rec["windows"] and len(rec["windows"]) > 1,
+                f"replay {n} on {device}: resealed windows differ from the recorded run's")
+    require(_transitions(card1["result"].recorded_alerts) == _transitions(rec["alerts"]),
+            "the journal's transitions differ from the run's")
+    gap = 0.0
+    require(len(cpu["summaries"]) == len(card1["summaries"]) > 1, "CPU replay: harvests differ")
+    for j, (g, w) in enumerate(zip(card1["summaries"], cpu["summaries"])):
+        gap = max(gap, compare_summaries(g, w, f"replay, harvest {j}, {device} vs CPU",
+                                         anomaly_rel=5e-2))
+    require(_transitions(cpu["result"].alerts) == _transitions(card1["result"].alerts),
+            "CPU replay: transitions differ")
+    require(cpu["windows"] == card1["windows"], "CPU replay: resealed windows differ")
+    info = {"recorded_ev_per_s": rec["ev_per_s"], "recorded_s": rec["seconds"],
+            "no_capture_ev_per_s": plain["ev_per_s"], "no_capture_s": plain["seconds"],
+            "journal_bytes": jbytes, "journal_bytes_per_batch": jbytes / batches,
+            "raw_npz_bytes_per_batch": raw / batches, "records": stats["by_type"],
+            "transitions": len(rec["alerts"]), "harvests": len(card1["summaries"]),
+            "windows": len(rec["windows"]), "k2_launches": k2, "ae_rel_gap": gap,
+            "replays": [{"device": d, "seconds": rp["seconds"], "ev_per_s": rp["ev_per_s"],
+                         "k2_launches": rp["k2_launches"],
+                         "digests_match": rp["result"].digests_match,
+                         "alerts_match": rp["result"].alerts_match}
+                        for d, rp in zip((device, device, "cpu"), replays)]}
+    log(f"[capture] (5f a) LocalRuntime trace/exec recorded ({batches} x {batch} events, every "
+        f"plane of 5d, history a window a harvest, 5 rules): "
+        f"{rec['ev_per_s']:.0f} events/s ({rec['seconds']:.2f} s), the same run without capture "
+        f"{plain['ev_per_s']:.0f} ({plain['seconds']:.2f} s); journal {jbytes} bytes, "
+        f"{jbytes / batches:.0f} a batch ({raw / batches:.0f} of npz before zlib), records "
+        f"{stats['by_type']}; {len(rec['alerts'])} transitions, {len(rec['windows'])} windows")
+    log(f"[capture] (5f a) replays: " + "; ".join(
+        f"{d} {rp['ev_per_s']:.0f} events/s ({rp['seconds']:.2f} s, K2 {rp['k2_launches']}, "
+        f"digests_match {rp['result'].digests_match}, alerts_match {rp['result'].alerts_match})"
+        for d, rp in zip((device, device, "cpu"), replays))
+        + f"; the CPU's summaries equal the card's (ae within {gap:.3g} of a score), its "
+        f"transitions and windows the same; `busy` {busy}")
+    return info
+
+
+def capture_cli(device: str, batch: int, root: Path, no_capture_ev_per_s: float) -> dict:
+    """Phase 5f (b): `cli_run` at 2M events/s asked for CAPTURE_CLI_SECONDS
+    with GADGET_SKETCH, a window a harvest, ``--capture-dir`` (unlimited
+    retention) and ``--alerts-rules-file``; then ``record inspect``,
+    ``replay --verify -o json``, ``alerts rules`` and ``alerts test
+    --journal``, each a subprocess through `history_cli` that must exit
+    0. The replay must report ``digests_match`` and ``alerts_match``, over
+    every recorded batch and harvest."""
+    rules, journal, hist = root / "rules.json", root / "cli-journal", root / "cli-hist"
+    for d in (journal, hist):
+        shutil.rmtree(d, ignore_errors=True)
+    run = cli_run(device, batch, CAPTURE_CLI_SECONDS, root / "cli-run.json", GADGET_SKETCH,
+                  extra=(*CAPTURE_HISTORY, "--tpusketch-history-dir", str(hist),
+                         "--capture-dir", str(journal), "--capture-retention-bytes", "0",
+                         "--alerts-rules-file", str(rules)), rate="2000000")
+    ep = run["epochs"]
+    require(len(ep) >= 2 and run["alert_lines"], f"CLI capture run: {len(ep)} sketch epochs, "
+                                                 f"{len(run['alert_lines'])} alert lines")
+    run["ev_per_s"] = ep[-1]["events"] / run["run_s"]
+    dump = root / "cli-step.json"
+    steps = {"record inspect": history_cli(["record", "inspect", str(journal)], dump),
+             "replay --verify": history_cli(["replay", str(journal), "--verify", "-o", "json",
+                                             "--device", device], dump),
+             "alerts rules": history_cli(["alerts", "rules", "--file", str(rules)], dump),
+             "alerts test": history_cli(["alerts", "test", "--file", str(rules), "--journal",
+                                         str(journal)], dump)}
+    (jstats,) = json.loads(steps["record inspect"]["stdout"])["journals"].values()
+    (rep,) = json.loads(steps["replay --verify"]["stdout"])
+    require(rep["digests_match"] and rep["alerts_match"] and rep["harvests"] == len(ep)
+            and rep["batches"] == jstats["by_type"]["4"] == run["steps"],
+            f"CLI replay: {json.dumps({k: rep[k] for k in ('batches', 'harvests', 'alerts')})}, "
+            f"digests_match {rep['digests_match']}, alerts_match {rep['alerts_match']}; the run "
+            f"printed {len(ep)} epochs over {run['steps']:.0f} steps")
+    require("5 rule(s) ok" in steps["alerts rules"]["stdout"],
+            "alerts rules: the rule file did not validate")
+    require(f"1 journal(s), {len(ep)} summaries" in steps["alerts test"]["stdout"],
+            f"alerts test: {steps['alerts test']['stdout'][-300:]}")
+    log(f"[capture] (5f b) CLI trace exec --rate 2000000 --timeout {CAPTURE_CLI_SECONDS} "
+        f"--capture-dir --alerts-rules-file: exit 0, {run['ev_per_s']:.0f} events/s over the run "
+        f"span ({run['run_s']:.2f} s, set-up {run['setup_s']:.2f} s, {run['process_s']:.1f} s of "
+        f"process; 5d(b) without capture {no_capture_ev_per_s:.0f} at 30M asked), {len(ep)} "
+        f"epochs, {len(run['alert_lines'])} alert lines, drops {ep[-1]['drops']}, K2 "
+        f"{run['k2_launches']} launches; journal {jstats['records']} records, replay "
+        f"{rep['batches']} batches, {rep['harvests']} harvests, {rep['alerts']} transitions, "
+        f"digests_match and alerts_match true")
+    for name, st in steps.items():
+        log(f"[capture] (5f b) {name}: exit 0, {st['wall_s']:.2f} s of process, torch's import "
+            f"{st['torch_import_s']:.2f} s, the command {st['cli_s']:.2f} s")
+    return {"cli_run": {k: v for k, v in run.items() if k != "alert_lines"},
+            "alert_lines": len(run["alert_lines"]),
+            "steps": {k: {x: y for x, y in v.items() if x != "stdout"} for k, v in steps.items()},
+            "replay": rep}
 
 
 def main() -> int:
@@ -1127,16 +1402,6 @@ def main() -> int:
                         continue
         except Exception as e:  # reported by the consumer below
             producer_error.append(e)
-
-    def reset_launches() -> None:
-        K.histogram.launches = 0
-        K.fused_planes.launches = 0
-        FA.flash_attention.launches = 0
-
-    def read_launches() -> dict[str, int]:
-        torch.cuda.synchronize()
-        return {"K1": K.histogram.launches, "K2": K.fused_planes.launches,
-                "K3": FA.flash_attention.launches}
 
     # path 1, staged ingest: pool -> stager -> bundle_ingest_step (K2)
     reset_launches()
@@ -1520,6 +1785,21 @@ def main() -> int:
     launches["K2"] += hc["k2_launches"]
     report["history"] = {"operator": op_info["history"], **hist}
 
+    # -- 5f. capture, alerts and replay --------------------------------------------
+    cap_root = ckpt_root.parent / "chip_smoke_capture"
+    shutil.rmtree(cap_root, ignore_errors=True)
+    t_cap = time.perf_counter()
+    cap = capture_route("cuda", CAPTURE_BATCHES, batch, cap_root)
+    launches["K2"] += cap["k2_launches"]
+    cap_cli = capture_cli("cuda", batch, cap_root, cli["ev_per_s"])
+    cc = cap_cli["cli_run"]
+    require(cc["k2_launches"] == cc["steps"] > 0,
+            f"CLI capture run: K2 launched {cc['k2_launches']} times over {cc['steps']} steps")
+    launches["K2"] += cc["k2_launches"]
+    report["capture"] = {**cap, "cli": cap_cli, "seconds": time.perf_counter() - t_cap}
+    log(f"[capture] phase 5f took {report['capture']['seconds']:.1f} s")
+    shutil.rmtree(cap_root, ignore_errors=True)  # hundreds of MB of journals
+
     # -- 6. K3 against its plain version ----------------------------------------
     # the plain versions' float32 matmuls run in full f32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1673,6 +1953,18 @@ def main() -> int:
     q, k, v = k3_inputs(long_shape, torch.bfloat16, gen, dev)
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     long_bound = k3_bound(long_shape, torch.bfloat16, True)
+    # the harvest's entropy in the reference's float32 arithmetic (~200 small
+    # torch ops): host clock over 20 calls ending in a synchronize
+    from inspektor_gadget_tpu_torch.ops.entropy import entropy_estimate
+    entropy_estimate(bundle.entropy)
+    torch.cuda.synchronize()
+    t_ent = time.perf_counter()
+    for _ in range(20):
+        entropy_estimate(bundle.entropy)
+    torch.cuda.synchronize()
+    report["entropy_estimate_ms"] = (time.perf_counter() - t_ent) / 20 * 1e3
+    log(f"[time] the harvest's entropy estimate over {1 << ent_lw} buckets: "
+        f"{report['entropy_estimate_ms']:.3f} ms a call (host clock)")
     report["k3_long_window"] = {
         "shape": long_shape, "ms": time_cuda(lambda: FA.flash_attention(q, k, v), per_round=2),
         "plain_ms": time_cuda(lambda: FA.flash_attention_plain(q, k, v), rounds=5, per_round=1,

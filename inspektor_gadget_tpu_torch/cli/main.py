@@ -7,9 +7,10 @@ parser callback → formatter (registry.go:172-346). `ig` uses the local
 runtime (cmd/ig/main.go:36-57).
 
 The port's copy of ``inspektor_gadget_tpu/cli/main.py``: ``list``,
-``catalog``, ``version``, the gadget commands on the local runtime, and
-``query``, ``watch`` and ``history`` on the local history store, with one
-more flag, ``--device {cuda,cpu}`` (default ``cuda``), the
+``catalog``, ``version``, the gadget commands on the local runtime,
+``query``, ``watch`` and ``history`` on the local history store,
+``record``, ``replay`` and ``alerts`` on this process's recordings, journals
+and alert table, with one more flag, ``--device {cuda,cpu}`` (default ``cuda``), the
 device the run's operators put their state on. Subcommands and flags
 whose modules are not ported exit 2 naming their ROADMAP item.
 
@@ -51,8 +52,10 @@ from ..gadgets.interface import GadgetType  # noqa: E402
 from ..operators import operators as op_registry  # noqa: E402
 from ..params import Collection, ParamError  # noqa: E402
 from . import REMOTE_ITEM, unported  # noqa: E402
+from .alerts import add_alerts_parser  # noqa: E402
 from .history import add_history_parser  # noqa: E402
 from .query import add_query_parser  # noqa: E402
+from .record import add_record_parser, add_replay_parser  # noqa: E402
 from .watch import add_watch_parser  # noqa: E402
 
 __version__ = "0.1.0"
@@ -65,9 +68,6 @@ UNPORTED_COMMANDS = {
     "agent": ("run the per-node agent daemon", "18"),
     "debug": ("agent debugging: state dump, flight recorder, trace export", "18"),
     "traces": ("Trace-resource lifecycle on agents", "18"),
-    "record": ("capture recordings on agents", "14"),
-    "replay": ("deterministic replay of a recording", "14"),
-    "alerts": ("active alerts, rule validation and dry runs", "15"),
     "fleet": ("fleet health and shared runs", "11"),
     "bench": ("benchmark runs and the perf ledger", "20"),
     "doctor": ("probe capture windows per gadget", "19"),
@@ -92,6 +92,9 @@ def build_parser() -> argparse.ArgumentParser:
     add_query_parser(sub)
     add_watch_parser(sub)
     add_history_parser(sub)
+    add_alerts_parser(sub)
+    add_record_parser(sub)
+    add_replay_parser(sub)
 
     # help-listing stubs only: main() answers them before argparse
     for name, (help_, item) in UNPORTED_COMMANDS.items():
@@ -176,6 +179,17 @@ def print_sketch_summary(s) -> None:
     sys.stdout.flush()
 
 
+def print_alert(ev: dict) -> None:
+    """One alert transition as the reference's CLI prints it."""
+    key = f" key={ev['key']}" if ev.get("key") else ""
+    sys.stdout.write(
+        f"\n!! alert {ev['rule']} -> {ev['transition']}{key} "
+        f"value={ev.get('value', 0):.6g} "
+        f"threshold={ev.get('threshold', 0):g} "
+        f"[{ev.get('severity', '')}]\n")
+    sys.stdout.flush()
+
+
 def cmd_run(args) -> int:
     if args.remote:
         return unported("--remote (the agent's gRPC runtime)", REMOTE_ITEM)
@@ -215,6 +229,12 @@ def cmd_run(args) -> int:
         sp = op_params["operator.tpusketch."]
         if sp.get("enable").as_bool():
             extra["on_sketch_summary"] = print_sketch_summary
+
+    # a run with alert rules prints its transitions inline
+    if "operator.alerts." in op_params:
+        alp = op_params["operator.alerts."]
+        if alp.get("rules-file").as_string() or alp.get("rules").as_string():
+            extra["on_alert_event"] = print_alert
 
     extra["output"] = args.output
     ctx = GadgetContext(

@@ -249,7 +249,11 @@ class SketchContext:
                    node=ctx.extra.get("node", "") or "",
                    batch_size=p.get("batch-size").as_int() if "batch-size" in p else 0,
                    history_gadget=ctx.extra.get("history_gadget") or "",
-                   history_clock=ctx.extra.get("history_clock"),
+                   # a replay sets only the alerts clock: its resealed
+                   # windows take the recorded timeline too (reference
+                   # tpusketch.py:749-750)
+                   history_clock=(ctx.extra.get("history_clock")
+                                  or ctx.extra.get("alerts_clock")),
                    resolve_key=getattr(gadget, "resolve_key", None),
                    trace_parent=ctx.extra.get("trace_ctx"),
                    params=ctx.operator_params.copy_to_map(), extra=ctx.extra)

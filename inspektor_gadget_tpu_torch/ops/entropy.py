@@ -16,11 +16,16 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
 from .hashing import _row_multiplier, row_salt
 from .kernels import histogram
+from .quantiles import fma_f32, xla_logf
+
+_XLA_WINDOW = 32  # XLA CPU's tree-reduction window
+_INV_LN2 = float(np.float32(1.0) / np.float32(np.log(np.float32(2.0))))  # XLA folds /log(2)
 
 
 @dataclass
@@ -49,12 +54,43 @@ def entropy_update(state: EntropySketch, keys: torch.Tensor,
     return state
 
 
+def xla_sum_f32(x: torch.Tensor) -> torch.Tensor:
+    """Sum of a float32 vector in the order XLA's CPU backend adds it:
+    its tree-reduction rewrite folds windows of 32 consecutive elements
+    in turn until 32 or fewer remain, then adds those in turn.
+    Bit-identical to the reference's ``x.sum()`` on the CPU for every
+    power-of-two length (every sketch width; XLA pads other lengths its
+    own way); every device runs the same order."""
+    x = x.reshape(-1)
+    while True:
+        n = x.shape[0]
+        if n <= _XLA_WINDOW:
+            acc = torch.zeros((), dtype=x.dtype, device=x.device)
+            for j in range(n):
+                acc = acc + x[j]
+            return acc
+        x = torch.nn.functional.pad(x, (0, (-n) % _XLA_WINDOW)).reshape(-1, _XLA_WINDOW)
+        acc = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        for j in range(_XLA_WINDOW):
+            acc = acc + x[:, j]
+        x = acc
+
+
 def entropy_estimate(state: EntropySketch) -> torch.Tensor:
+    """H in bits, in the reference's float32 arithmetic on the CPU: XLA's
+    ``log``, ``log2`` as ``log`` times the float32 reciprocal of
+    ``log 2``, XLA's summation order, and the final ``log2(N) - S/N``
+    contracted to one fused multiply-add, as XLA's CPU backend emits it.
+    So a harvest's entropy is bit-identical to the reference's on the
+    same counts, and every device runs the same arithmetic."""
     c = state.counts
-    n = c.sum()
-    plogp = torch.where(c > 0, c * torch.log2(torch.clamp(c, min=1.0)), torch.zeros_like(c))
+    n = xla_sum_f32(c)
+    inv_ln2 = torch.tensor(_INV_LN2, dtype=torch.float32, device=c.device)
+    log2c = xla_logf(torch.clamp(c, min=1.0)) * inv_ln2
+    plogp = xla_sum_f32(torch.where(c > 0, c * log2c, torch.zeros_like(c)))
     nn = torch.clamp(n, min=1.0)
-    return torch.where(n > 0, torch.log2(nn) - plogp.sum() / nn, torch.zeros_like(n))
+    h = fma_f32(xla_logf(nn.reshape(1))[0], _INV_LN2, -(plogp / nn))
+    return torch.where(n > 0, h, torch.zeros_like(n))
 
 
 def entropy_merge(a: EntropySketch, b: EntropySketch) -> EntropySketch:

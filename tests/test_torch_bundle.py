@@ -171,8 +171,9 @@ def test_port_imports_no_jax():
     """Every module of the port (the native binding, the window sketches,
     the telemetry, the operator, the history windows, store, queries,
     lifecycle and archive, the journal, the standing queries, the
-    checkpoint files, the accuracy plane and the gadget framework:
-    params, columns, gadgets, runtime, the span tree and the CLI
+    checkpoint files, the accuracy plane, the gadget framework (params,
+    columns, gadgets, runtime, the span tree and the CLI), the alerting
+    plane and the recording manager, capture operator and replay
     included) imports without
     JAX or the JAX package, and no source file of it names either.
     Importing `sources.bridge` builds nothing: with no compiler to be
@@ -203,7 +204,17 @@ def test_port_imports_no_jax():
             "inspektor_gadget_tpu_torch.queries.cache", "inspektor_gadget_tpu_torch.queries.engine",
             "inspektor_gadget_tpu_torch.cli.query", "inspektor_gadget_tpu_torch.cli.history",
             "inspektor_gadget_tpu_torch.cli.watch",
-            "inspektor_gadget_tpu_torch.gadgets.top.windows"} <= set(mods)
+            "inspektor_gadget_tpu_torch.gadgets.top.windows",
+            "inspektor_gadget_tpu_torch.alerts", "inspektor_gadget_tpu_torch.alerts.rules",
+            "inspektor_gadget_tpu_torch.alerts.engine", "inspektor_gadget_tpu_torch.alerts.sinks",
+            "inspektor_gadget_tpu_torch.alerts.store", "inspektor_gadget_tpu_torch.operators.alertsop",
+            "inspektor_gadget_tpu_torch.capture.manager",
+            "inspektor_gadget_tpu_torch.capture.operator",
+            "inspektor_gadget_tpu_torch.capture.replay",
+            "inspektor_gadget_tpu_torch.gadgets.top.recordings",
+            "inspektor_gadget_tpu_torch.gadgets.top.alerts",
+            "inspektor_gadget_tpu_torch.cli.record", "inspektor_gadget_tpu_torch.cli.alerts"} \
+        <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bridge = sys.modules['inspektor_gadget_tpu_torch.sources.bridge']\n"

@@ -32,14 +32,16 @@ def test_list_and_catalog():
     r = run(PORT, "list")
     assert r.returncode == 0, r.stderr
     assert [ln.split()[:2] for ln in r.stdout.strip().splitlines()] == \
-        [["top", "sketch"], ["top", "windows"], ["trace", "exec"]]
+        [["top", "alerts"], ["top", "recordings"], ["top", "sketch"], ["top", "windows"],
+         ["trace", "exec"]]
     r = run(PORT, "catalog")
     assert r.returncode == 0, r.stderr
     cat = json.loads(r.stdout)
     assert {(g["category"], g["name"]) for g in cat["gadgets"]} == \
-        {("trace", "exec"), ("top", "sketch"), ("top", "windows")}
-    (op,) = cat["operators"]
-    assert op["name"] == "tpusketch" and len(op["instanceParams"]) == 38
+        {("trace", "exec"), ("top", "sketch"), ("top", "windows"), ("top", "alerts"),
+         ("top", "recordings")}
+    ops = {op["name"]: len(op["instanceParams"]) for op in cat["operators"]}
+    assert ops == {"tpusketch": 38, "alerts": 4, "capture": 7}
 
 
 def test_trace_exec_json_rows_like_the_reference():
@@ -95,16 +97,21 @@ def test_cuda_without_a_card_exits_1():
     assert "torch.cuda.is_available() is false; pass device='cpu'" in r.stderr
 
 
-# the history commands run on the local store; their --remote route waits
-# for the agent's port
-REMOTE_ROUTES = {"query": ["query"], "watch": ["watch", "--id", "q"],
-                 "history": ["history", "tiers"]}
+# the history, record and alerts commands run on this process; their
+# --remote routes (and record fetch, which only agents serve) wait for the
+# agent's port
+REMOTE_ROUTES = {"query": ["query", "--remote", "n0=unix:///x.sock"],
+                 "watch": ["watch", "--id", "q", "--remote", "n0=unix:///x.sock"],
+                 "history": ["history", "tiers", "--remote", "n0=unix:///x.sock"],
+                 "record-list": ["record", "list", "--remote", "n0=unix:///x.sock"],
+                 "alerts-list": ["alerts", "list", "--remote", "n0=unix:///x.sock"],
+                 "record-fetch": ["record", "fetch", "--id", "x", "--dest", "d"]}
 
 
 @pytest.mark.parametrize("command", sorted({*cli.UNPORTED_COMMANDS, *REMOTE_ROUTES}))
 def test_unported_commands_exit_2_naming_their_item(command, capsys):
     if command in REMOTE_ROUTES:
-        assert cli.main([*REMOTE_ROUTES[command], "--remote", "n0=unix:///x.sock"]) == 2
+        assert cli.main(REMOTE_ROUTES[command]) == 2
         assert f"(ROADMAP item {cli.REMOTE_ITEM})" in capsys.readouterr().err
         return
     assert cli.main([command, "--help"]) == 2
