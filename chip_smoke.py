@@ -53,7 +53,7 @@ invertible, quantiles on aux1, audit sample 1024, the ae scorer). (a)
 `LocalRuntime().run_gadget` on the pysynthetic source (seed 7, vocab
 2000), cancelled from the batch callback after 32 batches of 2**17, on
 the card and then on the CPU: the final summaries must agree (estimates
-to rtol 1e-5, ae scores within 5%) and K2 must run once a batch. (b)
+bit for bit, ae scores within 5%) and K2 must run once a batch. (b)
 The CLI, ``trace exec --source synthetic --rate 30000000 --timeout 10
 -F uid:99`` with the same sketch flags, as a subprocess: it must exit 0
 and print at least 5 sketch epochs, each with heavy hitters; its
@@ -78,7 +78,7 @@ run without capture; then `replay_journal` of the journal twice on the
 card and once on the CPU. Each card replay must reproduce the recorded
 summary digests (ae scores included) and alert transitions, launch K2
 once a replayed batch and reseal the recorded run's windows; the CPU
-replay's summaries must equal the card's (estimates to rtol 1e-5, ae
+replay's summaries must equal the card's (estimates bit for bit, ae
 within 5%), with the same transitions and windows; the journal must hold
 the run-end resolve. (b) The CLI, ``trace exec --source synthetic --rate
 2000000 --timeout 5 -F uid:99`` with the same flags plus
@@ -89,6 +89,35 @@ that must exit 0, the replay reporting ``digests_match`` and
 ``alerts_match``. Events/s with and without capture, journal bytes a
 batch, replay events/s on the card and on the CPU and each subprocess's
 wall time (torch's import timed) are logged.
+
+The harvest's entropy across devices (phase 5f, end): 5d(a)'s run for 4
+batches with the anomaly plane off, a harvest a batch, recorded on the
+card by the capture operator and replayed on the CPU: every harvest's
+``entropy_bits`` must equal the card's bit for bit (as every
+card-vs-CPU summary comparison of the script requires), and so must
+``distinct``, so the replay reports ``digests_match``; the journal is
+kept in build/chip_smoke_entropy_journal for a replay by the JAX
+package. K1, K2 and K3 are timed before and after phase 5f, and
+again at the end.
+
+Container scoping (phase 5g): the localmanager's collection is seeded
+with 64 containers, one for each synthetic mount namespace, 16 of them
+in namespace team-a. (a) 5d(a)'s run with ``operator.kubemanager.
+namespace=team-a`` on the card and on the CPU: equal summaries, events
+equal to team-a's share of the stream rebuilt from the seed, K2 once a
+non-empty batch; the same on the native synthetic source (the filter in
+C++ before the ring) with history slices on: events = popped, the
+capture's filtered count closing the seeded stream, every ``mntns:N``
+slice of team-a; a decoded-rows run naming every row's container. (b)
+A child under ``unshare -m`` exec'ing /bin/true, and ``trace exec
+--source native --localmanager-containername <its comm>
+--tpusketch-enable true --timeout 5 -o json`` as a subprocess: rows of
+the child named as its container, none foreign, the last summary's
+events equal to the rows; ``no-such-ctr`` scores none of the child's.
+Where the host lacks root, ``unshare`` or the proc-exec source, (b)
+says which and does not run. The host's facts (card count, grpc and
+google.protobuf, root, unshare, the proc-exec source, the localmanager's
+procfs scan time) are logged after the build.
 
 The launch counts are set to 0 just before each card run of a path and
 read just after it.
@@ -579,11 +608,14 @@ def _same(got, want, rtol: float, what: str) -> None:
 def compare_summaries(got, want, what: str, *, anomaly_abs: float | None = None,
                       anomaly_rel: float | None = None) -> float:
     """Hold one SketchSummary to another: every field but `pipeline`;
-    `distinct` and `entropy_bits` to rtol 1e-5, the accuracy block to
-    1e-4, each container's anomaly score within `anomaly_abs` (nats) or
-    `anomaly_rel` of the score, the rest exactly. Returns the largest
+    `distinct` and `entropy_bits` exactly (both estimates are the
+    reference's float32 arithmetic on every device), the accuracy block
+    to 1e-4, each container's anomaly score within `anomaly_abs` (nats)
+    or `anomaly_rel` of the score, the rest exactly. Returns the largest
     anomaly gap (absolute, or relative with `anomaly_rel`)."""
     g, w = dataclasses.asdict(got), dataclasses.asdict(want)
+    for key in ("distinct", "entropy_bits"):
+        require(g[key] == w[key], f"{what} {key}: {g[key]!r} != {w[key]!r} (bit for bit)")
     for key in ("distinct", "entropy_bits"):
         _same(g.pop(key), w.pop(key), 1e-5, f"{what} {key}")
     _same(g.pop("accuracy"), w.pop("accuracy"), 1e-4, f"{what} accuracy")
@@ -688,8 +720,8 @@ def check_standing(answers: list, store: Path) -> int:
 
 def compare_operator_runs(got: dict, want: dict, got_dir: Path, want_dir: Path) -> dict:
     """Hold one operator run to another: every summary field but
-    `pipeline` (the HLL and entropy estimates and what derives from them
-    to rtol 1e-5 and 1e-4, anomaly scores to 0.05 nats, the rest
+    `pipeline` (the HLL and entropy estimates bit for bit, the accuracy
+    figures derived from them to 1e-4, anomaly scores to 0.05 nats, the rest
     exactly), the history stores (`compare_stores`), every standing
     answer (header and payload bytes) and each one against the store
     (`check_standing`), and the checkpoint's bundle and class leaves
@@ -814,16 +846,22 @@ def _metric(snap: dict, name: str) -> float:
 
 
 def gadget_run(device: str, batches: int, batch: int, *, ops: dict | None = None,
-               harvest_every: int = 0) -> dict:
-    """``trace/exec`` through the port's `LocalRuntime`: the pysynthetic
-    source (seed 7, vocab 2000, zipf 1.2, batches of `batch` paced at
-    1e9 events/s), the sketch plane with GADGET_SKETCH and a harvest
-    interval of 1h (so the only harvest is post_gadget_run's, unless the
-    batch callback harvests every `harvest_every` batches), the context
-    cancelled from the batch callback after `batches` batches. `ops`
-    maps operator names to more param values (``tpusketch``'s on top of
-    GADGET_SKETCH). Returns the summaries, the alert transitions, the
-    run's seconds and its harvest ms (``ig_tpusketch_harvest_seconds``)."""
+               harvest_every: int = 0, source: str = "pysynthetic", rate: str = "1e9",
+               sketch: bool = True, rows: list | None = None,
+               keep_stream: bool = False) -> dict:
+    """``trace/exec`` through the port's `LocalRuntime`: the `source`
+    (pysynthetic by default: seed 7, vocab 2000, zipf 1.2, batches of
+    `batch` paced at `rate` events/s), the sketch plane with GADGET_SKETCH
+    and a harvest interval of 1h (so the only harvest is post_gadget_run's,
+    unless the batch callback harvests every `harvest_every` batches; no
+    sketch plane without `sketch`), the context cancelled from the batch
+    callback after `batches` batches. `ops` maps operator names to more
+    param values (``tpusketch``'s on top of GADGET_SKETCH); `rows`
+    collects the decoded rows, and `keep_stream` each batch's mntns and
+    key-hash lanes. Returns the summaries, the alert transitions, the
+    run's seconds and its harvest ms (``ig_tpusketch_harvest_seconds``),
+    the events of each batch the gadget handed on, and the source's
+    popped, filtered and dropped events (``ig_source_events_*``)."""
     from inspektor_gadget_tpu_torch import all_gadgets  # noqa: F401 — registers everything
     from inspektor_gadget_tpu_torch.gadgets import GadgetContext, get
     from inspektor_gadget_tpu_torch.operators import get as get_op
@@ -833,12 +871,13 @@ def gadget_run(device: str, batches: int, batch: int, *, ops: dict | None = None
     from inspektor_gadget_tpu_torch.telemetry import snapshot
     desc = get("trace", "exec")
     gp = desc.params().to_params()
-    for k, v in {"source": "pysynthetic", "seed": "7", "vocab": "2000", "zipf": "1.2",
-                 "batch-size": str(batch), "rate": "1e9"}.items():
+    for k, v in {"source": source, "seed": "7", "vocab": "2000", "zipf": "1.2",
+                 "batch-size": str(batch), "rate": rate}.items():
         gp.set(k, v)
     ops = dict(ops or {})
-    ops["tpusketch"] = {"enable": "true", **GADGET_SKETCH, "harvest-interval": "1h",
-                        **ops.get("tpusketch", {})}
+    if sketch:
+        ops["tpusketch"] = {"enable": "true", **GADGET_SKETCH, "harvest-interval": "1h",
+                            **ops.get("tpusketch", {})}
     col = Collection()
     for name, values in ops.items():
         col[f"operator.{name}."] = get_op(name).instance_params().to_params()
@@ -849,34 +888,43 @@ def gadget_run(device: str, batches: int, batch: int, *, ops: dict | None = None
     ctx = GadgetContext(desc, gadget_params=gp, operator_params=col,
                         extra={"on_sketch_summary": summaries.append,
                                "on_alert_event": alerts.append}, device=device)
-    seen = [0]
+    counts: list[int] = []
+    stream: list[tuple[np.ndarray, np.ndarray]] = []
 
-    def on_batch(_batch) -> None:
-        seen[0] += 1
-        if harvest_every and seen[0] % harvest_every == 0:
+    def on_batch(b) -> None:
+        counts.append(b.count)
+        if keep_stream:
+            stream.append((b.cols["mntns"][:b.count].copy(), b.cols["key_hash"][:b.count].copy()))
+        if harvest_every and len(counts) % harvest_every == 0:
             (inst,) = [i for i in live_instances() if i.ctx.run_id == ctx.run_id]
             inst.harvest()
-        if seen[0] == batches:
+        if len(counts) == batches:
             ctx.cancel()
 
     before = snapshot()
     t0 = time.perf_counter()
-    res = LocalRuntime().run_gadget(ctx, on_batch=on_batch)["local"]
+    res = LocalRuntime().run_gadget(ctx, on_batch=on_batch,
+                                    on_event=rows.append if rows is not None else None)["local"]
     if device == "cuda":
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     require(res.error is None, f"gadget run on {device}: {res.error}")
-    harvests = (batches // harvest_every if harvest_every else 0) + 1
-    require(seen[0] == batches and len(summaries) == harvests,
-            f"gadget run on {device}: {seen[0]} batches, {len(summaries)} harvests")
+    harvests = ((batches // harvest_every if harvest_every else 0) + 1) if sketch else 0
+    require(len(counts) == batches and len(summaries) == harvests,
+            f"gadget run on {device}: {len(counts)} batches, {len(summaries)} harvests")
     after = snapshot()
-    h_n = (_metric(after, "ig_tpusketch_harvest_seconds_count")
-           - _metric(before, "ig_tpusketch_harvest_seconds_count"))
-    h_s = (_metric(after, "ig_tpusketch_harvest_seconds_sum")
-           - _metric(before, "ig_tpusketch_harvest_seconds_sum"))
-    return {"summary": summaries[-1], "summaries": summaries, "alerts": alerts,
-            "seconds": secs, "ev_per_s": batches * batch / secs,
-            "harvest_ms": h_s / max(h_n, 1) * 1e3}
+
+    def delta(name: str) -> float:
+        return _metric(after, name) - _metric(before, name)
+
+    h_n, h_s = (delta("ig_tpusketch_harvest_seconds_count"),
+                delta("ig_tpusketch_harvest_seconds_sum"))
+    return {"summary": summaries[-1] if summaries else None, "summaries": summaries,
+            "alerts": alerts, "seconds": secs, "ev_per_s": sum(counts) / secs,
+            "harvest_ms": h_s / max(h_n, 1) * 1e3, "counts": counts, "stream": stream,
+            "popped": delta("ig_source_events_total"),
+            "filtered": delta("ig_source_events_filtered_total"),
+            "dropped": delta("ig_source_events_dropped_total")}
 
 
 def cli_run(device: str, batch: int, seconds: int, dump: Path, sketch: dict,
@@ -1253,6 +1301,360 @@ def capture_cli(device: str, batch: int, root: Path, no_capture_ev_per_s: float)
             "replay": rep}
 
 
+# phase 5f: the harvest's entropy across devices. With the anomaly plane
+# off nothing learned enters a summary, so a journal recorded on the card
+# replays on the CPU digest for digest only if every field the digest
+# hashes (events, distinct, entropy, heavy hitters) is bit for bit the
+# card's. The journal is kept under build/ for the JAX package's replay.
+ENTROPY_BATCHES = 4
+ENTROPY_JOURNAL = "chip_smoke_entropy_journal"
+
+
+def entropy_journal(device: str, batch: int, root: Path, keep: Path) -> dict:
+    """5d(a)'s run for ENTROPY_BATCHES batches with ``anomaly-model`` off
+    and a harvest every batch, recorded by the capture operator on
+    `device`, then replayed on the CPU. Every CPU harvest's
+    `entropy_bits` and `distinct` must equal the recorded ones exactly,
+    so the replay's digests match. The journal is copied to `keep`."""
+    from inspektor_gadget_tpu_torch.capture import iter_journals
+    journal = root / "entropy-journal"
+    shutil.rmtree(journal, ignore_errors=True)
+    rec = gadget_run(device, ENTROPY_BATCHES, batch, harvest_every=1, ops={
+        "tpusketch": {"anomaly": "false"},
+        "capture": {"dir": str(journal), "retention-bytes": "0"}})
+    (jpath,) = iter_journals(str(journal))
+    cpu = replay_run(jpath, "cpu", root / "entropy-hist")
+    got, want = cpu["summaries"], rec["summaries"]
+    require(len(got) == len(want) == ENTROPY_BATCHES + 1,
+            f"entropy journal: {len(got)} replayed harvests, {len(want)} recorded")
+    ent = [(g.entropy_bits, w.entropy_bits) for g, w in zip(got, want)]
+    dist = [(g.distinct, w.distinct) for g, w in zip(got, want)]
+    require(all(a == b for a, b in ent),
+            f"entropy journal: the CPU replay's entropy differs from the card's: {ent}")
+    require(all(a == b for a, b in dist) and cpu["result"].digests_match,
+            f"entropy journal: the CPU replay's distinct differs from the card's: {dist}")
+    shutil.rmtree(keep, ignore_errors=True)
+    shutil.copytree(jpath, keep)
+    r = cpu["result"]
+    info = {"harvests": len(want), "digests_match": r.digests_match,
+            "alerts_match": r.alerts_match,
+            "journal": str(keep), "entropy_bits": [w for _g, w in ent]}
+    log(f"[capture] (5f) entropy across devices: {len(want)} harvests recorded on the {device} "
+        f"with anomaly-model off, replayed on the CPU: entropy_bits and distinct equal bit "
+        f"for bit in every harvest, digests_match {r.digests_match}; journal kept at {keep}")
+    return info
+
+
+# phase 5g: container scoping. The localmanager's collection holds one
+# container for each of the synthetic sources' 64 mount namespaces
+# (sources/synthetic.py, native/sources.cc: 4026531840 + k); every fourth
+# is in namespace team-a, which the kubemanager selector picks
+MNTNS0 = 4026531840
+SCOPED_NAMESPACE = "team-a"
+SCOPED_BATCHES = 32
+SCOPED_NATIVE_BATCHES = 16
+SCOPED_NATIVE_RATE = "1000000"  # the ring (2**20) never fills: no drops to account
+BLACK_BOX_COMM = "igbb-exec"  # a comm no other process has: the container's name
+
+
+def fleet(container_cls) -> list:
+    return [container_cls(id=f"smoke-{k:02d}", name=f"ctr-{k:02d}", pod=f"pod-{k // 2:02d}",
+                          namespace=f"team-{'abcd'[k % 4]}", mntns=MNTNS0 + k,
+                          labels={"app": f"app-{k % 3}"}, runtime="fake")
+            for k in range(64)]
+
+
+def selected_mntns() -> np.ndarray:
+    return np.arange(MNTNS0, MNTNS0 + 64, 4, dtype=np.uint64)
+
+
+def pysynthetic_scoped_counts(batches: int, batch: int) -> list[int]:
+    """Events of the selected namespaces in each batch of 5d(a)'s seeded
+    pysynthetic stream (seed 7, vocab 2000, zipf 1.2), rebuilt here,
+    batches the selector empties skipped."""
+    from inspektor_gadget_tpu_torch.sources import PySyntheticSource
+    src = PySyntheticSource(kind=1, seed=7, vocab=2000, zipf_s=1.2, batch_size=batch)
+    out: list[int] = []
+    while len(out) < batches:
+        n = int(np.isin(src.generate().cols["mntns"][:batch], selected_mntns()).sum())
+        if n:
+            out.append(n)
+    return out
+
+
+def native_accounting(stream: list, popped: int, filtered: int, seed: int) -> dict:
+    """Hold a native synthetic run's capture-side filter to the seeded
+    stream (`NativeCapture.generate`, the same seed): the popped events
+    must be the stream's first `popped` selected events, in order, and
+    the capture must have stopped after the `popped`-th selected event
+    and before the (`filtered` + 1)-th unselected one (it filtered
+    exactly the unselected events it made). Returns the bracket of the
+    events left in the ring at the stop."""
+    from inspektor_gadget_tpu_torch.sources import bridge
+    got_m = np.concatenate([m for m, _k in stream])
+    got_k = np.concatenate([k for _m, k in stream])
+    need = popped + filtered + (1 << 20)
+    src = bridge.NativeCapture(bridge.SRC_SYNTH_EXEC, seed=seed, vocab=2000)
+    try:
+        chunks = [src.generate(1 << 20) for _ in range(-(-need // (1 << 20)))]
+    finally:
+        src.close()
+    mntns = np.concatenate([c.cols["mntns"][:c.count] for c in chunks])
+    keys = np.concatenate([c.cols["key_hash"][:c.count] for c in chunks])
+    sel = np.isin(mntns, selected_mntns())
+    pos = np.flatnonzero(sel)
+    require(len(pos) >= popped and np.array_equal(mntns[pos[:popped]], got_m)
+            and np.array_equal(keys[pos[:popped]], got_k),
+            "native scoped run: the popped events are not the seeded stream's first selected ones")
+    uns = np.flatnonzero(~sel)
+    after_last = pos[popped - 1]
+    next_unselected = uns[filtered] if filtered < len(uns) else len(mntns)
+    require(after_last < next_unselected and int((~sel[:after_last]).sum()) <= filtered,
+            f"native scoped run: {filtered} filtered does not close with {popped} popped")
+    last_unselected = uns[filtered - 1] if filtered else 0
+    left = (max(0, int(sel[:last_unselected + 1].sum()) - popped),
+            int(sel[:next_unselected].sum()) - popped)
+    return {"left_in_ring": left}
+
+
+def scoped_route(device: str, batch: int, unscoped_ev_per_s: float) -> dict:
+    """Phase 5g(a): the localmanager's collection seeded with `fleet`,
+    then (1) 5d(a)'s run scoped by ``operator.kubemanager.namespace``
+    on `device` and on the CPU: equal summaries, `events` equal to the
+    selected share of the stream rebuilt from the seed, K2 once a
+    non-empty batch; (2) the same on the native synthetic source (the
+    filter in C++, before the ring) with the history plane's slices on:
+    events = popped, the capture's filtered count closing the stream
+    (`native_accounting`), every ``mntns:N`` slice inside the selection;
+    (3) a decoded-rows run, the sketch plane off: every row named as
+    its seeded container. The seeded containers are removed at the end.
+    Runs on the CPU too, at small sizes (`device` "cpu")."""
+    from inspektor_gadget_tpu_torch.containers import Container
+    from inspektor_gadget_tpu_torch.history import HISTORY, decode_window
+    from inspektor_gadget_tpu_torch.operators.operators import ensure_initialized
+    lm = ensure_initialized("localmanager")
+    seeded = fleet(Container)
+    for c in seeded:
+        lm.cc.add_container(c)
+    kube = {"kubemanager": {"namespace": SCOPED_NAMESPACE}}
+    on_card = device == "cuda"
+    try:
+        # (1) the library route on pysynthetic, then the same run on the CPU
+        reset_launches()
+        card = gadget_run(device, SCOPED_BATCHES, batch, ops=kube)
+        launched = read_launches()
+        cpu = gadget_run("cpu", SCOPED_BATCHES, batch, ops=kube)
+        want = pysynthetic_scoped_counts(SCOPED_BATCHES, batch)
+        gap = compare_summaries(card["summary"], cpu["summary"],
+                                f"scoped run, {device} vs CPU", anomaly_rel=5e-2)
+        nonempty = sum(1 for n in card["counts"] if n)
+        require(card["counts"] == cpu["counts"] == want
+                and card["summary"].events == sum(want),
+                f"scoped run: batches {card['counts'][:4]}..., events {card['summary'].events}, "
+                f"the seeded stream's selected events {sum(want)}")
+        require(not on_card or launched == {"K1": 0, "K2": nonempty, "K3": 0},
+                f"scoped run launched {launched}, expected K2 {nonempty} (once a non-empty batch)")
+        share = 1 - card["summary"].events / card["popped"]
+        # (2) the native capture: the filter runs in C++ before the ring
+        hist = Path(__file__).resolve().parent / "build" / "chip_smoke_scoped_hist"
+        shutil.rmtree(hist, ignore_errors=True)
+        reset_launches()
+        nat = gadget_run(device, SCOPED_NATIVE_BATCHES, batch, source="synthetic",
+                         rate=SCOPED_NATIVE_RATE, keep_stream=True, ops={
+                             **kube, "tpusketch": {"history": "true", "history-interval": "0",
+                                                   "history-dir": str(hist)}})
+        nat_launched = read_launches()
+        ns = nat["summary"]
+        popped, filtered = int(nat["popped"]), int(nat["filtered"])
+        require(ns.events == popped == sum(nat["counts"]) and ns.drops == 0
+                and nat["dropped"] == 0 and filtered > 0,
+                f"native scoped run: events {ns.events}, popped {popped}, filtered {filtered}, "
+                f"drops {ns.drops}/{nat['dropped']}")
+        require(not on_card or nat_launched["K2"] == len(nat["counts"]),
+                f"native scoped run: K2 {nat_launched['K2']} launches over "
+                f"{len(nat['counts'])} batches")
+        acct = native_accounting(nat["stream"], popped, filtered, seed=7)
+        windows = [decode_window(h, pl) for h, pl in
+                   HISTORY.fetch_windows(base_dir=str(hist), gadget="trace/exec")]
+        slices = {k: v for w in windows for k, v in w.slices.items() if "|" not in k
+                  and k.startswith("mntns:")}
+        allowed = {f"mntns:{m}" for m in selected_mntns().tolist()}
+        require(windows and slices and set(slices) <= allowed
+                and sum(v["events"] for v in slices.values()) == ns.events,
+                f"native scoped run: slices {sorted(set(slices) - allowed)[:4]} outside the "
+                f"selection, or their events differ from the summary's {ns.events}")
+        shutil.rmtree(hist, ignore_errors=True)
+        # (3) decoded rows, the sketch plane off: each row names its container
+        rows: list = []
+        shown = gadget_run(device, 2, batch, sketch=False, rows=rows, ops=kube)
+        names = {c.mntns: (c.name, c.pod, c.namespace) for c in seeded}
+        bad = [r for r in rows if (r.container, r.pod, r.namespace) != names.get(r.mountnsid)
+               or r.node != lm.cc.node_name]
+        require(len(rows) == sum(shown["counts"]) > 0 and not bad,
+                f"scoped rows: {len(rows)} rows, {len(bad)} not named as their container "
+                f"(e.g. {bad[:1]})")
+    finally:
+        for c in seeded:
+            lm.cc.remove_container(c.id)
+    info = {"events": card["summary"].events, "popped": card["popped"],
+            "filtered_share": share, "batches": len(card["counts"]), "k2_launches": launched["K2"],
+            "ev_per_s": card["ev_per_s"], "source_ev_per_s": card["popped"] / card["seconds"],
+            "seconds": card["seconds"], "cpu_seconds": cpu["seconds"],
+            "unscoped_ev_per_s": unscoped_ev_per_s, "ae_rel_gap": gap,
+            "native": {"events": ns.events, "popped": popped, "filtered": filtered,
+                       "filtered_share": filtered / (popped + filtered),
+                       "batches": len(nat["counts"]), "k2_launches": nat_launched["K2"],
+                       "seconds": nat["seconds"], "ev_per_s": nat["ev_per_s"],
+                       "slices": len(slices), **acct},
+            "rows": len(rows), "rows_seconds": shown["seconds"]}
+    log(f"[containers] (5g a) trace/exec scoped by kubemanager namespace={SCOPED_NAMESPACE} "
+        f"(16 of 64 seeded containers), pysynthetic seed 7, {len(card['counts'])} x {batch}: "
+        f"{card['summary'].events} of {card['popped']:.0f} events kept (the filter drops "
+        f"{share:.4f}), equal to the seeded stream's selected events; {device} "
+        f"{card['ev_per_s']:.0f} scoped events/s ({info['source_ev_per_s']:.0f} popped/s, "
+        f"{card['seconds']:.2f} s), 5d(a) unscoped {unscoped_ev_per_s:.0f} in this run; CPU "
+        f"{cpu['seconds']:.2f} s; summaries equal (distinct and entropy bit for bit, ae within {gap:.3g}); "
+        f"launches {launched}")
+    log(f"[containers] (5g a) native synthetic at {SCOPED_NATIVE_RATE}/s asked, filter in C++: "
+        f"{ns.events} events = {popped} popped, {filtered} filtered "
+        f"({filtered / (popped + filtered):.4f}), no drops, {len(nat['counts'])} batches, K2 "
+        f"{nat_launched['K2']}; the popped events are the seed's first selected ones and the "
+        f"filtered count closes the stream ({acct['left_in_ring']} left in the ring at the "
+        f"stop); {len(slices)} mntns slices, all selected, their events the summary's")
+    log(f"[containers] (5g a) decoded rows, sketch plane off: {len(rows)} rows in "
+        f"{shown['seconds']:.2f} s, each named as its seeded container, pod, namespace and "
+        f"node {lm.cc.node_name!r}")
+    return info
+
+
+PROBE_EXECS = 10  # execs of the probe's child the proc-exec source must report within 6 s
+
+
+def host_facts() -> dict:
+    """What 5g(b) and later items need of the card's host: the card
+    count, whether grpc and google.protobuf import (the CRI client),
+    root, a working ``unshare -m``, and whether the proc-exec source
+    reports PROBE_EXECS execs of a child shell's within 6 s (a
+    short-lived /bin/true exec may come without its comm and parent,
+    read from /proc after it exited, so the child's `sleep`s count); and
+    the localmanager's procfs scan
+    (`ensure_initialized`, its first init in this process)."""
+    import importlib
+    from inspektor_gadget_tpu_torch import all_gadgets  # noqa: F401 — registers the operators
+    from inspektor_gadget_tpu_torch.operators.operators import ensure_initialized
+    from inspektor_gadget_tpu_torch.sources import bridge
+    facts: dict = {"device_count": torch.cuda.device_count()}
+    for mod in ("grpc", "google.protobuf"):
+        try:
+            importlib.import_module(mod)
+            facts[mod] = True
+        except ImportError as e:
+            facts[mod] = f"no ({e})"
+    facts["root"] = os.geteuid() == 0
+    unshare = shutil.which("unshare")
+    facts["unshare"] = bool(unshare) and subprocess.run(
+        [unshare, "-m", "true"], capture_output=True, timeout=30).returncode == 0
+    seen = 0
+    try:
+        src = bridge.NativeCapture(bridge.SRC_PROC_EXEC, batch_size=4096)
+        src.start()
+        # execs for up to 6 s: where the proc connector is refused, the
+        # source falls back to polling /proc only after 2 s of silence
+        child = subprocess.Popen(["sh", "-c", "for i in $(seq 1 120); do /bin/true; "
+                                              "sleep 0.05; done"])
+        deadline = time.perf_counter() + 6.0
+        while time.perf_counter() < deadline and seen < PROBE_EXECS:
+            b = src.pop()
+            seen += int(((b.cols["kind"][:b.count] == 1)
+                         & (b.cols["ppid"][:b.count] == child.pid)).sum())
+            time.sleep(0.05)
+        child.kill()
+        child.wait(timeout=30)
+        src.stop()
+        src.close()
+    except (OSError, RuntimeError, ValueError) as e:
+        facts["proc_exec_error"] = str(e)
+    facts["proc_exec"] = seen >= PROBE_EXECS
+    facts["proc_exec_seen"] = seen
+    t0 = time.perf_counter()
+    lm = ensure_initialized("localmanager")
+    facts["procfs_scan_s"] = time.perf_counter() - t0
+    facts["procfs_containers"] = len(lm.cc)
+    return facts
+
+
+def scoped_cli(device: str, facts: dict, root: Path) -> dict:
+    """Phase 5g(b): a 'container' (a copied shell named BLACK_BOX_COMM
+    under ``unshare -m``, exec'ing /bin/true in a loop), then ``trace
+    exec --source native --localmanager-containername BLACK_BOX_COMM
+    --tpusketch-enable true --timeout 5 -o json`` as a subprocess: it
+    must exit 0, its rows of the child's mount namespace name the
+    container, none names another container, the last summary's events
+    equal its rows and K2 runs once a step; a run with
+    ``--localmanager-containername no-such-ctr`` must score none of the
+    child's execs. Not run, and said so, where the host lacks root,
+    ``unshare`` or the proc-exec source."""
+    missing = [k for k in ("root", "unshare", "proc_exec") if facts[k] is not True]
+    if missing:
+        log(f"[containers] (5g b) not run: the card's host lacks {', '.join(missing)}")
+        return {"ran": False, "missing": missing}
+    root.mkdir(parents=True, exist_ok=True)
+    shell = root / BLACK_BOX_COMM
+    shutil.copy("/bin/bash", shell)
+    shell.chmod(0o755)
+    child = subprocess.Popen(["unshare", "-m", str(shell), "-c",
+                              "for i in $(seq 1 1500); do /bin/true; sleep 0.02; done"])
+    runs = {}
+    try:
+        time.sleep(1.0)  # the container must exist before the CLI's procfs scan
+        mntns = os.stat(f"/proc/{child.pid}/ns/mnt").st_ino
+        for name in (BLACK_BOX_COMM, "no-such-ctr"):
+            dump = root / f"cli-{name}.json"
+            dump.unlink(missing_ok=True)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", CLI_DRIVER, str(dump), "trace", "exec", "--device",
+                 device, "--source", "native", "--localmanager-containername", name,
+                 "--tpusketch-enable", "true", "--timeout", "5", "-o", "json"],
+                capture_output=True, text=True, timeout=240,
+                cwd=Path(__file__).resolve().parent)
+            require(proc.returncode == 0,
+                    f"5g(b) CLI run ({name}) exited {proc.returncode}: {proc.stderr[-2000:]}")
+            lines = proc.stdout.splitlines()
+            rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
+            epochs = [int(m[2].replace(",", "")) for m in map(EPOCH_RE.match, lines) if m]
+            info = json.loads(dump.read_text())
+            runs[name] = {"rows": rows, "epochs": epochs, "k2": info["k2_launches"],
+                          "steps": _metric(info["metrics"], "ig_tpusketch_steps_total"),
+                          "wall_s": time.perf_counter() - t0}
+    finally:
+        child.kill()
+        child.wait()
+    pos, neg = runs[BLACK_BOX_COMM], runs["no-such-ctr"]
+    mine = [r for r in pos["rows"] if r["mountnsid"] == mntns]
+    foreign = [r for r in pos["rows"] if r.get("container") not in ("", BLACK_BOX_COMM)]
+    require(mine and all(r["container"] == BLACK_BOX_COMM for r in mine) and not foreign,
+            f"5g(b): {len(mine)} rows of the child's mount namespace, "
+            f"{sum(r['container'] == BLACK_BOX_COMM for r in mine)} naming it, "
+            f"{len(foreign)} naming another container")
+    require(pos["epochs"] and pos["epochs"][-1] == len(pos["rows"]) and pos["steps"] > 0
+            and (device != "cuda" or pos["k2"] == pos["steps"]),
+            f"5g(b): last summary events {pos['epochs'][-1:]} against {len(pos['rows'])} rows, "
+            f"K2 {pos['k2']} over {pos['steps']} steps")
+    require(not [r for r in neg["rows"] if r["mountnsid"] == mntns]
+            and all(e == 0 for e in neg["epochs"]),
+            f"5g(b): the no-such-ctr run scored the child's execs: {neg['epochs'][-1:]}")
+    log(f"[containers] (5g b) trace exec --source native --localmanager-containername "
+        f"{BLACK_BOX_COMM} on the {device}: exit 0, {len(pos['rows'])} rows, {len(mine)} of "
+        f"the child's mount namespace, all naming it; last summary {pos['epochs'][-1]} events "
+        f"(= its rows); K2 {pos['k2']} over {pos['steps']:.0f} steps; {pos['wall_s']:.1f} s of "
+        f"process; the no-such-ctr run: {len(neg['rows'])} rows, none of the child's, "
+        f"summaries {neg['epochs'][-1:]} ({neg['wall_s']:.1f} s)")
+    return {"ran": True, "rows": len(pos["rows"]), "mine": len(mine),
+            "events": pos["epochs"][-1], "k2_launches": pos["k2"], "wall_s": pos["wall_s"],
+            "negative_rows": len(neg["rows"]), "negative_wall_s": neg["wall_s"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -1300,6 +1702,19 @@ def main() -> int:
     log(f"[build] {FA.LIBRARY.path.name}: {hmma} HMMA instructions in its SASS")
     require(hmma > 0, "K3's bfloat16 kernel has no tensor-core instruction")
     report["k3_hmma"] = hmma
+
+    # -- the card's host: what later phases and ROADMAP items need of it ---------
+    facts = host_facts()
+    log(f"[host] cards: torch.cuda.device_count() {facts['device_count']}")
+    log(f"[host] grpc imports: {facts['grpc']}; google.protobuf imports: "
+        f"{facts['google.protobuf']} (the CRI client needs both)")
+    log(f"[host] root: {facts['root']}; unshare -m works: {facts['unshare']}; the proc-exec "
+        f"source reports a child's execs: {facts['proc_exec']} "
+        f"({facts['proc_exec_seen']} seen)"
+        + (f" ({facts['proc_exec_error']})" if "proc_exec_error" in facts else ""))
+    log(f"[host] the localmanager's procfs scan (localmanager.init): "
+        f"{facts['procfs_scan_s'] * 1e3:.1f} ms, {facts['procfs_containers']} containers")
+    report["host"] = facts
 
     src = ZipfFoldedSource(args.seed + 1)
     host = src.generate(batch, valid=batch - 4321)
@@ -1559,15 +1974,14 @@ def main() -> int:
         require(len(cpu_harvests) == len(run.harvests) == info["batches"] // HARVEST_EVERY,
                 f"capture run ({label}): {len(run.harvests)} harvests")
         for h, (got, want) in enumerate(zip(run.harvests, cpu_harvests)):
-            # the digest's integer words (events, drops, overflow, top-k) bit
-            # for bit; its distinct and entropy estimates are float32 sums of
-            # logs taken in another order on each device: rtol 1e-5
+            # the digest bit for bit: its integer words (events, drops,
+            # overflow, top-k) and its distinct and entropy estimates, which
+            # follow XLA's CPU float32 arithmetic on every device
             gd, wd = got["digest"].view(np.uint32), want["digest"].view(np.uint32)
-            ints = np.r_[[0, 1, 4], np.arange(5, wd.size)]
-            require(gd.shape == wd.shape and np.array_equal(gd[ints], wd[ints])
-                    and np.allclose(gd[2:4].view(np.float32), wd[2:4].view(np.float32),
-                                    rtol=1e-5, atol=0),
-                    f"capture run ({label}), harvest {h}: digest differs from the CPU fold")
+            require(gd.shape == wd.shape and np.array_equal(gd, wd),
+                    f"capture run ({label}), harvest {h}: digest differs from the CPU fold "
+                    f"(distinct, entropy {gd[2:4].view(np.float32)} vs "
+                    f"{wd[2:4].view(np.float32)})")
             for field in ("buffer", "residual", "wcms", "whll"):
                 g, w_ = (got[field], want[field]) if field in ("buffer", "residual") else \
                     ([got[field]], [want[field]])
@@ -1785,6 +2199,62 @@ def main() -> int:
     launches["K2"] += hc["k2_launches"]
     report["history"] = {"operator": op_info["history"], **hist}
 
+    def time_kernels() -> dict:
+        """K1, K2 and K3 at the main path's shapes, each as (ms, plain ms,
+        library ms): K1 and K2 on the phase-5 batch and bundle geometry,
+        K3 at the operator's window on inputs of a fixed seed."""
+        g3 = torch.Generator(device=dev).manual_seed(args.seed + 5)
+        geom = bundle.geometry()
+        ent_lw = prod["entropy_log2_width"]
+        mult0 = int(_row_multiplier(0))
+        k1_ms = time_cuda(lambda: K.histogram(dist, w, log2_width=ent_lw, mult=mult0))
+        k1_plain = time_cuda(lambda: K.histogram_plain(dist, w, log2_width=ent_lw, mult=mult0))
+        idx = hashed_bucket(dist, mult0, 0, ent_lw)
+        w_f = w.to(torch.float32)
+        k1_lib = time_cuda(lambda: torch.bincount(idx, weights=w_f, minlength=1 << ent_lw))
+        k2_ms = time_cuda(lambda: K.fused_planes(hh, distinct, dist, w, values, geom))
+        k2_plain = time_cuda(lambda: K.fused_planes_plain(hh, distinct, dist, w, values, geom),
+                             per_round=2, warm=2)
+        # yardstick: one scatter_add_ of every additive plane's values at
+        # precomputed flat indices (the hashes and the HLL max plane excluded)
+        flat_idx, flat_val = [], []
+        lane_t = (hh, distinct, dist, values)
+        from inspektor_gadget_tpu_torch.ops.invertible import inv_lane_values
+        from inspektor_gadget_tpu_torch.ops.quantiles import bucket_index
+        inv_vals = inv_lane_values(hh, w)
+        for pl in geom.planes:
+            if pl.kind == K.HLL:
+                continue
+            if pl.kind == K.QUANT:
+                ix = bucket_index(values, alpha=geom.qt_alpha, min_value=geom.qt_min_value,
+                                  n_buckets=geom.qt_buckets)
+                val = w.to(torch.int64)
+            else:
+                ix = hashed_bucket(lane_t[pl.lane], pl.mult, pl.salt, pl.log2_width)
+                val = (w.to(torch.int64) if pl.kind in (K.HIST, K.HIST64)
+                       else inv_vals[pl.kind - K.INV_COUNT])
+            flat_idx.append(ix + pl.offset)
+            flat_val.append(val)
+        flat_idx, flat_val = torch.cat(flat_idx), torch.cat(flat_val)
+        k2_lib = time_cuda(lambda: torch.zeros(geom.total, dtype=torch.int64, device=dev)
+                           .scatter_add_(0, flat_idx, flat_val))
+        q, k, v = k3_inputs((CONTAINERS, SEQ_WINDOW - 1, 4, 32), torch.bfloat16, g3, dev)
+        k3_ms = time_cuda(lambda: FA.flash_attention(q, k, v))
+        k3_plain = time_cuda(lambda: FA.flash_attention_plain(q, k, v), per_round=2, warm=2)
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        k3_lib = time_cuda(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True))
+        return {"K1": (k1_ms, k1_plain, k1_lib), "K2": (k2_ms, k2_plain, k2_lib),
+                "K3": (k3_ms, k3_plain, k3_lib)}
+
+    def log_times(when: str, times: dict) -> None:
+        log(f"[time] {when}: " + "; ".join(
+            f"{name} {t[0]:.4f} ms (plain {t[1]:.4f}, library {t[2]:.4f})"
+            for name, t in times.items()))
+
+    # the kernels' times before and after 5f's ~105 s of host and disk work
+    report["kernel_times"] = {"before 5f": time_kernels()}
+    log_times("the kernels before phase 5f", report["kernel_times"]["before 5f"])
+
     # -- 5f. capture, alerts and replay --------------------------------------------
     cap_root = ckpt_root.parent / "chip_smoke_capture"
     shutil.rmtree(cap_root, ignore_errors=True)
@@ -1796,9 +2266,28 @@ def main() -> int:
     require(cc["k2_launches"] == cc["steps"] > 0,
             f"CLI capture run: K2 launched {cc['k2_launches']} times over {cc['steps']} steps")
     launches["K2"] += cc["k2_launches"]
-    report["capture"] = {**cap, "cli": cap_cli, "seconds": time.perf_counter() - t_cap}
+    reset_launches()
+    ent = entropy_journal("cuda", batch, cap_root, ckpt_root.parent / ENTROPY_JOURNAL)
+    ent["k2_launches"] = read_launches()["K2"]
+    require(ent["k2_launches"] == ENTROPY_BATCHES,
+            f"entropy journal: K2 {ent['k2_launches']} launches over {ENTROPY_BATCHES} batches")
+    launches["K2"] += ent["k2_launches"]
+    report["capture"] = {**cap, "cli": cap_cli, "entropy": ent,
+                         "seconds": time.perf_counter() - t_cap}
     log(f"[capture] phase 5f took {report['capture']['seconds']:.1f} s")
     shutil.rmtree(cap_root, ignore_errors=True)  # hundreds of MB of journals
+    report["kernel_times"]["after 5f"] = time_kernels()
+    log_times("the kernels after phase 5f", report["kernel_times"]["after 5f"])
+
+    # -- 5g. container scoping ------------------------------------------------------
+    t_scoped = time.perf_counter()
+    scoped = scoped_route("cuda", batch, g_card["ev_per_s"])
+    launches["K2"] += scoped["k2_launches"] + scoped["native"]["k2_launches"]
+    scoped["black_box"] = scoped_cli("cuda", facts, ckpt_root.parent / "chip_smoke_black_box")
+    launches["K2"] += scoped["black_box"].get("k2_launches", 0)
+    scoped["seconds"] = time.perf_counter() - t_scoped
+    log(f"[containers] phase 5g took {scoped['seconds']:.1f} s")
+    report["containers"] = scoped
 
     # -- 6. K3 against its plain version ----------------------------------------
     # the plain versions' float32 matmuls run in full f32, not TF32
@@ -1910,45 +2399,13 @@ def main() -> int:
     report["anomaly_ticks"] = ticks
 
     # -- per-kernel times at the main path's shapes -----------------------------
+    times_end = time_kernels()
+    log_times("the kernels at the script's end", times_end)
+    report["kernel_times"]["end"] = times_end
+    (k1_ms, k1_plain, k1_lib), (k2_ms, k2_plain, k2_lib), (k3_ms, k3_plain, k3_lib) = (
+        times_end[name] for name in ("K1", "K2", "K3"))
     geom = bundle.geometry()
     ent_lw = prod["entropy_log2_width"]
-    mult0 = int(_row_multiplier(0))
-    k1_ms = time_cuda(lambda: K.histogram(dist, w, log2_width=ent_lw, mult=mult0))
-    k1_plain = time_cuda(lambda: K.histogram_plain(dist, w, log2_width=ent_lw, mult=mult0))
-    idx = hashed_bucket(dist, mult0, 0, ent_lw)
-    w_f = w.to(torch.float32)
-    k1_lib = time_cuda(lambda: torch.bincount(idx, weights=w_f, minlength=1 << ent_lw))
-    k2_ms = time_cuda(lambda: K.fused_planes(hh, distinct, dist, w, values, geom))
-    k2_plain = time_cuda(lambda: K.fused_planes_plain(hh, distinct, dist, w, values, geom),
-                         per_round=2, warm=2)
-    # yardstick: one scatter_add_ of every additive plane's values at
-    # precomputed flat indices (the hashes and the HLL max plane excluded)
-    flat_idx, flat_val = [], []
-    lane_t = (hh, distinct, dist, values)
-    from inspektor_gadget_tpu_torch.ops.invertible import inv_lane_values
-    from inspektor_gadget_tpu_torch.ops.quantiles import bucket_index
-    inv_vals = inv_lane_values(hh, w)
-    for pl in geom.planes:
-        if pl.kind == K.HLL:
-            continue
-        if pl.kind == K.QUANT:
-            ix = bucket_index(values, alpha=geom.qt_alpha, min_value=geom.qt_min_value,
-                              n_buckets=geom.qt_buckets)
-            val = w.to(torch.int64)
-        else:
-            ix = hashed_bucket(lane_t[pl.lane], pl.mult, pl.salt, pl.log2_width)
-            val = (w.to(torch.int64) if pl.kind in (K.HIST, K.HIST64)
-                   else inv_vals[pl.kind - K.INV_COUNT])
-        flat_idx.append(ix + pl.offset)
-        flat_val.append(val)
-    flat_idx, flat_val = torch.cat(flat_idx), torch.cat(flat_val)
-    k2_lib = time_cuda(lambda: torch.zeros(geom.total, dtype=torch.int64, device=dev)
-                       .scatter_add_(0, flat_idx, flat_val))
-    q, k, v = k3_inputs(op_shape, torch.bfloat16, gen, dev)
-    k3_ms = time_cuda(lambda: FA.flash_attention(q, k, v))
-    k3_plain = time_cuda(lambda: FA.flash_attention_plain(q, k, v), per_round=2, warm=2)
-    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    k3_lib = time_cuda(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True))
     k3_bound_ms, k3_bound_by = k3_bound(op_shape, torch.bfloat16, True)
     q, k, v = k3_inputs(long_shape, torch.bfloat16, gen, dev)
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))

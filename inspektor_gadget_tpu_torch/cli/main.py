@@ -111,7 +111,7 @@ def build_parser() -> argparse.ArgumentParser:
                 try:
                     gp.add_argument(
                         f"--{d.key}", default=d.default, dest=f"param_{d.key}",
-                        help=d.description or d.key,
+                        help=_help_text(d.description or d.key),
                     )
                 except argparse.ArgumentError:
                     # a common flag (e.g. --max-rows, --sort) owns the option;
@@ -125,10 +125,16 @@ def build_parser() -> argparse.ArgumentParser:
                     gp.add_argument(
                         f"--{op.name}-{d.key}", default=d.default,
                         dest=f"opparam_{op.name}.{d.key}",
-                        help=f"[operator {op.name}] {d.description or d.key}",
+                        help=_help_text(f"[operator {op.name}] {d.description or d.key}"),
                     )
             gp.set_defaults(func=cmd_run, desc=desc)
     return ap
+
+
+def _help_text(text: str) -> str:
+    """A param's description as argparse help: argparse %-formats help
+    strings, so a literal % (e.g. "1%") is doubled."""
+    return text.replace("%", "%%")
 
 
 def _add_common_flags(gp: argparse.ArgumentParser) -> None:

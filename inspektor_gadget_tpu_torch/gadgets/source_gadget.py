@@ -7,14 +7,16 @@ synthetic), pop columnar batches, apply the mntns filter mask, feed the
 batch path, and lazily decode rows for the display path. Concrete gadgets
 supply the event dataclass + a row decoder + source kind.
 
-The port's copy of ``inspektor_gadget_tpu/gadgets/source_gadget.py``
-without the per-container attach (the reference's
-``NsRefcountAttachMixin``, ``PtraceAttachMixin`` and attached sources):
-that needs ``containers/`` and the localmanager operator, which wait for
-ROADMAP item 16, and a gadget asked to wait for container attaches
-raises, naming it. ``--source native|synthetic`` raises when the native
-capture library does not build or load; ``--source auto`` keeps the
-reference's order and logs the source it picked.
+The port's copy of ``inspektor_gadget_tpu/gadgets/source_gadget.py``,
+with the per-container attach (`NsRefcountAttachMixin`,
+`PtraceAttachMixin`: the localmanager operator attaches a source per
+selected container and the run loop pops them all). ``--source
+native|synthetic`` raises when the native capture library does not
+build or load; ``--source auto`` keeps the reference's order and logs
+the source it picked. The ``ig_source_events_filtered_total`` counter
+also counts the events a native source's capture-side mntns filter
+removed before its ring (`NativeCapture.filtered`), so popped plus
+filtered plus dropped accounts for what the capture made.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 from ..params import ParamDesc, ParamDescs, TypeHint
 from ..sources import EventBatch, PySyntheticSource
 from ..sources.bridge import NativeCapture, native_available
+from ..sources.bridge import make_cfg as B_make_cfg
 from ..telemetry import counter, gauge
 from .context import GadgetContext
 
@@ -65,6 +68,175 @@ def source_params() -> ParamDescs:
     ])
 
 
+def container_key(container) -> str:
+    """The one key attach and detach must agree on, or detached sources
+    leak (prefer the runtime id; a bare pid for fake/test containers)."""
+    return (getattr(container, "id", "")
+            or str(getattr(container, "pid", 0)))
+
+
+# kernel pseudo-filesystems: no value watching their churn, and fanotify
+# marks there can fail
+_FANOTIFY_SKIP_FSTYPES = {
+    "proc", "sysfs", "devpts", "devtmpfs", "cgroup", "cgroup2",
+    "securityfs", "debugfs", "tracefs", "mqueue", "bpf", "fusectl",
+    "configfs", "pstore", "efivarfs",
+}
+
+
+def _unescape_mountinfo(path: str) -> str:
+    """mountinfo octal-escapes spaces/tabs/backslashes (\\040 etc.) in
+    path fields; decode them or mounts at such paths get nonexistent mark
+    paths and silently drop out of coverage."""
+    if "\\" not in path:
+        return path
+    out = []
+    i = 0
+    while i < len(path):
+        c = path[i]
+        if c == "\\" and i + 3 < len(path) + 1 and path[i + 1:i + 4].isdigit():
+            try:
+                out.append(chr(int(path[i + 1:i + 4], 8)))
+                i += 4
+                continue
+            except ValueError:
+                pass
+        out.append(c)
+        i += 1
+    return "".join(out)
+
+
+def fanotify_mount_paths(pid: int, max_marks: int = 32) -> list[str]:
+    """Markable mounts of a container: its root mount plus submounts
+    (volumes, emptyDirs) via /proc/<pid>/root/<target> — all reachable
+    without entering the mount ns. Mounts created after the snapshot are
+    the remaining gap vs the reference's kprobes. Returned as a LIST —
+    join with the \\x1e list separator (make_cfg does this), never ':',
+    which is legal inside mount points."""
+    root = f"/proc/{pid}/root"
+    paths = [root]
+    try:
+        with open(f"/proc/{pid}/mountinfo") as f:
+            for line in f:
+                dash = line.find(" - ")
+                if dash < 0:
+                    continue
+                fields = line.split()
+                target = _unescape_mountinfo(
+                    fields[4] if len(fields) > 4 else "")
+                fstype = line[dash + 3:].split()[0]
+                if (not target or target == "/"
+                        or fstype in _FANOTIFY_SKIP_FSTYPES):
+                    continue
+                paths.append(root + target)
+                if len(paths) >= max_marks:
+                    break
+    except OSError:
+        pass  # container gone mid-attach: root mark alone
+    return paths
+
+
+class NsRefcountAttachMixin:
+    """Per-container attach with ONE source per distinct namespace (ref:
+    networktracer/tracer.go:54-220's refcounted per-netns attachments).
+    Pod containers sharing a namespace map onto one attachment; containers
+    in the gadget's own namespace are no-ops (the main source covers them,
+    and procfs-discovered host processes would otherwise re-attach the
+    host view). Subclasses set attach_ns ("net"/"mnt") and implement
+    _ns_source_args(pid) -> (kind, cfg, seed) — seed carries a netns fd
+    for packet sources, 0 otherwise. All state is mutated under
+    _attach_lock: discovery pumps publish add/remove from several threads,
+    and the source pop happens under the SAME lock as the refcount delete
+    so a concurrent attach can never have its fresh source retired by an
+    in-flight detach."""
+
+    attach_ns = "net"
+    attach_requires_selector = False
+    attach_replaces_main = False
+
+    def _ns_source_args(self, pid: int) -> tuple[int, str, int]:
+        raise NotImplementedError
+
+    def _ns_attach_state(self):
+        if not hasattr(self, "_ns_refs"):
+            import os
+            self._ns_refs = {}        # ns inode -> refcount
+            self._container_ns = {}   # container key -> ns inode
+            self._self_ns = os.stat(
+                f"/proc/self/ns/{self.attach_ns}").st_ino
+        return self._ns_refs, self._container_ns
+
+    def attach_container(self, container) -> None:
+        import os
+        pid = int(getattr(container, "pid", 0))
+        if pid <= 0:
+            raise ValueError(f"attach needs a live pid, got {pid}")
+        ino = os.stat(f"/proc/{pid}/ns/{self.attach_ns}").st_ino
+        ckey = container_key(container)
+        with self._attach_lock:
+            refs, by_container = self._ns_attach_state()
+            if ino == self._self_ns:
+                return
+            if ino in refs:
+                refs[ino] += 1
+                by_container[ckey] = ino
+                return
+        # slow path outside the lock (fd open + native create); the
+        # mapping is recorded only AFTER the ref is taken, so a failed
+        # attach can't leave a phantom entry whose detach would tear
+        # down someone else's source
+        kind, cfg, seed = self._ns_source_args(pid)
+        try:
+            self._attach_native_source(
+                f"{self.attach_ns}ns-{ino}", kind, cfg=cfg, seed=seed)
+        except Exception:
+            if seed:
+                import os as _os
+                _os.close(seed)
+            raise
+        with self._attach_lock:
+            refs, by_container = self._ns_attach_state()
+            refs[ino] = refs.get(ino, 0) + 1
+            by_container[ckey] = ino
+
+    def detach_container(self, container) -> None:
+        with self._attach_lock:
+            refs, by_container = self._ns_attach_state()
+            ino = by_container.pop(container_key(container), None)
+            if ino is None or ino not in refs:
+                return
+            refs[ino] -= 1
+            if refs[ino] > 0:
+                return
+            del refs[ino]
+            src = self._attach_sources.pop(f"{self.attach_ns}ns-{ino}",
+                                           None)
+        if src is not None:
+            self._retire(src)
+
+
+class PtraceAttachMixin:
+    """Attacher implementation for ptrace-window gadgets: a container
+    filter auto-attaches the syscall stream to each matching container's
+    init pid, so capabilities/fsslower/audit-seccomp/traceloop work
+    per-container without an explicit --command/--pid (ref: the
+    reference's per-container attach model, localmanager.go:230-260)."""
+
+    # ptrace-attaching every discovered process would trace the whole
+    # host; the localmanager only attaches when a container selector is set
+    attach_requires_selector = True
+    # the per-container ptrace stream supersedes any system-wide window
+    # (avoids double-reporting, e.g. trace/signal netlink + ptrace)
+    attach_replaces_main = True
+
+    def attach_container(self, container) -> None:
+        self._attach_ptrace_pid(int(getattr(container, "pid", 0)),
+                                container_key(container))
+
+    def detach_container(self, container) -> None:
+        self._detach_key(container_key(container))
+
+
 class SourceTraceGadget:
     """Concrete subclasses set: native_kind (proc capture), synth_kind
     (synthetic), decode_row(batch, i) -> event. kind_filter restricts the
@@ -74,10 +246,15 @@ class SourceTraceGadget:
     native_kind: int | None = None
     synth_kind: int = 1
     kind_filter: tuple[int, ...] | None = None
-    # set by a container selector (the reference's localmanager): the
-    # gadget would wait for per-container attaches, which the port does
-    # not run yet
+    # set by the localmanager when an Attacher gadget runs with a container
+    # selector: containers may match later, so the gadget must wait for
+    # attaches instead of failing "no target" at startup
     attach_pending: bool = False
+    # Attacher gadgets whose attach sources REPLACE the main source (the
+    # per-container ptrace stream supersedes the system-wide window, else
+    # e.g. trace/signal would report each fatal signal twice: once from
+    # netlink exits, once from the ptrace delivery stop)
+    attach_replaces_main: bool = False
 
     # event-field → wire-column mapping for the vectorized display path;
     # subclasses extend when they expose more pass-through numeric fields
@@ -101,6 +278,15 @@ class SourceTraceGadget:
         if self._display_filters:
             ctx.extra["display_filters_applied"] = True
         self._is_native = False
+        # per-container attached sources (task: Attacher path for ptrace
+        # gadgets — ref localmanager.go:230-260 per-container attach)
+        self._attach_sources: dict[str, NativeCapture] = {}
+        # detached-but-not-yet-freed sources: detach only stop()s (the run
+        # loop may still hold the handle mid-pop); close happens at run
+        # teardown, never concurrently with a pop
+        self._retired_sources: list[NativeCapture] = []
+        import threading
+        self._attach_lock = threading.Lock()
         self._current_source = None
         p = ctx.gadget_params
         self._mode = p.get("source").as_string() if "source" in p else "auto"
@@ -148,13 +334,37 @@ class SourceTraceGadget:
         not ready; explicit native mode raises."""
         return self.native_kind is not None
 
+    def has_explicit_target(self) -> bool:
+        """True when the user named a target (--command/--pid) — an
+        explicit target always gets its main source, even when a container
+        selector also attaches per-container streams."""
+        return bool(getattr(self, "_command", "") or
+                    getattr(self, "_target_pid", 0))
+
     def _make_source(self):
         mode = self._mode
-        if self.attach_pending:
-            raise RuntimeError(
-                f"{type(self).__name__}: container selectors attach per-container "
-                "sources, which need containers/ and the localmanager operator: not "
-                "ported yet (ROADMAP item 16)")
+        attach_mode = bool(self._attach_sources) or self.attach_pending
+        # Attach sources replace the main window only when the user did NOT
+        # name an explicit target: `--command X --containername foo` must
+        # still spawn and trace X (the selector adds streams, it never
+        # silently drops the user's target).
+        if mode in ("auto", "native") and attach_mode and (
+                not self.native_ready()
+                or (self.attach_replaces_main
+                    and not self.has_explicit_target())):
+            if not native_available():
+                raise RuntimeError(
+                    f"{type(self).__name__}: container auto-attach needs "
+                    "the native capture library, which is unavailable")
+            # per-container attached sources carry (or will carry, once a
+            # container matches the selector) the capture; no main source
+            if not self._attach_sources:
+                self.ctx.logger.info(
+                    "%s: no container matches the selector yet; waiting "
+                    "for attach", type(self).__name__)
+            self._threaded = True
+            self._is_native = True
+            return None
         if mode == "auto":
             if self.native_ready() and native_available():
                 mode = "native"
@@ -163,7 +373,8 @@ class SourceTraceGadget:
                 # rather than emit fabricated rows labeled as real
                 raise RuntimeError(
                     f"{type(self).__name__}: the native capture window "
-                    "needs a target — pass --command/--pid; use "
+                    "needs a target — pass --command/--pid, or set a "
+                    "container filter to auto-attach; use "
                     "--source synthetic explicitly for a demo stream")
             elif native_available():
                 mode = "synthetic"
@@ -177,7 +388,7 @@ class SourceTraceGadget:
             if not self.native_ready():
                 raise RuntimeError(
                     f"{type(self).__name__}: native source needs a target "
-                    "(--command/--pid)")
+                    "(--command/--pid or a container filter to auto-attach)")
             # a library that does not build or load raises here
             src = NativeCapture(self.native_kind, ring_pow2=20,
                                 batch_size=self._batch_size,
@@ -203,8 +414,52 @@ class SourceTraceGadget:
                                  vocab=self._vocab, zipf_s=self._zipf,
                                  batch_size=self._batch_size)
 
+    # per-container attach (ref: localmanager.go:230-260 Attacher path) -----
+
+    def _attach_native_source(self, key: str, kind: int, cfg: str = "",
+                              ring_pow2: int = 18, seed: int = 0) -> None:
+        """Attach any native capture keyed to a container; the run loop
+        pops it alongside the main source (ref: localmanager.go:230-260
+        per-container attach). seed carries the netns fd for packet
+        sources (numeric-create kinds)."""
+        src = NativeCapture(kind, ring_pow2=ring_pow2, seed=seed,
+                            batch_size=self._batch_size, cfg=cfg)
+        src.start()
+        with self._attach_lock:
+            old = self._attach_sources.get(key)
+            self._attach_sources[key] = src
+        if old is not None:  # re-attach for the same key: retire the old one
+            self._retire(old)
+
+    def _attach_ptrace_pid(self, pid: int, key: str) -> None:
+        """Attach a ptrace capture to an existing pid (a container's init
+        process)."""
+        from ..sources.bridge import SRC_PTRACE
+        if pid <= 0:
+            raise ValueError(f"attach needs a live pid, got {pid}")
+        self._attach_native_source(key, SRC_PTRACE, B_make_cfg(pid=pid))
+
+    def _retire(self, src) -> None:
+        """Stop a source but defer freeing: the run loop may hold its handle
+        mid-pop (freeing here would be a native use-after-free); the handle
+        stays valid until run teardown / GC closes it."""
+        try:
+            src.stop()
+        except Exception as e:  # noqa: BLE001 — retire must not fail the run
+            log.debug("source stop on retire failed: %r", e)
+        with self._attach_lock:
+            self._retired_sources.append(src)
+
+    def _detach_key(self, key: str) -> None:
+        with self._attach_lock:
+            src = self._attach_sources.pop(key, None)
+        if src is not None:
+            self._retire(src)
+
     def _active_sources(self) -> list:
-        return [self.source] if self.source is not None else []
+        with self._attach_lock:
+            extras = list(self._attach_sources.values())
+        return ([self.source] if self.source is not None else []) + extras
 
     # run loop --------------------------------------------------------------
 
@@ -230,6 +485,7 @@ class SourceTraceGadget:
                     if batch.drops > prev_drops:
                         self._m_dropped.inc(batch.drops - prev_drops)
                         src._tm_drops_seen = batch.drops
+                    self._count_capture_filtered(src)
                     self._apply_kind_filter(batch)
                     self._apply_filter(batch)
                     if batch.count != popped:
@@ -251,17 +507,37 @@ class SourceTraceGadget:
                     if ctx.sleep_or_done(got / max(self._rate, 1.0)):
                         break
         finally:
-            for src in self._active_sources():
+            with self._attach_lock:
+                retired = self._retired_sources
+                self._retired_sources = []
+            for src in self._active_sources() + retired:
                 try:
                     src.stop()
+                    self._count_capture_filtered(src)
                     src.close()
                 except Exception as e:  # noqa: BLE001 — teardown best-effort
                     log.debug("source teardown failed: %r", e)
 
+    def _count_capture_filtered(self, src) -> None:
+        """Add what a native source's capture-side mntns filter removed
+        since the last look (the filter runs before the ring, so the pop
+        never sees those events)."""
+        if not isinstance(src, NativeCapture):
+            return
+        seen = getattr(src, "_tm_filtered_seen", 0)
+        now = src.filtered()
+        if now > seen:
+            self._m_filtered.inc(now - seen)
+            src._tm_filtered_seen = now
+
     def _source_done(self) -> bool:
         """True when no source will ever produce again (a ptrace-spawned
-        command has exited and its ring is drained)."""
+        command has exited and its ring is drained). Attach-mode gadgets
+        keep running: new containers may appear at any time."""
         from ..sources.bridge import SRC_PTRACE
+        with self._attach_lock:
+            if self._attach_sources:
+                return False
         src = self.source
         if (self._is_native and isinstance(src, NativeCapture)
                 and src.kind == SRC_PTRACE):

@@ -1,8 +1,10 @@
 """Operators over a gadget's events (the port's copy of
 ``inspektor_gadget_tpu/operators``): the registry, the dependency sort and
-the enrich chain (`operators.operators`), and the tpusketch sketch plane,
-registered here like any other operator."""
+the enrich chain (`operators.operators`), the localmanager (container
+filtering and enrichment) and the tpusketch sketch plane, registered
+here in the reference's order like any other operator."""
 
+from . import localmanager as _localmanager  # noqa: F401 -- registers first, as in the reference
 from .operators import (Operator, OperatorInstance, Operators, get, get_all,
                         get_operators_for_gadget, install_operators, register,
                         sort_operators)

@@ -152,6 +152,22 @@ def get_all() -> list[Operator]:
     return list(_REGISTRY.values())
 
 
+def ensure_initialized(name: str) -> Operator:
+    """Get an operator, running its one-time init if it hasn't yet
+    (ref: operators.go:117-127 init-once sync.Once). Marks the operator in
+    the same _initialized set install_operators consults, so a later gadget
+    run won't re-init and replace its state (e.g. localmanager's container
+    collection — anything attached to it, like a pod informer, would be
+    orphaned by a second init). Thread-safe: gRPC handler threads and the
+    daemon main thread may race here."""
+    op = get(name)
+    with _init_lock:
+        if name not in _initialized:
+            op.init(op.global_params().to_params())
+            _initialized.add(name)
+    return op
+
+
 def clear() -> None:
     _REGISTRY.clear()
     _initialized.clear()

@@ -22,9 +22,8 @@ import torch
 from ..device import resolve_device
 from .hashing import _row_multiplier, row_salt
 from .kernels import histogram
-from .quantiles import fma_f32, xla_logf
+from .quantiles import fma_f32, xla_logf, xla_sum_f32
 
-_XLA_WINDOW = 32  # XLA CPU's tree-reduction window
 _INV_LN2 = float(np.float32(1.0) / np.float32(np.log(np.float32(2.0))))  # XLA folds /log(2)
 
 
@@ -52,28 +51,6 @@ def entropy_update(state: EntropySketch, keys: torch.Tensor,
                      mult=int(_row_multiplier(0)), salt=row_salt(0))
     state.counts.add_(hist.to(torch.float32))
     return state
-
-
-def xla_sum_f32(x: torch.Tensor) -> torch.Tensor:
-    """Sum of a float32 vector in the order XLA's CPU backend adds it:
-    its tree-reduction rewrite folds windows of 32 consecutive elements
-    in turn until 32 or fewer remain, then adds those in turn.
-    Bit-identical to the reference's ``x.sum()`` on the CPU for every
-    power-of-two length (every sketch width; XLA pads other lengths its
-    own way); every device runs the same order."""
-    x = x.reshape(-1)
-    while True:
-        n = x.shape[0]
-        if n <= _XLA_WINDOW:
-            acc = torch.zeros((), dtype=x.dtype, device=x.device)
-            for j in range(n):
-                acc = acc + x[j]
-            return acc
-        x = torch.nn.functional.pad(x, (0, (-n) % _XLA_WINDOW)).reshape(-1, _XLA_WINDOW)
-        acc = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
-        for j in range(_XLA_WINDOW):
-            acc = acc + x[:, j]
-        x = acc
 
 
 def entropy_estimate(state: EntropySketch) -> torch.Tensor:

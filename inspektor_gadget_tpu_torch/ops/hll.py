@@ -2,19 +2,41 @@
 ``inspektor_gadget_tpu/ops/hll.py``).
 
 Update is a scatter-max of leading-zero ranks, merge an elementwise max.
-The estimate follows the reference's float32 arithmetic; its sum over
-2**p registers runs in another order than XLA's, so it agrees to float32
-rounding, not bit for bit.
+The estimate is the reference's float32 arithmetic on the CPU, bit for
+bit, on every device: XLA lowers ``exp2(-r)`` to its own ``exp`` of
+``-r * 0.693147182``, which misses the exact power of two by up to 34
+ulps from rank 13 up, so the port reads those values from a table of
+XLA's outputs at the ranks a register can hold (`_XLA_EXP2_NEG`); it
+sums them in XLA's order (`xla_sum_f32`) and takes linear counting's
+``log`` as XLA's (`xla_logf`). The large-range correction, above
+2**32 / 30 estimated keys, uses torch's ``log1p``, which is not XLA's:
+there the estimate agrees to float32 rounding only.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
 from .hashing import MASK32, fmix32
+from .quantiles import xla_logf, xla_sum_f32
+
+# XLA's CPU float32 exp2(-r) for r = 0..64 (every rank a register holds),
+# as bit patterns; tests/test_torch_sketch_ops.py holds them to jnp.exp2
+_XLA_EXP2_NEG = np.array([
+    0x3f800000, 0x3f000000, 0x3e800000, 0x3e000000, 0x3d800000, 0x3d000000, 0x3c800000,
+    0x3c000000, 0x3b800000, 0x3b000000, 0x3a800000, 0x3a000000, 0x39800000, 0x38fffff8,
+    0x38800000, 0x38000004, 0x377fffff, 0x36fffff7, 0x367fffff, 0x36000004, 0x357fffff,
+    0x34fffff7, 0x347fffff, 0x34000004, 0x337fffff, 0x32fffff7, 0x327fffef, 0x32000004,
+    0x317fffff, 0x30fffff7, 0x30800008, 0x30000004, 0x2f7fffff, 0x2efffff7, 0x2e7fffef,
+    0x2e000003, 0x2d7fffff, 0x2cfffff7, 0x2c800007, 0x2c000003, 0x2b7fffff, 0x2afffff7,
+    0x2a7fffef, 0x2a000003, 0x297fffff, 0x28fffff7, 0x28800007, 0x27ffffe6, 0x277ffffe,
+    0x2700000b, 0x267fffee, 0x26000003, 0x257fffde, 0x24fffff6, 0x24800007, 0x23ffffe6,
+    0x237ffffe, 0x2300000b, 0x227fffee, 0x22000003, 0x2180000f, 0x20fffff6, 0x20800007,
+    0x1fffffe6, 0x1f7ffffe], dtype=np.uint32).view(np.float32)
 
 
 @dataclass
@@ -66,11 +88,11 @@ def hll_estimate(state: HLL) -> torch.Tensor:
     m = state.registers.shape[0]
     dev = state.registers.device
     f32 = torch.float32
-    regs = state.registers.to(f32)
-    raw = torch.tensor(_alpha(m) * m * m, dtype=f32, device=dev) / torch.exp2(-regs).sum()
+    exp2_neg = torch.from_numpy(_XLA_EXP2_NEG).to(dev)[state.registers.to(torch.int64)]
+    raw = torch.tensor(_alpha(m) * m * m, dtype=f32, device=dev) / xla_sum_f32(exp2_neg)
     zeros = (state.registers == 0).sum().to(f32)
     mf = torch.tensor(float(m), dtype=f32, device=dev)
-    linear = mf * torch.log(mf / torch.clamp(zeros, min=1.0))
+    linear = mf * xla_logf((mf / torch.clamp(zeros, min=1.0)).reshape(1))[0]
     small = (raw <= 2.5 * m) & (zeros > 0)
     est = torch.where(small, linear, raw)
     two32 = torch.tensor(2.0 ** 32, dtype=f32, device=dev)

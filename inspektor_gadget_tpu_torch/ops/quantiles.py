@@ -67,6 +67,9 @@ def bucket_constants(alpha: float, min_value: float) -> tuple[float, float]:
     return float(np.float32(ilg)), float(np.float32(off))
 
 
+_XLA_WINDOW = 32  # XLA CPU's tree-reduction window
+
+
 def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
     """float32 a*b + c with one rounding. The float32 product is exact in
     float64; the sum is made round-to-odd there (TwoSum gives its exact
@@ -84,6 +87,28 @@ def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
     toward = torch.where(err > 0, torch.full_like(s, math.inf), torch.full_like(s, -math.inf))
     s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
     return s.to(torch.float32)
+
+
+def xla_sum_f32(x: torch.Tensor) -> torch.Tensor:
+    """Sum of a float32 vector in the order XLA's CPU backend adds it:
+    its tree-reduction rewrite folds windows of 32 consecutive elements
+    in turn until 32 or fewer remain, then adds those in turn.
+    Bit-identical to the reference's ``x.sum()`` on the CPU for every
+    power-of-two length (every sketch width; XLA pads other lengths its
+    own way); every device runs the same order."""
+    x = x.reshape(-1)
+    while True:
+        n = x.shape[0]
+        if n <= _XLA_WINDOW:
+            acc = torch.zeros((), dtype=x.dtype, device=x.device)
+            for j in range(n):
+                acc = acc + x[j]
+            return acc
+        x = torch.nn.functional.pad(x, (0, (-n) % _XLA_WINDOW)).reshape(-1, _XLA_WINDOW)
+        acc = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        for j in range(_XLA_WINDOW):
+            acc = acc + x[:, j]
+        x = acc
 
 
 def xla_logf(x: torch.Tensor) -> torch.Tensor:

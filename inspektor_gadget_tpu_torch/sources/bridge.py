@@ -110,6 +110,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ig_vocab_lookup_batch.argtypes = [u64, p64, i64, ctypes.c_char_p, i64,
                                           ctypes.POINTER(ctypes.c_int32)]
     lib.ig_vocab_lookup_batch.restype = i64
+    lib.ig_fanotify_supported.argtypes = []
+    lib.ig_fanotify_supported.restype = ctypes.c_int
+    lib.ig_containers_set.argtypes = [u64, ctypes.c_char_p, i64]
+    lib.ig_containers_set.restype = None
+    lib.ig_containers_remove.argtypes = [u64]
+    lib.ig_containers_remove.restype = None
+    lib.ig_containers_lookup.argtypes = [u64, ctypes.c_char_p, i64]
+    lib.ig_containers_lookup.restype = i64
 
 
 LIBRARY = HostLibrary(_bind)
@@ -130,6 +138,35 @@ def native_available() -> bool:
             _unavailable = str(e)
             _log.warning("native capture unavailable: %s", e)
     return _unavailable is None
+
+
+def fanotify_supported() -> bool:
+    """Whether this host's kernel lets the capture library mark mounts
+    with fanotify (the fanotify sources and container discovery)."""
+    return bool(LIBRARY.get().ig_fanotify_supported())
+
+
+# -- containers map (ref: pkg/gadgettracermanager/containers-map) -----------
+# The capture library's mntns -> container name table: the collection is
+# mirrored into it (containers.options.with_native_containers_map) so the
+# C++ layer names events without crossing back into Python. Each call
+# raises when the library does not build or load.
+
+def containers_map_set(mntns: int, name: str) -> None:
+    raw = name.encode("utf-8", "replace")
+    LIBRARY.get().ig_containers_set(mntns, raw, len(raw))
+
+
+def containers_map_remove(mntns: int) -> None:
+    LIBRARY.get().ig_containers_remove(mntns)
+
+
+def containers_map_lookup(mntns: int) -> str:
+    """The name mirrored for `mntns`, "" for a mount namespace the map
+    does not hold."""
+    buf = ctypes.create_string_buffer(256)
+    n = LIBRARY.get().ig_containers_lookup(mntns, buf, 256)
+    return buf.raw[:n].decode("utf-8", "replace") if n > 0 else ""
 
 
 def _p64(a: np.ndarray):

@@ -209,10 +209,12 @@ def test_a_journal_replays_alike_in_both_packages(recordings, recorder, tmp_path
 def test_run_end_resolve_is_journaled_and_replays(recordings):
     """`busy` still fires when the run ends: the engine's close() resolves
     it while the capture operator's writer is still open (teardown runs
-    capture → alerts → tpusketch in reverse), so the journal ends with
-    the resolve and the replay reproduces it."""
-    assert [op.name for op in POps.get_operators_for_gadget(PG.get("trace", "exec"))] == \
-        ["capture", "alerts", "tpusketch"]
+    capture → alerts → localmanager → kubemanager → tpusketch in reverse,
+    the reference's chain), so the journal ends with the resolve and the
+    replay reproduces it."""
+    chain = [op.name for op in POps.get_operators_for_gadget(PG.get("trace", "exec"))]
+    assert chain == ["capture", "alerts", "localmanager", "kubemanager", "tpusketch"]
+    assert chain == [op.name for op in ROps.get_operators_for_gadget(RG.get("trace", "exec"))]
     res = replay("port", recordings["port"][0])
     recorded = [a["transition"] for a in res.recorded_alerts if a["rule"] == "busy"]
     assert recorded == ["pending", "firing", "resolved"]
@@ -386,12 +388,18 @@ def test_replay_on_cuda_without_a_card_raises(recordings):
 def test_replay_passes_over_params_the_port_lacks(recordings):
     """The reference's manifest carries its localmanager's params (and its
     own capture params, which replay strips): the port's chain takes the
-    params it has and passes over the rest."""
+    params it has, the localmanager's and kubemanager's too, and passes
+    over the rest (here one of an operator neither package has)."""
     manifest = RC.JournalReader(recordings["reference"][0]).manifest
     assert any(k.startswith("operator.localmanager.") for k in manifest["params"])
+    manifest = {**manifest, "params": {**manifest["params"], "operator.ghost.knob": "1"}}
     from inspektor_gadget_tpu_torch.capture.replay import _ReplayDesc, _replay_op_params
     col = _replay_op_params(manifest, _ReplayDesc(None, None, 0.0, None), None)
-    assert sorted(col) == ["operator.alerts.", "operator.capture.", "operator.tpusketch."]
+    assert sorted(col) == ["operator.alerts.", "operator.capture.", "operator.kubemanager.",
+                           "operator.localmanager.", "operator.tpusketch."]
+    for key in ("containername", "host"):
+        assert (col["operator.localmanager."].get(key).as_string()
+                == manifest["params"][f"operator.localmanager.{key}"])
     assert col["operator.tpusketch."].get("harvest-interval").as_string() == "1h"
     assert col["operator.capture."].get("dir").as_string() == ""
     assert col["operator.alerts."].get("rules").as_string() == RULES

@@ -41,7 +41,8 @@ def test_list_and_catalog():
         {("trace", "exec"), ("top", "sketch"), ("top", "windows"), ("top", "alerts"),
          ("top", "recordings")}
     ops = {op["name"]: len(op["instanceParams"]) for op in cat["operators"]}
-    assert ops == {"tpusketch": 38, "alerts": 4, "capture": 7}
+    assert ops == {"localmanager": 2, "tpusketch": 38, "kubemanager": 4, "kubeipresolver": 1,
+                   "alerts": 4, "capture": 7}
 
 
 def test_trace_exec_json_rows_like_the_reference():
@@ -55,8 +56,9 @@ def test_trace_exec_json_rows_like_the_reference():
     assert list(rows[0]) == list(ref_rows[0])
     n = min(len(rows), len(ref_rows))
     for r, w in zip(rows[:n], ref_rows[:n]):
-        # the same seeded stream; the wall clock and the identity columns
-        # the reference's localmanager operator fills aside
+        # the same seeded stream; the wall clock and the containers aside,
+        # which each package's localmanager names from its own procfs scan
+        assert r["node"] == w["node"] == "local"
         for d in (r, w):
             for k in ("timestamp", "node", "namespace", "pod", "container"):
                 d.pop(k)

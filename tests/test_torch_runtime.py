@@ -3,9 +3,10 @@
 cancelled from the batch callback after 6 batches, in both packages.
 
 With the sketch plane off, both runs give the same rows (all fields but
-the wall-clock timestamp and the identity columns, which the
-reference's localmanager operator fills). With it on (invertible, quantiles, the audit
-plane and the ae scorer, at the small geometry of
+the wall-clock timestamp), their identity columns filled by each
+package's localmanager operator from the same seeded collection. With
+it on (invertible, quantiles, the audit plane and the ae scorer, at the
+small geometry of
 ``tests/test_torch_operator.py``), the final `SketchSummary`s agree to
 that file's tolerances, the port's tracer records the run span with the
 reference's ``tpusketch/*`` children, and ``top/sketch`` reads the live
@@ -159,24 +160,57 @@ def sketch_runs():
     return ref, port, seen
 
 
-def test_rows_match_the_reference_with_the_sketch_plane_off():
+@pytest.fixture()
+def seeded_fleet():
+    """Both packages' localmanager collections seeded with the same 64
+    containers, one for each synthetic mount namespace (so the identity
+    columns do not depend on which processes a procfs scan saw); they
+    and their removal-grace entries are removed afterwards."""
+    from inspektor_gadget_tpu.containers import Container as RefContainer
+    from inspektor_gadget_tpu_torch.containers import Container
+
+    def fleet(cls) -> list:
+        return [cls(id=f"rt-{k:02d}", name=f"ctr-{k:02d}", pod=f"pod-{k // 2:02d}",
+                    namespace=f"team-{'abcd'[k % 4]}", mntns=4026531840 + k)
+                for k in range(64)]
+
+    seeded = []
+    for Ops, cls in ((ROps, RefContainer), (POps, Container)):
+        lm = Ops.get("localmanager")
+        with Ops._init_lock:
+            if "localmanager" not in Ops._initialized:
+                gp = lm.global_params().to_params()
+                gp.set("containerd-like-discovery", "none")
+                lm.init(gp)
+                Ops._initialized.add("localmanager")
+        for c in fleet(cls):
+            lm.cc.add_container(c)
+        seeded.append((lm.cc, fleet(cls)))
+    yield
+    for cc, cs in seeded:
+        for c in cs:
+            cc.remove_container(c.id)
+            with cc._mu:
+                cc._removed.pop(c.mntns, None)
+
+
+def test_rows_match_the_reference_with_the_sketch_plane_off(seeded_fleet):
     ref, port = _Run(False, None, rows=True), _Run(True, None, rows=True)
     assert ref.result.error is None and port.result.error is None, port.result.error
     assert port.batches == ref.batches == BATCHES
     assert len(port.rows) == len(ref.rows) == BATCHES * BATCH
     rcols, pcols = ref.ctx.columns, port.ctx.columns
-    # the reference's chain also runs its localmanager operator, which
-    # fills the identity columns (node "local", and the container of a
-    # mount namespace this host knows); the port's has none yet (ROADMAP
-    # item 16), so they stay empty
+    # both chains run their localmanager operator, which fills the
+    # identity columns from the seeded collection: node "local" and the
+    # container of each row's mount namespace
     assert {rcols.to_dict(r)["node"] for r in ref.rows} == {"local"}
     for i in range(len(ref.rows)):
         r, p = rcols.to_dict(ref.rows[i]), pcols.to_dict(port.rows[i])
-        assert [p.pop(k) for k in IDENTITY] == ["", "", "", ""]
+        k = p["mountnsid"] - 4026531840
+        assert [p[c] for c in IDENTITY] == ["local", f"team-{'abcd'[k % 4]}",
+                                            f"pod-{k // 2:02d}", f"ctr-{k:02d}"]
         r.pop("timestamp")
         p.pop("timestamp")
-        for k in IDENTITY:
-            r.pop(k)
         assert p == r, i
     assert port.summaries == ref.summaries == []
 
