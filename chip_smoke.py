@@ -119,6 +119,24 @@ says which and does not run. The host's facts (card count, grpc and
 google.protobuf, root, unshare, the proc-exec source, the localmanager's
 procfs scan time) are logged after the build.
 
+The trace gadget family (phase 5h): (a) ``trace open``, ``trace tcp``
+and ``trace dns`` (the gadgets of the three synthetic kinds) as 5d(a)
+runs trace/exec, 16 batches of 2**17 on the card and on the CPU: equal
+summaries, K2 once a batch, each one's events/s beside 5d(a)'s; then
+the other nine trace gadgets, 2 batches of 8192 with the sketch off,
+every row decoded from the synthetic branch (no row of a real event
+kind). (b) Every trace gadget whose kernel window the card's host
+offers (the `[host]` line prints the window probes, whether /dev/kmsg
+reads, CAP_NET_RAW and whether ptrace works), with ``--source native
+--tpusketch-enable true`` for 3 s on real activity: open (a child's
+file under a temporary directory), bind (a TCP and a UDP listener),
+tcp (connects to a local listener), capabilities, signal and fsslower
+(a ``--command`` each), dns (queries to 127.0.0.1:53); each run's last
+summary counts its rows and K2 ran once a non-empty batch; a gadget
+whose window is absent is logged as skipped with its probe. mount and
+oomkill are not run on the card's host. Then ``trace tcp --source
+native -o json`` as a black box through the port's step framework.
+
 The launch counts are set to 0 just before each card run of a path and
 read just after it.
 
@@ -139,9 +157,11 @@ import os
 import queue
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import zipfile
@@ -841,15 +861,16 @@ EPOCH_RE = re.compile(r"^— sketch epoch (\d+): events=([\d,]+) distinct≈([\d
                       r"entropy=([\d.]+)b drops=(\d+)$")
 
 
-def _metric(snap: dict, name: str) -> float:
-    return float(snap.get(f'{name}{{gadget="trace/exec"}}', 0.0))
+def _metric(snap: dict, name: str, gadget: str = "trace/exec") -> float:
+    return float(snap.get(f'{name}{{gadget="{gadget}"}}', 0.0))
 
 
 def gadget_run(device: str, batches: int, batch: int, *, ops: dict | None = None,
                harvest_every: int = 0, source: str = "pysynthetic", rate: str = "1e9",
                sketch: bool = True, rows: list | None = None,
-               keep_stream: bool = False) -> dict:
-    """``trace/exec`` through the port's `LocalRuntime`: the `source`
+               keep_stream: bool = False, gadget: str = "exec") -> dict:
+    """``trace/<gadget>`` (exec by default) through the port's
+    `LocalRuntime`: the `source`
     (pysynthetic by default: seed 7, vocab 2000, zipf 1.2, batches of
     `batch` paced at `rate` events/s), the sketch plane with GADGET_SKETCH
     and a harvest interval of 1h (so the only harvest is post_gadget_run's,
@@ -860,8 +881,9 @@ def gadget_run(device: str, batches: int, batch: int, *, ops: dict | None = None
     collects the decoded rows, and `keep_stream` each batch's mntns and
     key-hash lanes. Returns the summaries, the alert transitions, the
     run's seconds and its harvest ms (``ig_tpusketch_harvest_seconds``),
-    the events of each batch the gadget handed on, and the source's
-    popped, filtered and dropped events (``ig_source_events_*``)."""
+    the events of each batch the gadget handed on, the event kinds its
+    batches carried, and the source's popped, filtered and dropped
+    events (``ig_source_events_*``)."""
     from inspektor_gadget_tpu_torch import all_gadgets  # noqa: F401 — registers everything
     from inspektor_gadget_tpu_torch.gadgets import GadgetContext, get
     from inspektor_gadget_tpu_torch.operators import get as get_op
@@ -869,7 +891,7 @@ def gadget_run(device: str, batches: int, batch: int, *, ops: dict | None = None
     from inspektor_gadget_tpu_torch.params import Collection
     from inspektor_gadget_tpu_torch.runtime import LocalRuntime
     from inspektor_gadget_tpu_torch.telemetry import snapshot
-    desc = get("trace", "exec")
+    desc = get("trace", gadget)
     gp = desc.params().to_params()
     for k, v in {"source": source, "seed": "7", "vocab": "2000", "zipf": "1.2",
                  "batch-size": str(batch), "rate": rate}.items():
@@ -889,10 +911,12 @@ def gadget_run(device: str, batches: int, batch: int, *, ops: dict | None = None
                         extra={"on_sketch_summary": summaries.append,
                                "on_alert_event": alerts.append}, device=device)
     counts: list[int] = []
+    kinds: set[int] = set()
     stream: list[tuple[np.ndarray, np.ndarray]] = []
 
     def on_batch(b) -> None:
         counts.append(b.count)
+        kinds.update(np.unique(b.cols["kind"][:b.count]).tolist())
         if keep_stream:
             stream.append((b.cols["mntns"][:b.count].copy(), b.cols["key_hash"][:b.count].copy()))
         if harvest_every and len(counts) % harvest_every == 0:
@@ -915,13 +939,14 @@ def gadget_run(device: str, batches: int, batch: int, *, ops: dict | None = None
     after = snapshot()
 
     def delta(name: str) -> float:
-        return _metric(after, name) - _metric(before, name)
+        return _metric(after, name, f"trace/{gadget}") - _metric(before, name, f"trace/{gadget}")
 
     h_n, h_s = (delta("ig_tpusketch_harvest_seconds_count"),
                 delta("ig_tpusketch_harvest_seconds_sum"))
     return {"summary": summaries[-1] if summaries else None, "summaries": summaries,
             "alerts": alerts, "seconds": secs, "ev_per_s": sum(counts) / secs,
             "harvest_ms": h_s / max(h_n, 1) * 1e3, "counts": counts, "stream": stream,
+            "kinds": kinds,
             "popped": delta("ig_source_events_total"),
             "filtered": delta("ig_source_events_filtered_total"),
             "dropped": delta("ig_source_events_dropped_total")}
@@ -1580,7 +1605,47 @@ def host_facts() -> dict:
     lm = ensure_initialized("localmanager")
     facts["procfs_scan_s"] = time.perf_counter() - t0
     facts["procfs_containers"] = len(lm.cc)
+    # the trace gadgets' kernel windows (phase 5h(b))
+    for probe in WINDOW_PROBES:
+        facts[probe] = bool(getattr(bridge, probe)())
+    facts["kmsg_readable"] = os.access("/dev/kmsg", os.R_OK)
+    facts["cap_net_raw"] = has_capability(13)  # CAP_NET_RAW: the AF_PACKET sniffers
+    facts["ptrace"] = ptrace_works(bridge)
     return facts
+
+
+WINDOW_PROBES = ("fanotify_supported", "audit_supported", "captrace_supported",
+                 "fstrace_supported", "sockstate_supported", "sigtrace_supported")
+
+
+def has_capability(bit: int) -> bool:
+    """Whether this process's effective capability set holds `bit`."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("CapEff:"):
+                return bool((int(line.split()[1], 16) >> bit) & 1)
+    return False
+
+
+def ptrace_works(bridge) -> bool:
+    """Whether the ptrace source traces a spawned ``true`` (a container's
+    seccomp profile may refuse ptrace): its syscall rows within 3 s."""
+    src = bridge.NativeCapture(bridge.SRC_PTRACE, ring_pow2=14,
+                               cfg=bridge.make_cfg(cmd=["true"]))
+    seen = 0
+    try:
+        src.start()
+        deadline = time.perf_counter() + 3.0
+        while time.perf_counter() < deadline and not seen:
+            b = src.pop()
+            seen += int((b.cols["kind"][:b.count] == 18).sum())  # EV_SYSCALL
+            time.sleep(0.05)
+    except (OSError, RuntimeError) as e:
+        log(f"[host] the ptrace source failed: {e}")
+    finally:
+        src.stop()
+        src.close()
+    return seen > 0
 
 
 def scoped_cli(device: str, facts: dict, root: Path) -> dict:
@@ -1655,6 +1720,326 @@ def scoped_cli(device: str, facts: dict, root: Path) -> dict:
             "negative_rows": len(neg["rows"]), "negative_wall_s": neg["wall_s"]}
 
 
+# phase 5h: the trace gadget family. open, tcp and dns (the gadgets of the
+# three synthetic kinds: SRC_SYNTH_EXEC, SRC_SYNTH_TCP, SRC_SYNTH_DNS) with
+# 5d(a)'s sketch plane at full width, card then CPU; the other nine decoded
+# only; then every real window the card's host offers
+TRACE_SKETCHED = ("open", "tcp", "dns")
+TRACE_DECODED = ("bind", "capabilities", "fsslower", "mount", "network", "oomkill", "signal",
+                 "sni", "tcpconnect")
+TRACE_BATCHES = 16
+TRACE_DECODE_BATCH = 8192
+# each gadget's real event kinds (native/events.h): a synthetic row carries
+# none of them, so its decoder took the synthetic branch
+REAL_KINDS = {"open": {3}, "mount": {10}, "signal": {9}, "oomkill": {11}, "capabilities": {12},
+              "bind": {8}, "fsslower": {13}, "tcp": {4, 5, 6}, "tcpconnect": {4}, "dns": {7},
+              "sni": {16}, "network": {17}}
+TRACE_SECONDS = 3.0  # each real-window run's timeout
+BIND_PORTS = (48712, 48713)  # tests/test_real_capture.py's TCP and UDP listeners
+DNS_QNAME = "chip-smoke.example.com"
+
+
+def trace_family(device: str, batch: int, exec_ev_per_s: float) -> dict:
+    """Phase 5h(a): open, tcp and dns through `LocalRuntime` as 5d(a)
+    runs trace/exec (pysynthetic seed 7, vocab 2000, every plane, ae) for
+    TRACE_BATCHES batches of `batch` on `device`, K2 once a batch, then
+    on the CPU, the summaries held to each other; then the other nine
+    trace gadgets for 2 batches of TRACE_DECODE_BATCH with the sketch
+    off: every row decoded, none of a real event kind, trace/signal's
+    all "synth"."""
+    out: dict = {"sketched": {}, "decoded": {}}
+    for g in TRACE_SKETCHED:
+        reset_launches()
+        card = gadget_run(device, TRACE_BATCHES, batch, gadget=g)
+        launched = read_launches()
+        want = TRACE_BATCHES if device == "cuda" else 0
+        require(launched == {"K1": 0, "K2": want, "K3": 0},
+                f"trace {g}: launched {launched}, expected K2 {want} (once a batch)")
+        cpu = gadget_run("cpu", TRACE_BATCHES, batch, gadget=g)
+        csum, psum = card["summary"], cpu["summary"]
+        require(csum.events == TRACE_BATCHES * batch and csum.inv is not None
+                and csum.quantiles is not None and len(csum.heavy_hitters) > 0
+                and csum.anomaly and all(np.isfinite(list(csum.anomaly.values()))),
+                f"trace {g}: the final summary is malformed")
+        gap = compare_summaries(csum, psum, f"trace {g}, card vs CPU", anomaly_rel=5e-2)
+        real = card["kinds"] & REAL_KINDS[g]
+        require(not real, f"trace {g}: synthetic batches carried real event kinds {real}")
+        out["sketched"][g] = {"ev_per_s": card["ev_per_s"], "seconds": card["seconds"],
+                              "cpu_ev_per_s": cpu["ev_per_s"], "cpu_seconds": cpu["seconds"],
+                              "k2_launches": launched["K2"], "ae_rel_gap": gap,
+                              "events": csum.events, "distinct": csum.distinct,
+                              "entropy_bits": csum.entropy_bits, "harvest_ms": card["harvest_ms"]}
+        log(f"[trace] (5h a) trace {g}, pysynthetic seed 7, {TRACE_BATCHES} x {batch}, every "
+            f"plane: {device} {card['ev_per_s']:.0f} events/s ({card['ev_per_s'] / exec_ev_per_s:.2f}"
+            f" x 5d(a)'s trace exec {exec_ev_per_s:.0f} in this run; {card['seconds']:.2f} s), "
+            f"CPU {cpu['ev_per_s']:.0f} ({cpu['seconds']:.2f} s); K2 {launched['K2']}; final "
+            f"summary equal to the CPU's (distinct ~{csum.distinct:.0f}, entropy "
+            f"{csum.entropy_bits:.4f} b, ae within {gap:.3g} of a score)")
+    for g in TRACE_DECODED:
+        rows: list = []
+        r = gadget_run(device, 2, TRACE_DECODE_BATCH, gadget=g, sketch=False, rows=rows)
+        real = r["kinds"] & REAL_KINDS[g]
+        require(len(rows) == sum(r["counts"]) == 2 * TRACE_DECODE_BATCH and not real,
+                f"trace {g}: {len(rows)} rows of {sum(r['counts'])} events, real kinds {real}")
+        if g == "signal":
+            require(all(e.origin == "synth" for e in rows), "trace signal: a synthetic row "
+                    "decoded as a capture")
+        out["decoded"][g] = {"rows": len(rows), "kinds": sorted(r["kinds"]),
+                             "seconds": r["seconds"]}
+    log(f"[trace] (5h a) decoded, sketch off, 2 x {TRACE_DECODE_BATCH}: " + "; ".join(
+        f"{g} {d['rows']} rows (kinds {d['kinds']}, {d['seconds']:.2f} s)"
+        for g, d in out["decoded"].items()) + "; every row from the synthetic branch")
+    return out
+
+
+def real_run(device: str, gadget: str, flags: dict, trigger=None,
+             timeout: float = TRACE_SECONDS) -> dict:
+    """trace/<gadget> with ``--source native --tpusketch-enable true`` and
+    `timeout` through `LocalRuntime`, `trigger` run 0.6 s after the start;
+    the last summary's events must equal the rows the run emitted, and K2
+    must have run once a non-empty batch."""
+    from inspektor_gadget_tpu_torch import all_gadgets  # noqa: F401 — registers everything
+    from inspektor_gadget_tpu_torch.gadgets import GadgetContext, get
+    from inspektor_gadget_tpu_torch.operators import get as get_op
+    from inspektor_gadget_tpu_torch.params import Collection
+    from inspektor_gadget_tpu_torch.runtime import LocalRuntime
+    desc = get("trace", gadget)
+    gp = desc.params().to_params()
+    for k, v in {"source": "native", **flags}.items():
+        gp.set(k, str(v))
+    col = Collection({"operator.tpusketch.": get_op("tpusketch").instance_params().to_params()})
+    col["operator.tpusketch."].set("enable", "true")
+    summaries: list = []
+    rows: list = []
+    sizes: list[int] = []
+    ctx = GadgetContext(desc, gadget_params=gp, operator_params=col, timeout=timeout,
+                        extra={"on_sketch_summary": summaries.append}, device=device)
+    box: dict = {}
+
+    def run() -> None:
+        box["res"] = LocalRuntime().run_gadget(
+            ctx, on_event=rows.append, on_batch=lambda b: sizes.append(b.count))["local"]
+
+    reset_launches()
+    t0 = time.perf_counter()
+    th = threading.Thread(target=run)
+    th.start()
+    try:
+        time.sleep(0.6)
+        if trigger is not None:
+            trigger()
+    finally:
+        th.join(timeout + 60)
+        if th.is_alive():
+            ctx.cancel()
+            th.join(30)
+    secs = time.perf_counter() - t0
+    launched = read_launches()
+    res = box.get("res")
+    require(res is not None and res.error is None,
+            f"trace {gadget} --source native: {res.error if res else 'did not end'}")
+    nonempty = sum(1 for n in sizes if n)
+    last = summaries[-1].events if summaries else None
+    require(last == len(rows) == sum(sizes),
+            f"trace {gadget} --source native: last summary {last} events, {len(rows)} rows, "
+            f"{sum(sizes)} events in batches")
+    require(launched["K2"] == (nonempty if device == "cuda" else 0),
+            f"trace {gadget} --source native: K2 {launched['K2']} over {nonempty} non-empty "
+            f"batches")
+    return {"rows": rows, "events": last, "k2_launches": launched["K2"], "batches": nonempty,
+            "seconds": secs}
+
+
+def _repeat(cmd: list[str], times: int = 6, pause: float = 0.3):
+    def trigger() -> None:
+        for _ in range(times):
+            subprocess.run(cmd, check=False, timeout=30)
+            time.sleep(pause)
+    return trigger
+
+
+def real_windows(device: str, facts: dict) -> dict:
+    """Phase 5h(b): every trace gadget whose kernel window the card's host
+    offers, on real activity (tests/test_real_capture.py's triggers), each
+    held by `real_run`; a gadget whose window is absent is logged as
+    skipped with the probe that said so. mount and oomkill are not run
+    here: they would mount a filesystem or force an OOM on a shared host."""
+    from tools.dnstester import build_query
+    out: dict = {}
+
+    def skip(g: str, probe: str) -> None:
+        log(f"[trace] {g}: skipped: {probe} false")
+        out[g] = {"ran": False, "probe": probe}
+
+    def held(g: str, r: dict, what: str) -> None:
+        out[g] = {"ran": True, **{k: v for k, v in r.items() if k != "rows"}}
+        log(f"[trace] (5h b) {g} --source native on the {device}: {len(r['rows'])} rows, last "
+            f"summary {r['events']} events (= its rows), K2 {r['k2_launches']} over "
+            f"{r['batches']} non-empty batches, {r['seconds']:.1f} s; {what}")
+
+    tmp = Path(tempfile.mkdtemp(prefix="igtrace-"))
+    try:
+        # open: a child writes then reads a named file under a temporary directory
+        if facts["fanotify_supported"]:
+            probe = tmp / "ig_trace_open"
+            r = real_run(device, "open", {"paths": str(tmp)}, _repeat(
+                ["sh", "-c", f"echo payload > {probe} && cat {probe} >/dev/null"]))
+            hits = [e for e in r["rows"] if e.path == str(probe)]
+            require(hits and all(e.pid > 0 and e.comm for e in hits),
+                    f"trace open: {len(hits)} rows name {probe}")
+            held("open", r, f"{len(hits)} rows name the child's file, ops "
+                 f"{sorted({e.op for e in hits})}")
+        else:
+            skip("open", "fanotify_supported")
+        # bind: a TCP and a UDP listener on fixed ports
+        socks: list = []
+
+        def listen() -> None:
+            tcp = socket.socket()
+            tcp.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            tcp.bind(("127.0.0.1", BIND_PORTS[0]))
+            tcp.listen(1)
+            udp = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            udp.bind(("0.0.0.0", BIND_PORTS[1]))
+            socks.extend((tcp, udp))
+        try:
+            r = real_run(device, "bind", {}, listen)
+        finally:
+            for sk in socks:
+                sk.close()
+        ports = {e.port: e.protocol for e in r["rows"] if e.port in BIND_PORTS}
+        require(ports == {BIND_PORTS[0]: "tcp", BIND_PORTS[1]: "udp"},
+                f"trace bind: the listeners' rows {ports}")
+        held("bind", r, f"both listeners ({ports})")
+        # tcp: connects to a listener opened after the capture started,
+        # each held past the /proc/net/tcp scanner's 50 ms polls (the
+        # window where the inet_sock_set_state tracepoint is absent)
+        window = "inet_sock_set_state" if facts["sockstate_supported"] else "/proc/net/tcp"
+        box: dict = {}
+
+        def connect() -> None:
+            with socket.socket() as ls:
+                ls.bind(("127.0.0.1", 0))
+                ls.listen(8)
+                box["port"] = ls.getsockname()[1]
+                for _ in range(5):
+                    c = socket.create_connection(("127.0.0.1", box["port"]), timeout=2.0)
+                    conn, _ = ls.accept()
+                    time.sleep(0.2)
+                    c.close()
+                    conn.close()
+                    time.sleep(0.2)
+        r = real_run(device, "tcp", {}, connect)
+        ops = {e.operation for e in r["rows"] if box["port"] in (e.dport, e.sport)}
+        require({"connect", "accept", "close"} <= ops,
+                f"trace tcp ({window}): the listener's port {box['port']} in rows of "
+                f"{sorted(ops)}")
+        held("tcp", r, f"the {window} window: connect, accept and close rows carry port "
+             f"{box['port']}")
+        # the ptrace window: capabilities, signal, fsslower on a --command
+        target = tmp / "ig_trace_cap"
+        target.write_text("x")
+        ptrace_runs = (
+            ("capabilities", {"command": f"chown 0:0 {target}"},
+             lambda e: e.cap == "CHOWN", "CHOWN rows"),
+            ("signal", {"command": "sh -c 'kill -USR1 $$'"},
+             lambda e: e.signal == "SIGUSR1", "SIGUSR1 rows"),
+            ("fsslower", {"command": f"dd if=/dev/zero of={tmp / 'ig_trace_fs'} bs=4096 "
+                                     "count=16 conv=fsync status=none", "min-latency": "0"},
+             lambda e: e.file == str(tmp / "ig_trace_fs"), "rows of the written file"))
+        for g, flags, match, what in ptrace_runs:
+            if not facts["ptrace"]:
+                skip(g, "ptrace")
+                continue
+            r = real_run(device, g, flags, timeout=5.0)
+            hits = [e for e in r["rows"] if match(e)]
+            require(hits, f"trace {g}: no {what} among {len(r['rows'])}")
+            held(g, r, f"{len(hits)} {what}" + (
+                f" (ops {sorted({e.op for e in hits})})" if g == "fsslower" else ""))
+        # dns: UDP queries to a listener on 127.0.0.1:53
+        if facts["cap_net_raw"]:
+            query = build_query(DNS_QNAME)
+            srv = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            try:
+                srv.bind(("127.0.0.1", 53))
+            except OSError as e:  # a resolver already listens there: the query still flows
+                log(f"[trace] dns: 127.0.0.1:53 taken ({e}); sending to it all the same")
+
+            def ask() -> None:
+                with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as c:
+                    for _ in range(5):
+                        c.sendto(query, ("127.0.0.1", 53))
+                        time.sleep(0.1)
+            try:
+                r = real_run(device, "dns", {}, ask)
+            finally:
+                srv.close()
+            hits = [e for e in r["rows"] if e.name == DNS_QNAME]
+            require(hits and all(e.qr == "Q" and e.qtype == "A" for e in hits),
+                    f"trace dns: {len(hits)} rows of the query for {DNS_QNAME}")
+            held("dns", r, f"{len(hits)} query rows for {DNS_QNAME}")
+        else:
+            skip("dns", "cap_net_raw")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["black_box"] = trace_tcp_black_box()
+    return out
+
+
+def trace_tcp_black_box() -> dict:
+    """``ig-tpu-torch trace tcp --source native -o json`` through the
+    port's step framework, as tests/test_torch_steps.py runs it: a
+    start-and-stop `Command` beside a workload that connects to a local
+    listener for 14 s (the CLI's start is inside that), each connection
+    held 0.2 s, the connect row held by `expect_entries_to_match`."""
+    from inspektor_gadget_tpu_torch.testing import (Command, FuncStep, build_common_data,
+                                                    expect_entries_to_match, run_test_steps)
+    from inspektor_gadget_tpu_torch.testing.steps import ig_cli
+    box: dict = {"connects": 0}
+
+    def workload() -> None:
+        ls = socket.socket()
+        ls.bind(("127.0.0.1", 0))
+        ls.listen(8)
+        box["port"] = ls.getsockname()[1]
+        deadline = time.monotonic() + 14.0
+        while time.monotonic() < deadline:
+            c = socket.create_connection(("127.0.0.1", box["port"]), timeout=2.0)
+            conn, _ = ls.accept()
+            time.sleep(0.2)  # past a /proc/net/tcp poll, where that is the window
+            c.close()
+            conn.close()
+            box["connects"] += 1
+            time.sleep(0.2)
+        ls.close()
+
+    def normalize(e: dict) -> None:
+        for k in ("timestamp", "pid", "mountnsid", "netnsid", "comm", "saddr", "daddr",
+                  "sport"):
+            e.pop(k, None)
+        if e.get("dport") != box.get("port"):
+            e.clear()
+            e["skip"] = True
+
+    def check(output: str) -> None:
+        box["rows"] = sum(1 for ln in output.splitlines() if ln.startswith("{"))
+        expect_entries_to_match(output, normalize,
+                                {"operation": "connect", "ipversion": 4, "dport": box["port"],
+                                 "type": "normal", **build_common_data()})
+
+    t0 = time.perf_counter()
+    cmd = Command(name="trace-tcp", cmd=ig_cli("trace", "tcp", "--source", "native", "-o",
+                                               "json"),
+                  start_and_stop=True, ready_timeout=60.0, stop_grace=20.0,
+                  expected_output_fn=check)
+    run_test_steps([cmd, FuncStep(name="workload", fn=workload)], step_wait=1.0)
+    secs = time.perf_counter() - t0
+    log(f"[trace] (5h b) black box: ig-tpu-torch trace tcp --source native -o json through "
+        f"the step framework: {box['rows']} rows, the connect to port {box['port']} matched "
+        f"({box['connects']} connects), exit {cmd.returncode}, {secs:.1f} s")
+    return {"ran": True, "rows": box["rows"], "connects": box["connects"], "seconds": secs}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -1714,6 +2099,9 @@ def main() -> int:
         + (f" ({facts['proc_exec_error']})" if "proc_exec_error" in facts else ""))
     log(f"[host] the localmanager's procfs scan (localmanager.init): "
         f"{facts['procfs_scan_s'] * 1e3:.1f} ms, {facts['procfs_containers']} containers")
+    log("[host] trace windows: " + ", ".join(f"{p} {facts[p]}" for p in WINDOW_PROBES)
+        + f"; /dev/kmsg readable {facts['kmsg_readable']}; CAP_NET_RAW {facts['cap_net_raw']}"
+        f"; ptrace {facts['ptrace']}")
     report["host"] = facts
 
     src = ZipfFoldedSource(args.seed + 1)
@@ -2288,6 +2676,16 @@ def main() -> int:
     scoped["seconds"] = time.perf_counter() - t_scoped
     log(f"[containers] phase 5g took {scoped['seconds']:.1f} s")
     report["containers"] = scoped
+
+    # -- 5h. the trace gadget family ------------------------------------------------
+    t_trace = time.perf_counter()
+    trace = trace_family("cuda", batch, g_card["ev_per_s"])
+    launches["K2"] += sum(d["k2_launches"] for d in trace["sketched"].values())
+    trace["real"] = real_windows("cuda", facts)
+    launches["K2"] += sum(d.get("k2_launches", 0) for d in trace["real"].values())
+    trace["seconds"] = time.perf_counter() - t_trace
+    log(f"[trace] phase 5h took {trace['seconds']:.1f} s")
+    report["trace"] = trace
 
     # -- 6. K3 against its plain version ----------------------------------------
     # the plain versions' float32 matmuls run in full f32, not TF32

@@ -341,6 +341,17 @@ class SourceTraceGadget:
         return bool(getattr(self, "_command", "") or
                     getattr(self, "_target_pid", 0))
 
+    def window_supported(self, probe: Callable[[], bool]) -> bool:
+        """Whether a kernel window `probe` answers for is there, asked
+        once --source is known: an explicit synthetic run never builds
+        the native library, --source auto asks only where it builds, and
+        --source native lets the probe raise when it does not."""
+        if self._mode in ("synthetic", "pysynthetic"):
+            return False
+        if self._mode == "auto" and not native_available():
+            return False
+        return probe()
+
     def _make_source(self):
         mode = self._mode
         attach_mode = bool(self._attach_sources) or self.attach_pending

@@ -9,7 +9,9 @@ waits for the slowest build only.
 
 The C++ capture layer in ``native/`` (the JAX package's, copied as it
 is but for the proc connector's event codes in ``sources.cc``, which
-newer kernel headers spell differently) is one more such library,
+newer kernel headers spell differently, and the bind source's procfs
+scan of TCP listeners in ``watchers.cc``, for hosts whose sock_diag
+answers no TCP dump) is one more such library,
 `HostLibrary`: built by g++ with the flags of the reference's Makefile
 into ``build/native/``, named by a hash of every source and the flags,
 with the ``syscall_names.inc`` it includes generated into the build

@@ -433,8 +433,13 @@ class SockDiagBindSource : public Source {
         dump(fam, IPPROTO_UDP, 0xffffffff, cur);
       }
       // Kernels without udp_diag return an empty dump; procfs covers UDP.
-      scan_proc_udp("/proc/net/udp", AF_INET, cur);
-      scan_proc_udp("/proc/net/udp6", AF_INET6, cur);
+      // Hosts whose sock_diag answers no TCP dump (a sandboxed kernel)
+      // get their TCP listeners from procfs; a listener the dump already
+      // holds keeps the dump's entry.
+      scan_proc("/proc/net/udp", AF_INET, IPPROTO_UDP, cur);
+      scan_proc("/proc/net/udp6", AF_INET6, IPPROTO_UDP, cur);
+      scan_proc("/proc/net/tcp", AF_INET, IPPROTO_TCP, cur);
+      scan_proc("/proc/net/tcp6", AF_INET6, IPPROTO_TCP, cur);
       if (!first) {
         std::vector<uint64_t> fresh;
         for (auto& [inode, s] : cur)
@@ -526,8 +531,8 @@ class SockDiagBindSource : public Source {
     close(sd);
   }
 
-  void scan_proc_udp(const char* path, uint8_t family,
-                     std::unordered_map<uint64_t, SockEnt>& out) {
+  void scan_proc(const char* path, uint8_t family, uint8_t proto,
+                 std::unordered_map<uint64_t, SockEnt>& out) {
     FILE* f = fopen(path, "r");
     if (!f) return;
     char line[512];
@@ -537,15 +542,17 @@ class SockDiagBindSource : public Source {
     }
     while (fgets(line, sizeof(line), f)) {
       char local[128];
+      unsigned int state = 0;
       unsigned long long inode = 0;
-      if (sscanf(line, " %*u: %127s %*s %*x %*s %*s %*s %*u %*u %llu", local,
-                 &inode) < 2 || !inode)
+      if (sscanf(line, " %*u: %127s %*s %x %*s %*s %*s %*u %*u %llu", local,
+                 &state, &inode) < 3 || !inode)
         continue;
+      if (proto == IPPROTO_TCP && state != 0x0A) continue;  // TCP_LISTEN only
       char* colon = strrchr(local, ':');
       if (!colon) continue;
       SockEnt s{};
       s.family = family;
-      s.proto = IPPROTO_UDP;
+      s.proto = proto;
       s.port = (uint16_t)strtoul(colon + 1, nullptr, 16);
       if (family == AF_INET) {
         uint32_t a = (uint32_t)strtoul(local, nullptr, 16);  // little-endian
@@ -556,7 +563,10 @@ class SockDiagBindSource : public Source {
       } else {
         snprintf(s.addr_str, sizeof(s.addr_str), "[%.32s]", local);
       }
-      out[inode] = s;
+      if (proto == IPPROTO_TCP)
+        out.emplace(inode, s);
+      else
+        out[inode] = s;
     }
     fclose(f);
   }

@@ -8,9 +8,8 @@ bit, on every device: XLA lowers ``exp2(-r)`` to its own ``exp`` of
 ulps from rank 13 up, so the port reads those values from a table of
 XLA's outputs at the ranks a register can hold (`_XLA_EXP2_NEG`); it
 sums them in XLA's order (`xla_sum_f32`) and takes linear counting's
-``log`` as XLA's (`xla_logf`). The large-range correction, above
-2**32 / 30 estimated keys, uses torch's ``log1p``, which is not XLA's:
-there the estimate agrees to float32 rounding only.
+``log`` as XLA's (`xla_logf`), and the large-range correction's
+``log1p``, above 2**32 / 30 estimated keys, as XLA's too (`xla_log1pf`).
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ import torch
 
 from ..device import resolve_device
 from .hashing import MASK32, fmix32
-from .quantiles import xla_logf, xla_sum_f32
+from .quantiles import xla_log1pf, xla_logf, xla_sum_f32
 
 # XLA's CPU float32 exp2(-r) for r = 0..64 (every rank a register holds),
 # as bit patterns; tests/test_torch_sketch_ops.py holds them to jnp.exp2
@@ -96,7 +95,10 @@ def hll_estimate(state: HLL) -> torch.Tensor:
     small = (raw <= 2.5 * m) & (zeros > 0)
     est = torch.where(small, linear, raw)
     two32 = torch.tensor(2.0 ** 32, dtype=f32, device=dev)
-    big = -two32 * torch.log1p(-est / two32)
+    log1p = xla_log1pf(-est / two32)
+    # past 2**32 keys log1p is a NaN with every bit set, which the
+    # reference's multiply keeps and a card's would replace with its own
+    big = torch.where(torch.isnan(log1p), log1p, -two32 * log1p)
     return torch.where(est > two32 / 30.0, big, est)
 
 

@@ -34,6 +34,15 @@ _LOG_P = [float.fromhex(h) for h in (
     "0x1.555554p-2")]
 _LOG_Q1 = float.fromhex("-0x1.bd0106p-13")
 _LOG_Q2 = float.fromhex("0x1.63p-1")
+# XLA's CPU log1p below |x| = sqrt(2) - 1: Cephes's P/Q coefficients,
+# highest degree first, as the float32 values of its compiled kernel
+_LOG1P_SMALL = float.fromhex("0x1.a8279ap-2")
+_LOG1P_P = [float.fromhex(h) for h in (
+    "0x1.7bc096p-15", "0x1.fe818ap-2", "0x1.a509f4p+2", "0x1.de9738p+4",
+    "0x1.e798ecp+5", "0x1.c8e75ap+5", "0x1.40a202p+4")]
+_LOG1P_Q = [float.fromhex(h) for h in (
+    "0x1p+0", "0x1.e2035ap+3", "0x1.4c30b6p+6", "0x1.bb865ap+7",
+    "0x1.351946p+8", "0x1.b0db14p+7", "0x1.e0f304p+5")]
 
 
 @dataclass
@@ -133,6 +142,32 @@ def xla_logf(x: torch.Tensor) -> torch.Tensor:
     y = fma_f32(fma_f32(y1, x3, y2), x3, y3)
     t = fma_f32(y, x3, e * _LOG_Q1)
     return fma_f32(e, _LOG_Q2, fma_f32(z, -0.5, x) + t)
+
+
+def _horner_f32(x: torch.Tensor, coeffs) -> torch.Tensor:
+    acc = torch.full_like(x, coeffs[0])
+    for c in coeffs[1:]:
+        acc = fma_f32(acc, x, c)
+    return acc
+
+
+def xla_log1pf(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + x) of float32 values, bit-identical to XLA's CPU
+    ``log1p``. XLA takes two branches: below |x| = sqrt(2) - 1 a Cephes
+    rational approximation, ``x + fma(x*x, -0.5, (x*x*x) * (P(x) / Q(x)))``
+    with P and Q in Horner form (each step one FMA), and otherwise its own
+    ``log`` (`xla_logf`) of ``1 + x``, which gives -inf at 0, +inf at
+    +inf and a NaN with every bit set below 0 (or for a NaN)."""
+    x2 = x * x
+    ratio = _horner_f32(x, _LOG1P_P) / _horner_f32(x, _LOG1P_Q)
+    small = x + fma_f32(x2, -0.5, (x * x2) * ratio)
+    y = x + 1.0
+    big = xla_logf(y)
+    nan = torch.tensor(-1, dtype=torch.int32, device=x.device).view(torch.float32)
+    big = torch.where(y > 0, big, nan)
+    big = torch.where(y == 0, torch.full_like(big, -math.inf), big)
+    big = torch.where(y == math.inf, y, big)
+    return torch.where(x.abs() < _LOG1P_SMALL, small, big)
 
 
 def value_f32(values: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,11 @@
 The library is the port's own build of ``native/`` (`native.HostLibrary`,
 into ``build/native/``), made at the first call that needs it, never at
 import. A missing compiler, a failed build or a failed load raises; the
-reference returns None instead and degrades.
+reference returns None instead and degrades. So do the kernel window
+probes (`fanotify_supported`, `audit_supported`, `captrace_supported`,
+`fstrace_supported`, `sockstate_supported`, `sigtrace_supported`): they
+answer False only for a window the loaded library finds absent, where
+the reference's answer False for a library that did not load as well.
 
 `NativeCapture.pop` pops up to a batch of events into an EventBatch
 (the gadgets' per-event path); `native_available` answers whether the
@@ -110,8 +114,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ig_vocab_lookup_batch.argtypes = [u64, p64, i64, ctypes.c_char_p, i64,
                                           ctypes.POINTER(ctypes.c_int32)]
     lib.ig_vocab_lookup_batch.restype = i64
-    lib.ig_fanotify_supported.argtypes = []
-    lib.ig_fanotify_supported.restype = ctypes.c_int
+    for fn in ("ig_fanotify_supported", "ig_audit_supported", "ig_captrace_supported",
+               "ig_fstrace_supported", "ig_sockstate_supported", "ig_sigtrace_supported"):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = ctypes.c_int
     lib.ig_containers_set.argtypes = [u64, ctypes.c_char_p, i64]
     lib.ig_containers_set.restype = None
     lib.ig_containers_remove.argtypes = [u64]
@@ -140,10 +146,37 @@ def native_available() -> bool:
     return _unavailable is None
 
 
+# -- kernel window probes (see the module note) -------------------------------
+
 def fanotify_supported() -> bool:
     """Whether this host's kernel lets the capture library mark mounts
     with fanotify (the fanotify sources and container discovery)."""
     return bool(LIBRARY.get().ig_fanotify_supported())
+
+
+def audit_supported() -> bool:
+    """Host-wide kernel audit window (NETLINK_AUDIT readlog multicast)."""
+    return bool(LIBRARY.get().ig_audit_supported())
+
+
+def captrace_supported() -> bool:
+    """cap_capable tracepoint window (tracefs, kernel >= 6.7)."""
+    return bool(LIBRARY.get().ig_captrace_supported())
+
+
+def fstrace_supported() -> bool:
+    """raw_syscalls tracepoint window (host-wide fsslower)."""
+    return bool(LIBRARY.get().ig_fstrace_supported())
+
+
+def sockstate_supported() -> bool:
+    """inet_sock_set_state tracepoint window (event-driven trace/tcp)."""
+    return bool(LIBRARY.get().ig_sockstate_supported())
+
+
+def sigtrace_supported() -> bool:
+    """signal_generate tracepoint window (every signal on the host)."""
+    return bool(LIBRARY.get().ig_sigtrace_supported())
 
 
 # -- containers map (ref: pkg/gadgettracermanager/containers-map) -----------

@@ -31,15 +31,16 @@ def run(cmd, *args, timeout=180):
 def test_list_and_catalog():
     r = run(PORT, "list")
     assert r.returncode == 0, r.stderr
-    assert [ln.split()[:2] for ln in r.stdout.strip().splitlines()] == \
-        [["top", "alerts"], ["top", "recordings"], ["top", "sketch"], ["top", "windows"],
-         ["trace", "exec"]]
+    gadgets = ([["snapshot", "process"], ["snapshot", "socket"]]
+               + [["top", n] for n in ("alerts", "recordings", "sketch", "windows")]
+               + [["trace", n] for n in ("bind", "capabilities", "dns", "exec", "fsslower",
+                                         "mount", "network", "oomkill", "open", "signal",
+                                         "sni", "tcp", "tcpconnect")])
+    assert [ln.split()[:2] for ln in r.stdout.strip().splitlines()] == gadgets
     r = run(PORT, "catalog")
     assert r.returncode == 0, r.stderr
     cat = json.loads(r.stdout)
-    assert {(g["category"], g["name"]) for g in cat["gadgets"]} == \
-        {("trace", "exec"), ("top", "sketch"), ("top", "windows"), ("top", "alerts"),
-         ("top", "recordings")}
+    assert [[g["category"], g["name"]] for g in cat["gadgets"]] == gadgets
     ops = {op["name"]: len(op["instanceParams"]) for op in cat["operators"]}
     assert ops == {"localmanager": 2, "tpusketch": 38, "kubemanager": 4, "kubeipresolver": 1,
                    "alerts": 4, "capture": 7}
@@ -120,6 +121,23 @@ def test_unported_commands_exit_2_naming_their_item(command, capsys):
     err = capsys.readouterr().err
     assert f"'{command}' is not ported" in err
     assert f"(ROADMAP item {cli.UNPORTED_COMMANDS[command][1]})" in err
+
+
+UNPORTED_GADGETS = [(c, n) for c, names in cli.UNPORTED_GADGETS.items() for n in names]
+
+
+@pytest.mark.parametrize("category,name", UNPORTED_GADGETS,
+                         ids=[f"{c}-{n}" for c, n in UNPORTED_GADGETS])
+def test_unported_gadgets_exit_2_naming_17b(category, name, capsys):
+    assert cli.main([category, name, "--timeout", "1"]) == 2
+    err = capsys.readouterr().err
+    assert f"'{category} {name}' is not ported" in err and "(ROADMAP item 17b)" in err
+
+
+def test_top_file_and_traceloop_exit_2_naming_17b():
+    for args in (("top", "file"), ("traceloop", "traceloop")):
+        r = run(PORT, *args, timeout=120)
+        assert r.returncode == 2 and "(ROADMAP item 17b)" in r.stderr, r.stderr
 
 
 def test_version_and_help_run_in_process(capsys):

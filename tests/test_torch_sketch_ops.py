@@ -124,6 +124,32 @@ def test_hll_estimate_is_bit_identical_to_the_reference(p, regime):
         assert float(p_hll.hll_estimate(q)) == want, (trial, want)
 
 
+def test_hll_estimate_is_bit_identical_across_the_large_range_correction():
+    """Register states at p 14 whose estimates span 2**32 / 30 to past
+    2**32: the correction's log1p is XLA's (`xla_log1pf`), both of its
+    branches, and its NaN past 2**32 keeps the reference's bits."""
+    p, m = 14, 1 << 14
+    rng = np.random.default_rng(37)
+    seen = {"below": 0, "small branch": 0, "log branch": 0, "past 2**32": 0}
+    for trial in range(160):
+        mean = 11.0 + 9.0 * trial / 160
+        regs = np.clip(np.round(rng.normal(mean, 1.2, m)), 1, 33 - p).astype(np.int32)
+        r = r_hll.HLL(registers=jnp.asarray(regs), p=p)
+        q = p_hll.HLL(registers=torch.from_numpy(regs), p=p)
+        want = np.float32(r_hll.hll_estimate(r))
+        got = np.float32(p_hll.hll_estimate(q).item())
+        assert got.view(np.uint32) == want.view(np.uint32), (trial, want, got)
+        if np.isnan(want):
+            seen["past 2**32"] += 1
+        elif want <= 2**32 / 30:
+            seen["below"] += 1
+        elif want < 0.5 * 2**32:  # -log1p(-x) * 2**32 with |x| < sqrt(2) - 1
+            seen["small branch"] += 1
+        else:
+            seen["log branch"] += 1
+    assert min(seen.values()) >= 5, seen
+
+
 def test_hll_rank_covers_every_leading_zero_count():
     """Keys whose hashes have 0..32-p leading zeros below the index."""
     p = 8
@@ -302,6 +328,21 @@ def test_xla_logf_is_bit_identical_to_jax_log():
                         np.float32([1.1754944e-38, 3.4028235e38, 0.70710677, 0.7071068])])
     want = np.asarray(jax.jit(jnp.log)(x))
     got = p_dd.xla_logf(torch.from_numpy(x)).numpy()
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_xla_log1pf_is_bit_identical_to_jax_log1p():
+    """float32 in [-1, 0), dense around the branch threshold |x| =
+    sqrt(2) - 1, with the special values: XLA's CPU log1p bit for bit."""
+    rng = np.random.default_rng(41)
+    thr = np.float32(float.fromhex("0x1.a8279ap-2")).view(np.int32)
+    around = (thr + np.arange(-(1 << 14), 1 << 14, dtype=np.int32)).view(np.float32)
+    x = np.concatenate([rng.uniform(-1, 0, 1 << 18).astype(np.float32),
+                        -rng.uniform(0, 1e-3, 1 << 14).astype(np.float32),
+                        -around, around,
+                        np.float32([-1.0, -0.0, 0.0, -1e-30, -2.0, np.inf, -np.inf, np.nan])])
+    want = np.asarray(jax.jit(jnp.log1p)(x))
+    got = p_dd.xla_log1pf(torch.from_numpy(x)).numpy()
     assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
