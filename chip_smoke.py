@@ -137,6 +137,25 @@ whose window is absent is logged as skipped with its probe. mount and
 oomkill are not run on the card's host. Then ``trace tcp --source
 native -o json`` as a black box through the port's step framework.
 
+The remaining gadgets (phase 5i, ROADMAP 17b): (a) ``audit seccomp``
+(16 batches), ``advise seccomp-profile``, ``advise network-policy`` and
+``traceloop`` (4 batches each) as 5d(a) runs trace/exec, on the card and
+on the CPU: equal summaries, K2 once a batch on the card and never on
+the CPU, and equal result bytes (the profiles' JSON, the policies' YAML,
+the traceloop table); each one's events/s beside 5d(a)'s. (b) Each 17b
+window the card's host offers (the `[host]` line adds the byte, block
+and perf probes and whether /proc/diskstats reads): traceloop, advise
+seccomp-profile and audit seccomp on a ``--command`` under ptrace with
+the sketch plane on (the openat of
+/etc/hostname returning 3; execve, openat, read and close in the
+profile, reboot out; the ERRNO row of an unprivileged chown); top
+block-io, file, tcp, metrics and self at ``--interval 1s`` beside a
+child that fsyncs a file under build/, a local connection of a known
+byte count and a native synthetic trace exec; profile cpu (folded and
+columns) on a spinning child; profile block-io ``--quantiles true`` on
+the card; and profile block-io's DDSketch fold of 10,000 seeded
+latencies on the card and on the CPU, equal counts and quantile line.
+
 The launch counts are set to 0 just before each card run of a path and
 read just after it.
 
@@ -868,8 +887,9 @@ def _metric(snap: dict, name: str, gadget: str = "trace/exec") -> float:
 def gadget_run(device: str, batches: int, batch: int, *, ops: dict | None = None,
                harvest_every: int = 0, source: str = "pysynthetic", rate: str = "1e9",
                sketch: bool = True, rows: list | None = None,
-               keep_stream: bool = False, gadget: str = "exec") -> dict:
-    """``trace/<gadget>`` (exec by default) through the port's
+               keep_stream: bool = False, gadget: str = "exec",
+               category: str = "trace") -> dict:
+    """``<category>/<gadget>`` (trace/exec by default) through the port's
     `LocalRuntime`: the `source`
     (pysynthetic by default: seed 7, vocab 2000, zipf 1.2, batches of
     `batch` paced at `rate` events/s), the sketch plane with GADGET_SKETCH
@@ -882,8 +902,9 @@ def gadget_run(device: str, batches: int, batch: int, *, ops: dict | None = None
     key-hash lanes. Returns the summaries, the alert transitions, the
     run's seconds and its harvest ms (``ig_tpusketch_harvest_seconds``),
     the events of each batch the gadget handed on, the event kinds its
-    batches carried, and the source's popped, filtered and dropped
-    events (``ig_source_events_*``)."""
+    batches carried, the source's popped, filtered and dropped
+    events (``ig_source_events_*``) and the run's result (the bytes of a
+    result gadget)."""
     from inspektor_gadget_tpu_torch import all_gadgets  # noqa: F401 — registers everything
     from inspektor_gadget_tpu_torch.gadgets import GadgetContext, get
     from inspektor_gadget_tpu_torch.operators import get as get_op
@@ -891,7 +912,7 @@ def gadget_run(device: str, batches: int, batch: int, *, ops: dict | None = None
     from inspektor_gadget_tpu_torch.params import Collection
     from inspektor_gadget_tpu_torch.runtime import LocalRuntime
     from inspektor_gadget_tpu_torch.telemetry import snapshot
-    desc = get("trace", gadget)
+    desc = get(category, gadget)
     gp = desc.params().to_params()
     for k, v in {"source": source, "seed": "7", "vocab": "2000", "zipf": "1.2",
                  "batch-size": str(batch), "rate": rate}.items():
@@ -939,14 +960,15 @@ def gadget_run(device: str, batches: int, batch: int, *, ops: dict | None = None
     after = snapshot()
 
     def delta(name: str) -> float:
-        return _metric(after, name, f"trace/{gadget}") - _metric(before, name, f"trace/{gadget}")
+        return (_metric(after, name, f"{category}/{gadget}")
+                - _metric(before, name, f"{category}/{gadget}"))
 
     h_n, h_s = (delta("ig_tpusketch_harvest_seconds_count"),
                 delta("ig_tpusketch_harvest_seconds_sum"))
     return {"summary": summaries[-1] if summaries else None, "summaries": summaries,
             "alerts": alerts, "seconds": secs, "ev_per_s": sum(counts) / secs,
             "harvest_ms": h_s / max(h_n, 1) * 1e3, "counts": counts, "stream": stream,
-            "kinds": kinds,
+            "kinds": kinds, "result": res.result,
             "popped": delta("ig_source_events_total"),
             "filtered": delta("ig_source_events_filtered_total"),
             "dropped": delta("ig_source_events_dropped_total")}
@@ -1605,17 +1627,19 @@ def host_facts() -> dict:
     lm = ensure_initialized("localmanager")
     facts["procfs_scan_s"] = time.perf_counter() - t0
     facts["procfs_containers"] = len(lm.cc)
-    # the trace gadgets' kernel windows (phase 5h(b))
+    # the trace gadgets' kernel windows (phase 5h(b)) and the 17b gadgets' (5i(b))
     for probe in WINDOW_PROBES:
         facts[probe] = bool(getattr(bridge, probe)())
     facts["kmsg_readable"] = os.access("/dev/kmsg", os.R_OK)
+    facts["diskstats"] = os.access("/proc/diskstats", os.R_OK)  # the block-io windows
     facts["cap_net_raw"] = has_capability(13)  # CAP_NET_RAW: the AF_PACKET sniffers
     facts["ptrace"] = ptrace_works(bridge)
     return facts
 
 
 WINDOW_PROBES = ("fanotify_supported", "audit_supported", "captrace_supported",
-                 "fstrace_supported", "sockstate_supported", "sigtrace_supported")
+                 "fstrace_supported", "sockstate_supported", "sigtrace_supported",
+                 "tcpinfo_supported", "blktrace_supported", "perf_supported")
 
 
 def has_capability(bit: int) -> bool:
@@ -1793,17 +1817,21 @@ def trace_family(device: str, batch: int, exec_ev_per_s: float) -> dict:
 
 
 def real_run(device: str, gadget: str, flags: dict, trigger=None,
-             timeout: float = TRACE_SECONDS) -> dict:
-    """trace/<gadget> with ``--source native --tpusketch-enable true`` and
-    `timeout` through `LocalRuntime`, `trigger` run 0.6 s after the start;
-    the last summary's events must equal the rows the run emitted, and K2
-    must have run once a non-empty batch."""
+             timeout: float = TRACE_SECONDS, category: str = "trace",
+             output: str = "columns") -> dict:
+    """<category>/<gadget> (a trace gadget by default) with ``--source
+    native --tpusketch-enable true`` and `timeout` through `LocalRuntime`,
+    `trigger` run 0.6 s after the start; the last summary's events must
+    equal the events the gadget handed on (and a trace gadget's rows
+    those events), and K2 must have run once a non-empty batch. A trace
+    or audit gadget's rows come back decoded; a result gadget's result
+    (rendered as `output`) comes back as it printed it."""
     from inspektor_gadget_tpu_torch import all_gadgets  # noqa: F401 — registers everything
     from inspektor_gadget_tpu_torch.gadgets import GadgetContext, get
     from inspektor_gadget_tpu_torch.operators import get as get_op
     from inspektor_gadget_tpu_torch.params import Collection
     from inspektor_gadget_tpu_torch.runtime import LocalRuntime
-    desc = get("trace", gadget)
+    desc = get(category, gadget)
     gp = desc.params().to_params()
     for k, v in {"source": "native", **flags}.items():
         gp.set(k, str(v))
@@ -1813,12 +1841,15 @@ def real_run(device: str, gadget: str, flags: dict, trigger=None,
     rows: list = []
     sizes: list[int] = []
     ctx = GadgetContext(desc, gadget_params=gp, operator_params=col, timeout=timeout,
-                        extra={"on_sketch_summary": summaries.append}, device=device)
+                        extra={"on_sketch_summary": summaries.append, "output": output},
+                        device=device)
     box: dict = {}
+    decoded = category in ("trace", "audit")
 
     def run() -> None:
         box["res"] = LocalRuntime().run_gadget(
-            ctx, on_event=rows.append, on_batch=lambda b: sizes.append(b.count))["local"]
+            ctx, on_event=rows.append if decoded else None,
+            on_batch=lambda b: sizes.append(b.count))["local"]
 
     reset_launches()
     t0 = time.perf_counter()
@@ -1836,18 +1867,18 @@ def real_run(device: str, gadget: str, flags: dict, trigger=None,
     secs = time.perf_counter() - t0
     launched = read_launches()
     res = box.get("res")
+    what = f"{category} {gadget} --source native"
     require(res is not None and res.error is None,
-            f"trace {gadget} --source native: {res.error if res else 'did not end'}")
+            f"{what}: {res.error if res else 'did not end'}")
     nonempty = sum(1 for n in sizes if n)
     last = summaries[-1].events if summaries else None
-    require(last == len(rows) == sum(sizes),
-            f"trace {gadget} --source native: last summary {last} events, {len(rows)} rows, "
-            f"{sum(sizes)} events in batches")
-    require(launched["K2"] == (nonempty if device == "cuda" else 0),
-            f"trace {gadget} --source native: K2 {launched['K2']} over {nonempty} non-empty "
+    require(last == sum(sizes) and (category != "trace" or last == len(rows)),
+            f"{what}: last summary {last} events, {len(rows)} rows, {sum(sizes)} events in "
             f"batches")
+    require(launched["K2"] == (nonempty if device == "cuda" else 0),
+            f"{what}: K2 {launched['K2']} over {nonempty} non-empty batches")
     return {"rows": rows, "events": last, "k2_launches": launched["K2"], "batches": nonempty,
-            "seconds": secs}
+            "seconds": secs, "result": res.result}
 
 
 def _repeat(cmd: list[str], times: int = 6, pause: float = 0.3):
@@ -2040,6 +2071,399 @@ def trace_tcp_black_box() -> dict:
     return {"ran": True, "rows": box["rows"], "connects": box["connects"], "seconds": secs}
 
 
+
+# phase 5i: the remaining gadgets (ROADMAP 17b). (a) the four gadgets of a
+# capture source with 5d(a)'s sketch plane at full width, card then CPU;
+# (b) every real window of the 17b gadgets the card's host offers
+SYSCALL_GADGETS = (("audit", "seccomp", 16), ("advise", "seccomp-profile", 4),
+                   ("advise", "network-policy", 4), ("traceloop", "traceloop", 4))
+TOP_SECONDS = 2.2  # each top gadget's run at --interval 1s: two ticks
+DD_FOLD_N = 10_000  # the direct fold's seeded latencies
+
+
+def syscall_gadgets(device: str, batch: int, exec_ev_per_s: float) -> dict:
+    """Phase 5i(a): audit seccomp, advise seccomp-profile, advise
+    network-policy and traceloop through `LocalRuntime` as 5d(a) runs
+    trace/exec (pysynthetic seed 7, vocab 2000, every plane, ae) on
+    `device`, K2 once a batch, then on the CPU, K2 never: the final
+    summaries held to each other by `compare_summaries` and the result
+    bytes (the OCI profiles' JSON, the policies' YAML, the traceloop
+    table, which has no timestamp column) equal."""
+    out: dict = {}
+    for category, name, batches in SYSCALL_GADGETS:
+        what = f"{category} {name}"
+        reset_launches()
+        card = gadget_run(device, batches, batch, category=category, gadget=name)
+        launched = read_launches()
+        want = batches if device == "cuda" else 0
+        require(launched == {"K1": 0, "K2": want, "K3": 0},
+                f"{what}: launched {launched}, expected K2 {want} (once a batch)")
+        reset_launches()
+        cpu = gadget_run("cpu", batches, batch, category=category, gadget=name)
+        require(read_launches()["K2"] == 0, f"{what}: the CPU run launched K2")
+        csum, psum = card["summary"], cpu["summary"]
+        require(csum.events == batches * batch and csum.inv is not None
+                and csum.quantiles is not None and len(csum.heavy_hitters) > 0
+                and csum.anomaly and all(np.isfinite(list(csum.anomaly.values()))),
+                f"{what}: the final summary is malformed")
+        gap = compare_summaries(csum, psum, f"{what}, card vs CPU", anomaly_rel=5e-2)
+        res, cres = card["result"], cpu["result"]
+        if category == "audit":
+            require(res is None and cres is None, f"{what}: a trace gadget returned a result")
+        else:
+            require(isinstance(res, bytes) and len(res) > 200 and res == cres,
+                    f"{what}: the card's result ({len(res or b'')} bytes) differs from the "
+                    f"CPU's ({len(cres or b'')} bytes)")
+        out[f"{category}/{name}"] = {
+            "batches": batches, "ev_per_s": card["ev_per_s"], "seconds": card["seconds"],
+            "cpu_ev_per_s": cpu["ev_per_s"], "cpu_seconds": cpu["seconds"],
+            "k2_launches": launched["K2"], "ae_rel_gap": gap, "events": csum.events,
+            "distinct": csum.distinct, "entropy_bits": csum.entropy_bits,
+            "result_bytes": len(res or b"")}
+        log(f"[17b] (5i a) {what}, pysynthetic seed 7, {batches} x {batch}, every plane: "
+            f"{device} {card['ev_per_s']:.0f} events/s ({card['ev_per_s'] / exec_ev_per_s:.2f} x "
+            f"5d(a)'s trace exec {exec_ev_per_s:.0f} in this run; {card['seconds']:.2f} s), "
+            f"CPU {cpu['ev_per_s']:.0f} ({cpu['seconds']:.2f} s); K2 {launched['K2']}; final "
+            f"summary equal to the CPU's (distinct ~{csum.distinct:.0f}, entropy "
+            f"{csum.entropy_bits:.4f} b, ae within {gap:.3g} of a score)"
+            + (f"; result {len(res)} bytes, equal to the CPU's" if res else ""))
+    return out
+
+
+class DiskWriter:
+    """A child process that writes 64 KiB to a file and fsyncs it every
+    50 ms, so the block and file windows have IO to see (a child: the
+    fanotify source does not report its own process's accesses)."""
+
+    CODE = ("import os, sys, time\nchunk = os.urandom(1 << 16)\n"
+            "with open(sys.argv[1], 'wb') as f:\n"
+            "    for i in range(1, 1 << 30):\n"
+            "        f.write(chunk); f.flush(); os.fsync(f.fileno())\n"
+            "        if i % 64 == 0: f.seek(0)\n"
+            "        time.sleep(0.05)\n")
+
+    def __init__(self, path: Path):
+        self.path = path
+        self.proc: subprocess.Popen | None = None
+
+    def __enter__(self):
+        self.proc = subprocess.Popen([sys.executable, "-S", "-c", self.CODE, str(self.path)])
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.kill()
+        self.proc.wait(30)
+
+
+def block_device_of(path: Path) -> str | None:
+    """The /proc/diskstats name of the block device holding `path`, or
+    None where its device is not listed there (overlay, tmpfs)."""
+    st = os.stat(path)
+    major, minor = os.major(st.st_dev), os.minor(st.st_dev)
+    with open("/proc/diskstats") as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) > 2 and (int(parts[0]), int(parts[1])) == (major, minor):
+                return parts[2]
+    return None
+
+
+def top_run(name: str, params: dict, seconds: float = TOP_SECONDS) -> list:
+    """top/<name> through `LocalRuntime` at --interval 1s for `seconds`:
+    the rows of every tick."""
+    from inspektor_gadget_tpu_torch import all_gadgets  # noqa: F401 — registers everything
+    from inspektor_gadget_tpu_torch.gadgets import GadgetContext, get
+    from inspektor_gadget_tpu_torch.runtime import LocalRuntime
+    desc = get("top", name)
+    gp = desc.params().to_params()
+    for k, v in {"interval": "1s", "max-rows": "10000", **params}.items():
+        gp.set(k, v)
+    ticks: list = []
+    ctx = GadgetContext(desc, gadget_params=gp, timeout=seconds, device="cpu")
+    res = LocalRuntime().run_gadget(ctx, on_event_array=ticks.append)["local"]
+    require(res.error is None and ticks, f"top {name}: {res.error or 'no tick'}")
+    return [r for t in ticks for r in t]
+
+
+def result_run(category: str, name: str, params: dict, seconds: float, device: str) -> bytes:
+    """A result gadget without a capture source (profile cpu, profile
+    block-io) through `LocalRuntime` for `seconds`: its result bytes."""
+    from inspektor_gadget_tpu_torch import all_gadgets  # noqa: F401 — registers everything
+    from inspektor_gadget_tpu_torch.gadgets import GadgetContext, get
+    from inspektor_gadget_tpu_torch.runtime import LocalRuntime
+    desc = get(category, name)
+    gp = desc.params().to_params()
+    for k, v in params.items():
+        gp.set(k, v)
+    ctx = GadgetContext(desc, gadget_params=gp, timeout=seconds, device=device)
+    res = LocalRuntime().run_gadget(ctx)["local"]
+    require(res.error is None and isinstance(res.result, bytes),
+            f"{category} {name}: {res.error or 'no result'}")
+    return res.result
+
+
+def dd_fold(device: str, seed: int) -> dict:
+    """DD_FOLD_N seeded latencies through profile block-io's own `_fold`
+    (in chunks of its flush size) and `_quantile_summary` on `device`."""
+    from inspektor_gadget_tpu_torch import all_gadgets  # noqa: F401 — registers everything
+    from inspektor_gadget_tpu_torch.gadgets import GadgetContext, get
+    desc = get("profile", "block-io")
+    gp = desc.params().to_params()
+    gp.set("quantiles", "true")
+    g = desc.new_instance(GadgetContext(desc, gadget_params=gp, device=device))
+    rng = np.random.default_rng(seed)
+    us = np.maximum(rng.lognormal(5.0, 1.5, DD_FOLD_N).astype(np.int64), 1)
+    obs = [(int(u) / 1e6, int(w)) for u, w in zip(us, rng.integers(1, 40, DD_FOLD_N))]
+    t0 = time.perf_counter()
+    sk = None
+    for i in range(0, len(obs), g._FLUSH):
+        sk = g._fold(sk, obs[i:i + g._FLUSH])
+    line = g._quantile_summary(sk)
+    secs = time.perf_counter() - t0
+    require(sk.counts.device.type == torch.device(device).type,
+            f"profile block-io's fold ran on {sk.counts.device}, asked for {device}")
+    return {"counts": sk.counts.cpu(), "zeros": int(sk.zeros), "total": int(sk.total),
+            "line": line, "seconds": secs, "weight": sum(w for _, w in obs)}
+
+
+def remaining_windows(device: str, facts: dict, root: Path) -> dict:
+    """Phase 5i(b): the 17b gadgets on the real windows the card's host
+    offers, each checked, each absent window logged with its probe: the
+    ptrace trio (traceloop, advise seccomp-profile, audit seccomp on a
+    ``--command``, through `real_run`); top block-io, file, tcp, metrics
+    and self at --interval 1s; profile cpu (folded and columns) on a
+    spinning child; profile block-io --quantiles true on `device` while
+    a thread fsyncs a file under `root`; and the DDSketch fold direct on
+    `device` and on the CPU."""
+    from inspektor_gadget_tpu_torch.gadgets.top.file import _fanotify_window_available
+    out: dict = {}
+
+    def skip(g: str, probe: str) -> None:
+        log(f"[17b] {g}: skipped: {probe} false")
+        out[g] = {"ran": False, "probe": probe}
+
+    def done(g: str, info: dict, what: str) -> None:
+        out[g] = {"ran": True, **info}
+        log(f"[17b] (5i b) {g}: {what}")
+
+    root.mkdir(parents=True, exist_ok=True)
+    # the ptrace window; the chown probe sits where uid 1 can reach it, so
+    # the kernel's answer is the EPERM of the chown itself
+    probe_dir = Path(tempfile.mkdtemp(prefix="ig17b-"))
+    probe_dir.chmod(0o755)
+    probe = probe_dir / "audit_probe"
+    probe.write_text("x")
+    os.chown(probe, 0, 0)
+    chown = (f"{sys.executable} -S -c \"import os; os.setuid(1); "
+             f"os.chown('{probe}', 1, 1)\"")
+    for category, name, flags, output in (
+            ("traceloop", "traceloop", {"command": "cat /etc/hostname"}, "json"),
+            ("advise", "seccomp-profile", {"command": "cat /etc/hostname"}, "columns"),
+            ("audit", "seccomp", {"command": chown}, "columns")):
+        g = f"{category} {name}"
+        if not facts["ptrace"]:
+            skip(g, "ptrace")
+            continue
+        r = real_run(device, name, flags, timeout=8.0, category=category, output=output)
+        if name == "traceloop":
+            recs = json.loads(r["result"])
+            names = {x["syscall"] for x in recs}
+            opens = [x for x in recs if x["syscall"] == "openat" and "/etc/hostname" in x["args"]]
+            require({"execve", "openat"} <= names and opens and opens[0]["ret"] == 3,
+                    f"{g}: syscalls {sorted(names)[:20]}, {len(opens)} openat of /etc/hostname "
+                    f"returning {[x['ret'] for x in opens]}")
+            what = f"{len(recs)} records, openat(/etc/hostname) = {opens[0]['ret']}"
+        elif name == "seccomp-profile":
+            (prof,) = json.loads(r["result"]).values()
+            names = set(prof["syscalls"][0]["names"])
+            require({"execve", "openat", "read", "close"} <= names and "reboot" not in names,
+                    f"{g}: the profile's names {sorted(names)}")
+            what = f"a profile of {len(names)} syscalls, execve, openat, read and close in, " \
+                   "reboot out"
+        else:
+            denied = [e for e in r["rows"] if e.code == "ERRNO"
+                      and e.syscall in ("chown", "fchownat")]
+            require(denied, f"{g}: no ERRNO row for chown among "
+                    f"{[(e.syscall, e.code) for e in r['rows']]}")
+            what = f"{len(r['rows'])} rows, ERRNO {denied[0].syscall}"
+        done(g, {k: v for k, v in r.items() if k not in ("rows", "result")},
+             f"--source native --tpusketch-enable true on the {device}: {what}; last summary "
+             f"{r['events']} events (= the events handed on), K2 {r['k2_launches']} over "
+             f"{r['batches']} non-empty batches, {r['seconds']:.1f} s")
+    shutil.rmtree(probe_dir, ignore_errors=True)
+    writer_file = root / "writer.bin"
+    with DiskWriter(writer_file) as writer:
+        time.sleep(0.3)
+        # top block-io: the device under root/, where diskstats lists it
+        dev = block_device_of(root) if facts["diskstats"] else None
+        rows = top_run("block-io", {})
+        mine = [r for r in rows if r.device == dev]
+        if dev is not None:
+            require(mine and sum(r.writes for r in mine) > 0,
+                    f"top block-io: no writes on {dev} among {[r.device for r in rows]}")
+            what = (f"{dev} (under {root.name}/) {sum(r.writes for r in mine)} writes, "
+                    f"{sum(r.wbytes for r in mine)} bytes")
+        elif facts["diskstats"]:
+            what = (f"{root.name}/ is on no device /proc/diskstats lists (overlay or tmpfs): "
+                    f"devices seen {sorted({r.device for r in rows})}")
+        else:
+            require(not rows, f"top block-io: {len(rows)} rows without /proc/diskstats")
+            what = "the writes not checked: diskstats false (no /proc/diskstats)"
+        done("top block-io", {"rows": len(rows), "device": dev,
+                              "writes": sum(r.writes for r in mine)},
+             f"{len(rows)} rows; {what}")
+        # top file: the writer's file on fanotify, this process on procio
+        fan = _fanotify_window_available()
+        params = {"paths": str(root)} if fan else {}
+        rows = top_run("file", params)
+        if fan:
+            mine = [r for r in rows if r.file == str(writer_file) and r.writes > 0]
+        else:
+            mine = [r for r in rows if r.pid == writer.proc.pid and r.writes > 0]
+        require(mine, f"top file ({'fanotify' if fan else 'procio'}): no row of the writer "
+                f"among {len(rows)}")
+        done("top file", {"window": "fanotify" if fan else "procio", "rows": len(rows)},
+             f"the {'fanotify' if fan else 'procio'} window: {len(rows)} rows, the writer's "
+             f"{'file' if fan else 'process'} with {sum(r.writes for r in mine)} writes, "
+             f"{sum(r.wbytes for r in mine)} bytes")
+        # profile block-io --quantiles true on the card while the writer fsyncs
+        t0 = time.perf_counter()
+        text = result_run("profile", "block-io", {"quantiles": "true"}, 2.0, device).decode()
+        counts = [int(ln.split(":")[1].split("|")[0]) for ln in text.splitlines()
+                  if "->" in ln and ":" in ln]
+        window = "blktrace" if "source: tracefs block events" in text else "diskstats"
+        require("distribution" in text and (sum(counts) > 0) == ("p50=" in text),
+                f"profile block-io: {sum(counts)} IOs in the histogram, quantile line "
+                f"{'p50=' in text}:\n{text}")
+        qline = [ln for ln in text.splitlines() if "p50=" in ln]
+        done("profile block-io", {"window": window, "ios": sum(counts),
+                                  "quantiles": qline[0] if qline else None,
+                                  "seconds": time.perf_counter() - t0},
+             f"--quantiles true on the {device}, the {window} window"
+             + ("" if facts["diskstats"] or window != "diskstats" else
+                " (diskstats false: no /proc/diskstats)")
+             + f": {sum(counts)} IOs in the histogram; "
+             + (qline[0].strip() if qline else "no IO seen, so no quantile line (the "
+                                              "histogram is empty too)"))
+    # top tcp: a local connection that sends a known byte count
+    sent_total = 48 * 65536
+    box: dict = {}
+    stop = threading.Event()
+
+    def serve(ls) -> None:
+        conn, _ = ls.accept()
+        while conn.recv(65536):
+            pass
+        conn.close()
+
+    def client() -> None:
+        time.sleep(1.0)  # the byte source's first dump comes first: every byte is a delta
+        cs = socket.create_connection(("127.0.0.1", box["port"]))
+        for _ in range(48):
+            cs.sendall(b"x" * 65536)
+            time.sleep(0.02)
+        stop.wait(10.0)  # held open until the gadget is done: its last delta
+        cs.close()
+
+    ls = socket.socket()
+    ls.bind(("127.0.0.1", 0))
+    ls.listen(1)
+    box["port"] = ls.getsockname()[1]
+    st = threading.Thread(target=serve, args=(ls,))
+    ct = threading.Thread(target=client)
+    st.start()
+    ct.start()
+    try:
+        rows = top_run("tcp", {"source": "native"}, seconds=3.2)
+    finally:
+        stop.set()
+        ct.join(15)
+        st.join(15)
+        ls.close()
+    # the byte window names ports in decimal, the churn window as /proc/net/tcp
+    # has them, in hex
+    named = re.compile(rf":(?:{box['port']}|{box['port']:x})(?![0-9a-f])")
+    mine = [r for r in rows if named.search(r.conn.lower())]
+    if facts["tcpinfo_supported"]:
+        require(sum(r.sent for r in mine) >= sent_total,
+                f"top tcp (INET_DIAG_INFO): SENT {sum(r.sent for r in mine)} on port "
+                f"{box['port']}, {sent_total} sent")
+        what = (f"the INET_DIAG_INFO byte window: {len(mine)} rows of port {box['port']}, SENT "
+                f"{sum(r.sent for r in mine)} (>= the {sent_total} bytes sent)")
+    else:
+        require(mine and all(r.sent == r.recv == 0 for r in rows),
+                f"top tcp (churn): {len(mine)} of {len(rows)} rows name port {box['port']}, "
+                f"bytes {[(r.sent, r.recv) for r in rows]}")
+        what = (f"churn (tcpinfo_supported false): {len(rows)} rows, {len(mine)} naming port "
+                f"{box['port']} ({mine[0].conn}), SENT and RECV 0 on every row")
+    done("top tcp", {"rows": len(rows), "mine": len(mine), "bytes_window":
+                     facts["tcpinfo_supported"], "sent": sum(r.sent for r in mine)}, what)
+    # top metrics: 5i(a)'s sketch series are in the port's registry
+    rows = top_run("metrics", {})
+    sk = [r for r in rows if r.metric.startswith("ig_tpusketch_")
+          and 'gadget="audit/seccomp"' in r.labels]
+    require(sk, f"top metrics: no ig_tpusketch_* series of audit/seccomp among {len(rows)}")
+    done("top metrics", {"rows": len(rows), "tpusketch_audit_rows": len(sk)},
+         f"{len(rows)} rows, {len(sk)} ig_tpusketch_* series of audit/seccomp")
+    # top self beside a native synthetic trace exec
+    from inspektor_gadget_tpu_torch.gadgets import GadgetContext, get
+    from inspektor_gadget_tpu_torch.runtime import LocalRuntime
+    desc = get("trace", "exec")
+    gp = desc.params().to_params()
+    gp.set("source", "synthetic")
+    gp.set("rate", "100000")
+    tctx = GadgetContext(desc, gadget_params=gp, timeout=6.0, device=device)
+    th = threading.Thread(target=lambda: LocalRuntime().run_gadget(tctx), daemon=True)
+    th.start()
+    try:
+        time.sleep(0.8)
+        rows = top_run("self", {})
+    finally:
+        tctx.cancel()
+        th.join(10)
+    ex = [r for r in rows if r.source == "synth/exec" and r.produced > 0]
+    require(ex, f"top self: no synth/exec source producing among {[r.source for r in rows]}")
+    done("top self", {"rows": len(rows), "produced": max(r.produced for r in ex)},
+         f"{len(rows)} rows; trace exec's synth/exec source produced "
+         f"{max(r.produced for r in ex)}, {max(r.rate for r in ex):.0f} events/s, "
+         f"{max(r.cpu_pct for r in ex):.1f}% CPU")
+    # profile cpu on a spinning child, folded and columns
+    perf = facts["perf_supported"]
+    comm = os.path.basename(sys.executable)[:15]
+    spin = subprocess.Popen([sys.executable, "-S", "-c",
+                             "import time\nt=time.time()\nwhile time.time()-t<8: pass"])
+    try:
+        time.sleep(0.2)
+        folded = result_run("profile", "cpu", {"pid": str(spin.pid),
+                                                "profile-output": "folded"}, 2.5, device)
+        columns = result_run("profile", "cpu", {"pid": str(spin.pid)}, 2.5, device)
+    finally:
+        spin.kill()
+        spin.wait()
+    lines = [ln for ln in folded.decode().splitlines() if ln.strip()]
+    total = sum(int(ln.rsplit(" ", 1)[1]) for ln in lines)
+    require(any(ln.startswith((comm + ";", comm + ":")) for ln in lines)
+            and comm.encode() in columns and (not perf or total >= 20),
+            f"profile cpu ({'perf' if perf else 'procfs'}): {total} samples, {lines[:5]}")
+    done("profile cpu", {"sampler": "perf" if perf else "procfs", "samples": total,
+                         "stacks": len(lines)},
+         f"the {'perf' if perf else 'procfs'} sampler: {total} samples of the spinning "
+         f"{comm} in {len(lines)} folded stacks; its comm in the columns table")
+    # the DDSketch fold, direct, on the device and on the CPU
+    card, cpu = dd_fold(device, 11), dd_fold("cpu", 11)
+    require(torch.equal(card["counts"], cpu["counts"]) and card["zeros"] == cpu["zeros"]
+            and card["total"] == cpu["total"] == card["weight"] and card["line"] == cpu["line"],
+            f"the DDSketch fold: {device} {card['total']} {card['line']!r}, CPU {cpu['total']} "
+            f"{cpu['line']!r}")
+    done("dd fold", {"total": card["total"], "line": card["line"].decode().strip(),
+                     "seconds": card["seconds"], "cpu_seconds": cpu["seconds"]},
+         f"{DD_FOLD_N} seeded latencies through profile block-io's _fold on the {device} "
+         f"({card['seconds'] * 1e3:.1f} ms) and the CPU ({cpu['seconds'] * 1e3:.1f} ms): equal "
+         f"counts, total {card['total']}; {card['line'].decode().strip()}")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -2100,7 +2524,8 @@ def main() -> int:
     log(f"[host] the localmanager's procfs scan (localmanager.init): "
         f"{facts['procfs_scan_s'] * 1e3:.1f} ms, {facts['procfs_containers']} containers")
     log("[host] trace windows: " + ", ".join(f"{p} {facts[p]}" for p in WINDOW_PROBES)
-        + f"; /dev/kmsg readable {facts['kmsg_readable']}; CAP_NET_RAW {facts['cap_net_raw']}"
+        + f"; /dev/kmsg readable {facts['kmsg_readable']}; /proc/diskstats readable "
+        f"{facts['diskstats']}; CAP_NET_RAW {facts['cap_net_raw']}"
         f"; ptrace {facts['ptrace']}")
     report["host"] = facts
 
@@ -2686,6 +3111,16 @@ def main() -> int:
     trace["seconds"] = time.perf_counter() - t_trace
     log(f"[trace] phase 5h took {trace['seconds']:.1f} s")
     report["trace"] = trace
+
+    # -- 5i. the remaining gadgets (ROADMAP 17b) -----------------------------------
+    t_17b = time.perf_counter()
+    rem = {"syscall": syscall_gadgets("cuda", batch, g_card["ev_per_s"])}
+    launches["K2"] += sum(d["k2_launches"] for d in rem["syscall"].values())
+    rem["real"] = remaining_windows("cuda", facts, ckpt_root.parent / "chip_smoke_17b")
+    launches["K2"] += sum(d.get("k2_launches", 0) for d in rem["real"].values())
+    rem["seconds"] = time.perf_counter() - t_17b
+    log(f"[17b] phase 5i took {rem['seconds']:.1f} s")
+    report["remaining"] = rem
 
     # -- 6. K3 against its plain version ----------------------------------------
     # the plain versions' float32 matmuls run in full f32, not TF32

@@ -7,13 +7,13 @@ parser callback → formatter (registry.go:172-346). `ig` uses the local
 runtime (cmd/ig/main.go:36-57).
 
 The port's copy of ``inspektor_gadget_tpu/cli/main.py``: ``list``,
-``catalog``, ``version``, the gadget commands on the local runtime (the
-trace family, the snapshot pair and the top gadgets of the sketch plane),
+``catalog``, ``version``, every gadget command on the local runtime,
 ``query``, ``watch`` and ``history`` on the local history store,
 ``record``, ``replay`` and ``alerts`` on this process's recordings, journals
 and alert table, with one more flag, ``--device {cuda,cpu}`` (default ``cuda``), the
-device the run's operators put their state on. Subcommands, gadgets and
-flags whose modules are not ported exit 2 naming their ROADMAP item.
+device the run's operators (and ``profile block-io --quantiles true``) put
+their state on. Subcommands and flags whose modules are not ported exit 2
+naming their ROADMAP item.
 
     python -m inspektor_gadget_tpu_torch.cli.main trace exec --device cpu \\
         --source pysynthetic --timeout 3 --tpusketch-enable true
@@ -44,7 +44,7 @@ if __name__ == "__main__":
     if _threading.current_thread() is _threading.main_thread():
         _prev_sigint = signal.signal(signal.SIGINT, _early_sigint)
 
-from .. import all_gadgets  # noqa: F401,E402 — registers everything ported
+from .. import all_gadgets  # noqa: F401,E402 — registers every gadget and operator
 from ..columns import (TextFormatter, match_event, parse_filters, parse_sort,  # noqa: E402
                        sort_events)
 from ..gadgets import GadgetContext  # noqa: E402
@@ -72,17 +72,6 @@ UNPORTED_COMMANDS = {
     "fleet": ("fleet health and shared runs", "11"),
     "bench": ("benchmark runs and the perf ledger", "20"),
     "doctor": ("probe capture windows per gadget", "19"),
-}
-
-# the reference's gadgets the port has not yet, all ROADMAP item 17b: each
-# exits 2 naming it
-GADGETS_ITEM = "17b"
-UNPORTED_GADGETS = {
-    "top": ("block-io", "file", "metrics", "self", "tcp"),
-    "profile": ("cpu", "block-io"),
-    "audit": ("seccomp",),
-    "advise": ("seccomp-profile", "network-policy"),
-    "traceloop": ("traceloop",),
 }
 
 def build_parser() -> argparse.ArgumentParser:
@@ -113,12 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
         sub.add_parser(name, help=f"{help_} (not ported yet: ROADMAP item {item})")
 
     categories = gadget_registry.categories()
-    for category in sorted(set(categories) | set(UNPORTED_GADGETS)):
+    for category in sorted(categories):
         catp = sub.add_parser(category, help=f"{category} gadgets")
         catsub = catp.add_subparsers(dest="gadget")
-        # help-listing stubs only: main() answers them before argparse
-        for name in UNPORTED_GADGETS.get(category, ()):
-            catsub.add_parser(name, help=f"not ported yet: ROADMAP item {GADGETS_ITEM}")
         for desc in categories.get(category, ()):
             gp = catsub.add_parser(desc.name, help=desc.description)
             _add_common_flags(gp)
@@ -351,8 +337,6 @@ def main(argv: list[str] | None = None) -> int:
         argv = sys.argv[1:]
     if argv and argv[0] in UNPORTED_COMMANDS:
         return unported(f"'{argv[0]}'", UNPORTED_COMMANDS[argv[0]][1])
-    if len(argv) > 1 and argv[1] in UNPORTED_GADGETS.get(argv[0], ()):
-        return unported(f"'{argv[0]} {argv[1]}'", GADGETS_ITEM)
     ap = build_parser()
     args = ap.parse_args(argv)
     if not hasattr(args, "func"):

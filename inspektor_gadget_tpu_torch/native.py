@@ -196,6 +196,12 @@ class HostLibrary:
                 self._lib = lib
             return self._lib
 
+    def loaded(self) -> ctypes.CDLL | None:
+        """The library if this process has loaded it, else None (never
+        builds)."""
+        with self._mu:
+            return self._lib
+
 
 def build_all(libs: Iterable[CudaLibrary | HostLibrary]) -> None:
     """Build and load every library in `libs`, one compiler each, all

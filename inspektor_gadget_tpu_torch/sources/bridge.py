@@ -6,9 +6,12 @@ into ``build/native/``), made at the first call that needs it, never at
 import. A missing compiler, a failed build or a failed load raises; the
 reference returns None instead and degrades. So do the kernel window
 probes (`fanotify_supported`, `audit_supported`, `captrace_supported`,
-`fstrace_supported`, `sockstate_supported`, `sigtrace_supported`): they
+`fstrace_supported`, `sockstate_supported`, `sigtrace_supported`,
+`perf_supported`, `blktrace_supported`, `tcpinfo_supported`): they
 answer False only for a window the loaded library finds absent, where
 the reference's answer False for a library that did not load as well.
+`sources_stats` lists the live sources of this process's library and
+never builds it: a library not yet loaded has no source.
 
 `NativeCapture.pop` pops up to a batch of events into an EventBatch
 (the gadgets' per-event path); `native_available` answers whether the
@@ -115,9 +118,12 @@ def _bind(lib: ctypes.CDLL) -> None:
                                           ctypes.POINTER(ctypes.c_int32)]
     lib.ig_vocab_lookup_batch.restype = i64
     for fn in ("ig_fanotify_supported", "ig_audit_supported", "ig_captrace_supported",
-               "ig_fstrace_supported", "ig_sockstate_supported", "ig_sigtrace_supported"):
+               "ig_fstrace_supported", "ig_sockstate_supported", "ig_sigtrace_supported",
+               "ig_perf_supported", "ig_blktrace_supported", "ig_tcpinfo_supported"):
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = ctypes.c_int
+    lib.ig_sources_stats.argtypes = [p64, p32] + [p64] * 7 + [i64]
+    lib.ig_sources_stats.restype = i64
     lib.ig_containers_set.argtypes = [u64, ctypes.c_char_p, i64]
     lib.ig_containers_set.restype = None
     lib.ig_containers_remove.argtypes = [u64]
@@ -177,6 +183,64 @@ def sockstate_supported() -> bool:
 def sigtrace_supported() -> bool:
     """signal_generate tracepoint window (every signal on the host)."""
     return bool(LIBRARY.get().ig_sigtrace_supported())
+
+
+def perf_supported() -> bool:
+    """perf_event_open CPU-clock sampling (the profile/cpu sampler)."""
+    return bool(LIBRARY.get().ig_perf_supported())
+
+
+def blktrace_supported() -> bool:
+    """Per-IO block window (tracefs block events)."""
+    return bool(LIBRARY.get().ig_blktrace_supported())
+
+
+def tcpinfo_supported() -> bool:
+    """Per-connection TCP byte counters (sock_diag INET_DIAG_INFO)."""
+    return bool(LIBRARY.get().ig_tcpinfo_supported())
+
+
+_SRC_KIND_NAMES = {
+    SRC_SYNTH_EXEC: "synth/exec", SRC_SYNTH_TCP: "synth/tcp",
+    SRC_SYNTH_DNS: "synth/dns", SRC_PROC_EXEC: "netlink/proc",
+    SRC_PROC_TCP: "proc/tcp", SRC_FANOTIFY_EXEC: "fanotify/exec",
+    SRC_FANOTIFY_OPEN: "fanotify/open", SRC_MOUNTINFO: "mountinfo",
+    SRC_SOCK_DIAG: "sock_diag", SRC_KMSG_OOM: "kmsg/oom",
+    SRC_PTRACE: "ptrace", SRC_FANOTIFY_RUNC: "fanotify/runc",
+    SRC_PERF_CPU: "perf/cpu", SRC_BLK_TRACE: "blk/trace",
+    SRC_TCP_BYTES: "sock_diag/tcpinfo", SRC_AUDIT: "netlink/audit",
+    SRC_CAP_TRACE: "tracefs/cap", SRC_FS_TRACE: "tracefs/fs",
+    SRC_SOCK_STATE: "tracefs/sock", SRC_SIG_TRACE: "tracefs/signal",
+    SRC_PKT_DNS: "pkt/dns",
+    SRC_PKT_SNI: "pkt/sni", SRC_PKT_FLOW: "pkt/flow",
+}
+
+
+def sources_stats(cap: int = 256) -> list[dict]:
+    """Every live native capture source of this process's library with
+    its self-stats (the top/ebpf contract: per-source capture-thread CPU
+    time, ring occupancy and capacity, produced, consumed, drops and
+    filtered). A library not loaded yet holds no source: nothing is
+    built to answer []."""
+    lib = LIBRARY.loaded()
+    if lib is None:
+        return []
+    ids = np.zeros(cap, np.uint64)
+    kinds = np.zeros(cap, np.uint32)
+    cols = [np.zeros(cap, np.uint64) for _ in range(7)]
+    n = lib.ig_sources_stats(_p64(ids), _p32(kinds), *[_p64(c) for c in cols], cap)
+    if n <= 0:
+        return []
+    produced, consumed, drops, filtered, ring_len, ring_cap, cpu_ns = cols
+    out = []
+    for i in range(int(n)):
+        k = int(kinds[i])
+        out.append({"id": int(ids[i]), "kind": k, "kind_name": _SRC_KIND_NAMES.get(k, str(k)),
+                    "produced": int(produced[i]), "consumed": int(consumed[i]),
+                    "drops": int(drops[i]), "filtered": int(filtered[i]),
+                    "ring_len": int(ring_len[i]), "ring_cap": int(ring_cap[i]),
+                    "cpu_ns": int(cpu_ns[i])})
+    return out
 
 
 # -- containers map (ref: pkg/gadgettracermanager/containers-map) -----------

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import json
 import os
+import signal
 import subprocess
 import sys
 
@@ -31,11 +32,15 @@ def run(cmd, *args, timeout=180):
 def test_list_and_catalog():
     r = run(PORT, "list")
     assert r.returncode == 0, r.stderr
-    gadgets = ([["snapshot", "process"], ["snapshot", "socket"]]
-               + [["top", n] for n in ("alerts", "recordings", "sketch", "windows")]
+    gadgets = ([["advise", "network-policy"], ["advise", "seccomp-profile"],
+                ["audit", "seccomp"], ["profile", "block-io"], ["profile", "cpu"],
+                ["snapshot", "process"], ["snapshot", "socket"]]
+               + [["top", n] for n in ("alerts", "block-io", "file", "metrics", "recordings",
+                                       "self", "sketch", "tcp", "windows")]
                + [["trace", n] for n in ("bind", "capabilities", "dns", "exec", "fsslower",
                                          "mount", "network", "oomkill", "open", "signal",
-                                         "sni", "tcp", "tcpconnect")])
+                                         "sni", "tcp", "tcpconnect")]
+               + [["traceloop", "traceloop"]])
     assert [ln.split()[:2] for ln in r.stdout.strip().splitlines()] == gadgets
     r = run(PORT, "catalog")
     assert r.returncode == 0, r.stderr
@@ -123,21 +128,44 @@ def test_unported_commands_exit_2_naming_their_item(command, capsys):
     assert f"(ROADMAP item {cli.UNPORTED_COMMANDS[command][1]})" in err
 
 
-UNPORTED_GADGETS = [(c, n) for c, names in cli.UNPORTED_GADGETS.items() for n in names]
+# the gadgets of ROADMAP item 17b, each with the flags of a short CPU run
+GADGETS_17B = {
+    ("top", "block-io"): ["--interval", "250ms"],
+    ("top", "file"): ["--interval", "250ms"],
+    ("top", "metrics"): ["--interval", "250ms"],
+    ("top", "self"): ["--interval", "250ms"],
+    ("top", "tcp"): ["--interval", "250ms", "--source", "pysynthetic"],
+    ("profile", "cpu"): [],
+    ("profile", "block-io"): ["--quantiles", "true"],
+    ("audit", "seccomp"): ["--source", "pysynthetic"],
+    ("advise", "seccomp-profile"): ["--source", "pysynthetic"],
+    ("advise", "network-policy"): ["--source", "pysynthetic"],
+    ("traceloop", "traceloop"): ["--source", "pysynthetic"],
+}
 
 
-@pytest.mark.parametrize("category,name", UNPORTED_GADGETS,
-                         ids=[f"{c}-{n}" for c, n in UNPORTED_GADGETS])
-def test_unported_gadgets_exit_2_naming_17b(category, name, capsys):
-    assert cli.main([category, name, "--timeout", "1"]) == 2
-    err = capsys.readouterr().err
-    assert f"'{category} {name}' is not ported" in err and "(ROADMAP item 17b)" in err
+@pytest.fixture
+def restore_sigint():
+    """cmd_run installs its own SIGINT handler: put the test process's back."""
+    prev = signal.getsignal(signal.SIGINT)
+    yield
+    signal.signal(signal.SIGINT, prev)
 
 
-def test_top_file_and_traceloop_exit_2_naming_17b():
-    for args in (("top", "file"), ("traceloop", "traceloop")):
-        r = run(PORT, *args, timeout=120)
-        assert r.returncode == 2 and "(ROADMAP item 17b)" in r.stderr, r.stderr
+@pytest.mark.parametrize("category,name", list(GADGETS_17B),
+                         ids=[f"{c}-{n}" for c, n in GADGETS_17B])
+def test_17b_gadgets_run_on_the_cpu(category, name, capsys, restore_sigint):
+    assert cli.main([category, name, "--device", "cpu", "--timeout", "1",
+                     *GADGETS_17B[(category, name)]]) == 0
+    out = capsys.readouterr().out
+    assert out.strip(), f"{category} {name} printed nothing"
+
+
+def test_top_file_and_traceloop_exit_0():
+    for args in (("top", "file", "--interval", "250ms"),
+                 ("traceloop", "traceloop", "--source", "pysynthetic")):
+        r = run(PORT, *args, "--device", "cpu", "--timeout", "1", timeout=120)
+        assert r.returncode == 0 and r.stdout.strip(), r.stderr
 
 
 def test_version_and_help_run_in_process(capsys):

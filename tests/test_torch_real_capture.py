@@ -8,15 +8,20 @@ marks and window probes; the mount happens in a child's private mount
 namespace, attached as a container. Each run's final sketch summary
 counts every row the run emitted, and K2's plain version (the CPU path
 of the `fused_planes` wrapper) ran once for each non-empty batch, its
-kernel never.
+kernel never. The syscall gadgets of ROADMAP 17b (traceloop, advise
+seccomp-profile, audit seccomp) run the same way on a ``--command``
+under ptrace, their summaries counting every event handed on; profile
+cpu samples a spinning child through perf where the host offers it.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import shutil
 import socket
 import subprocess
+import sys
 import threading
 import time
 
@@ -47,11 +52,20 @@ def _run_gadget(monkeypatch, name, flags, trigger=None, timeout=4.0, op_params=N
     """Run trace/<name> through the framework with the sketch plane on
     while `trigger` performs the real system action; returns the rows
     after checking the run's summary and K2's plain path against them."""
+    return _run(monkeypatch, "trace", name, flags, trigger, timeout, op_params)[0]
+
+
+def _run(monkeypatch, category, name, flags, trigger=None, timeout=4.0, op_params=None,
+         output="columns"):
+    """`_run_gadget` for any gadget with a capture source: returns the
+    rows (a trace gadget's only) and the run's result. The last summary
+    counts every event the gadget handed on; a trace gadget's rows are
+    those events, where audit seccomp's are its denials among them."""
     plain = []
     monkeypatch.setattr(K, "fused_planes_plain",
                         lambda *a, _f=K.fused_planes_plain: plain.append(1) or _f(*a))
     launches = K.fused_planes.launches
-    desc = get("trace", name)
+    desc = get(category, name)
     params = desc.params().to_params()
     for k, v in {"source": "native", **flags}.items():
         params.set(k, str(v))
@@ -63,12 +77,14 @@ def _run_gadget(monkeypatch, name, flags, trigger=None, timeout=4.0, op_params=N
     summaries, events, sizes = [], [], []
     ctx = GadgetContext(desc, gadget_params=params, timeout=timeout, device="cpu",
                         operator_params=col,
-                        extra={"on_sketch_summary": summaries.append})
+                        extra={"on_sketch_summary": summaries.append, "output": output})
     box = {}
+    rows = category in ("trace", "audit")
 
     def run():
         box["result"] = LocalRuntime().run_gadget(
-            ctx, on_event=events.append, on_batch=lambda b: sizes.append(b.count))
+            ctx, on_event=events.append if rows else None,
+            on_batch=lambda b: sizes.append(b.count))
 
     th = threading.Thread(target=run)
     th.start()
@@ -82,9 +98,11 @@ def _run_gadget(monkeypatch, name, flags, trigger=None, timeout=4.0, op_params=N
         th.join(4)
     result = box.get("result")
     assert result is not None and not result.errors(), result and result.errors()
-    assert summaries and summaries[-1].events == len(events) == sum(sizes)
+    assert summaries and summaries[-1].events == sum(sizes)
+    if category == "trace":
+        assert len(events) == sum(sizes)
     assert len(plain) == sum(1 for n in sizes if n) and K.fused_planes.launches == launches
-    return events
+    return events, result.first()
 
 
 @needs_native
@@ -192,9 +210,85 @@ def test_trace_fsslower_gadget_real_end_to_end(monkeypatch):
     assert any(e.file == "/etc/hostname" and e.op == "open" for e in events)
 
 
+# -- ROADMAP 17b: the syscall gadgets on the ptrace window, profile cpu on perf --
+
+@needs_native
+@needs_root
+def test_traceloop_real_syscall_history(monkeypatch):
+    _, out = _run(monkeypatch, "traceloop", "traceloop", {"command": "cat /etc/hostname"},
+                  timeout=6.0, output="json")
+    records = json.loads(out)
+    names = {r["syscall"] for r in records}
+    assert "execve" in names and "openat" in names
+    opens = [r for r in records if r["syscall"] == "openat" and "/etc/hostname" in r["args"]]
+    assert opens and opens[0]["ret"] == 3
+    assert all(r["pid"] > 0 for r in records)
+
+
+@needs_native
+@needs_root
+def test_advise_seccomp_profile_exact_syscall_set(monkeypatch):
+    _, out = _run(monkeypatch, "advise", "seccomp-profile", {"command": "cat /etc/hostname"},
+                  timeout=6.0)
+    profiles = json.loads(out.decode())
+    assert profiles, "no profile generated"
+    names = set(next(iter(profiles.values()))["syscalls"][0]["names"])
+    # the syscalls cat made (beyond the baseline set), and none it never makes
+    assert {"execve", "openat", "read", "close"} <= names
+    assert "reboot" not in names and "swapon" not in names
+
+
+@needs_native
+@needs_root
+def test_audit_seccomp_sees_real_denial(monkeypatch):
+    """A child that drops to uid 1 and chowns a root-owned file: the
+    kernel answers EPERM, the ERRNO row audit seccomp reports."""
+    probe = "/tmp/ig_t_audit_probe"
+    with open(probe, "w") as f:
+        f.write("x")
+    os.chown(probe, 0, 0)
+    cmd = f"{sys.executable} -S -c \"import os; os.setuid(1); os.chown('{probe}', 1, 1)\""
+    events, _ = _run(monkeypatch, "audit", "seccomp", {"command": cmd}, timeout=8.0)
+    denied = [e for e in events if e.code == "ERRNO"]
+    assert any(e.syscall in ("chown", "fchownat") for e in denied), \
+        [f"{e.syscall}:{e.code}" for e in events]
+
+
+@needs_native
+@needs_root
+def test_profile_cpu_perf_sampler_real_samples():
+    if not bridge.perf_supported():
+        pytest.skip("perf_event_open unavailable")
+    spin = subprocess.Popen([sys.executable, "-S", "-c",
+                             "import time\nt=time.time()\nwhile time.time()-t<6: pass"])
+    try:
+        desc = get("profile", "cpu")
+        params = desc.params().to_params()
+        for k, v in {"sampler": "perf", "profile-output": "folded",
+                     "pid": str(spin.pid)}.items():
+            params.set(k, v)
+        ctx = GadgetContext(desc, gadget_params=params, timeout=2.5, device="cpu")
+        timer = threading.Timer(2.5, ctx.cancel)
+        timer.start()
+        out = desc.new_instance(ctx).run_with_result(ctx).decode()
+        timer.cancel()
+    finally:
+        spin.kill()
+        spin.wait()
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    assert lines, "no perf samples for a spinning child"
+    total = sum(int(ln.rsplit(" ", 1)[1]) for ln in lines)
+    assert total >= 20, f"only {total} samples"  # 49 Hz over ~2.5 s
+    comm = os.path.basename(sys.executable)[:15]
+    assert any(ln.startswith(comm + ";") for ln in lines), lines[:5]
+
+
 @needs_native
 def test_window_probes_answer_like_the_reference():
     from inspektor_gadget_tpu.sources import bridge as ref
     for name in ("fanotify_supported", "audit_supported", "captrace_supported",
-                 "fstrace_supported", "sockstate_supported", "sigtrace_supported"):
+                 "fstrace_supported", "sockstate_supported", "sigtrace_supported",
+                 "tcpinfo_supported", "blktrace_supported"):
         assert _window(name) == bool(getattr(ref, name)()), name
+    lib = ref._load()
+    assert bridge.perf_supported() == bool(lib is not None and lib.ig_perf_supported())
