@@ -156,6 +156,28 @@ columns) on a spinning child; profile block-io ``--quantiles true`` on
 the card; and profile block-io's DDSketch fold of 10,000 seeded
 latencies on the card and on the CPU, equal counts and quantile line.
 
+The agent (phase 5j, ROADMAP 18a): (a) the port's `serve` in this
+process on a unix socket under a temp directory, on the card, driven
+through `AgentClient`: GetCatalog equals `build_catalog()`; a shared
+RunGadget of 5d(a)'s stream (unpaced, outputs summary) with a second,
+compatible request riding it as a summary-tier subscriber, ended for
+both by the owner's whole-run stop once the source popped 8 batches:
+both final summaries one frame but for the seq, K2 once a batch, the
+summary equal to `gadget_run` of as many batches on the CPU (distinct and
+entropy bit for bit, ae within 5%), its events/s beside 5d(a)'s; then
+the same run with a window a harvest (300 ms) under StartRecording:
+ListWindows lists a window a harvest with events, QueryWindows equals
+`answer_query` over the store, the fetched recording replays on the card
+to every recorded digest, DumpState lists the finished shared runs and
+the alert table; the server is stopped and waited for. (b) ``ig-tpu-torch
+agent --device cuda`` as a subprocess on another socket: ``agent
+liveness`` polled until it answers (120 s; the time and torch's import
+in the agent are logged), a RunGadget of 2 batches paced at one a second
+(stopped when the agent's /metrics counts 2 popped batches; summary
+events 2 x 2^17, 2 sketch steps), ``debug state --remote`` exit 0, and
+SIGTERM: exit 0 within 30 s and the flight record written. 5e(b)'s CLI
+run is 7 s and 5f(b)'s 4 s since 5j came (10 and 5 before).
+
 The launch counts are set to 0 just before each card run of a path and
 read just after it.
 
@@ -176,6 +198,7 @@ import os
 import queue
 import re
 import shutil
+import signal
 import socket
 import statistics
 import subprocess
@@ -822,6 +845,7 @@ GADGET_SKETCH = {"depth": "4", "log2-width": "16", "hll-p": "14", "entropy-log2-
                  "anomaly": "true", "anomaly-model": "ae"}
 GADGET_BATCHES = 32
 CLI_SECONDS = 10
+HISTORY_CLI_SECONDS = 7  # 5e(b)'s run: 10 s until 5j came; still five harvests and more
 # runs the CLI module as `python -m` does (runpy, as __main__), with an
 # exit hook that writes the process's metrics snapshot, K2's launches, the
 # run span and the operator chain's batch spans to the path given as the
@@ -1147,7 +1171,7 @@ def capture_rules(events: int) -> list[dict]:
 
 CAPTURE_BATCHES = 32
 CAPTURE_HARVEST_EVERY = 4
-CAPTURE_CLI_SECONDS = 5
+CAPTURE_CLI_SECONDS = 4  # 5 s until 5j came
 CAPTURE_HISTORY = ("--tpusketch-history", "true", "--tpusketch-history-interval", "0")
 
 
@@ -2464,6 +2488,440 @@ def remaining_windows(device: str, facts: dict, root: Path) -> dict:
     return out
 
 
+# phase 5j: the agent (ROADMAP 18a). (a) the port's AgentServer in this
+# process on a unix socket, driven through AgentClient: a shared RunGadget
+# with a summary-tier subscriber, then a run with history and a
+# recording; (b) `ig-tpu-torch agent` as a user starts it, a subprocess
+AGENT_BATCHES = 8        # the owner stops the shared run once the source has popped this many
+AGENT_CLI_BATCHES = 2    # (b)'s run, paced at one batch a second
+AGENT_LIVENESS_S = 120.0  # (b)'s deadline for `agent liveness` to answer
+AGENT_HARVEST = "300ms"  # (a)'s history run: a window a harvest, at least two
+# runs the CLI module as `python -m` does (runpy, as __main__), with
+# torch's import timed and printed first
+AGENT_DRIVER = """\
+import runpy, time
+t0 = time.perf_counter()
+import torch  # noqa: F401 -- the agent's first import
+print(f"[driver] torch import {time.perf_counter() - t0:.3f} s", flush=True)
+runpy.run_module("inspektor_gadget_tpu_torch.cli.main", run_name="__main__", alter_sys=True)
+"""
+
+
+def agent_params(batch: int, rate: str = "1e9", **sketch: str) -> dict:
+    """5d(a)'s run as a RunGadget's flat params: trace/exec on pysynthetic
+    (seed 7, vocab 2000, zipf 1.2, batches of `batch` at `rate` events/s)
+    with GADGET_SKETCH and a harvest interval of 1h; `sketch` overrides
+    tpusketch params."""
+    flat = {"gadget.source": "pysynthetic", "gadget.seed": "7", "gadget.vocab": "2000",
+            "gadget.zipf": "1.2", "gadget.batch-size": str(batch), "gadget.rate": rate,
+            "operator.tpusketch.enable": "true"}
+    for k, v in {**GADGET_SKETCH, "harvest-interval": "1h", **sketch}.items():
+        flat[f"operator.tpusketch.{k.replace('_', '-')}"] = v
+    return flat
+
+
+def compare_wire_summaries(got: dict, want: dict, what: str, anomaly_rel: float) -> float:
+    """`compare_summaries` on two decoded EV_SUMMARY frames (the wire's
+    dict shape): `distinct` and `entropy` bit for bit, the accuracy block
+    to 1e-4, each container's anomaly score within `anomaly_rel` of the
+    score, the rest exactly, `pipeline` and the frame's own keys aside.
+    Returns the largest relative anomaly gap."""
+    g = {k: v for k, v in got.items() if k not in ("pipeline", "node", "seq", "type")}
+    w = {k: v for k, v in want.items() if k not in ("pipeline", "node", "seq", "type")}
+    for key in ("distinct", "entropy"):
+        require(g[key] == w[key], f"{what} {key}: {g[key]!r} != {w[key]!r} (bit for bit)")
+    _same(g.pop("accuracy", None), w.pop("accuracy", None), 1e-4, f"{what} accuracy")
+    ga, wa = g.pop("anomaly") or {}, w.pop("anomaly") or {}
+    require(sorted(ga) == sorted(wa), f"{what}: scored containers differ")
+    gap = max((abs(ga[k] - wa[k]) / max(abs(wa[k]), 1e-12) for k in wa), default=0.0)
+    require(gap <= anomaly_rel, f"{what}: anomaly scores differ by {gap:.3g} of a score")
+    require(sorted(g) == sorted(w), f"{what}: keys {sorted(g)} != {sorted(w)}")
+    _same({k: g[k] for k in sorted(g)}, {k: w[k] for k in sorted(w)}, 0.0, what)
+    return gap
+
+
+def _source_batches() -> float:
+    from inspektor_gadget_tpu_torch.telemetry import snapshot
+    return _metric(snapshot(), "ig_source_batches_total")
+
+
+def agent_route(device: str, batch: int, root: Path, local_ev_per_s: float) -> dict:
+    """Phase 5j (a): `serve` on a unix socket under a temp directory
+    (node n0, `device`), then through `AgentClient`: the catalog equals
+    `build_catalog()`; a shared RunGadget (about AGENT_BATCHES batches of
+    `agent_params`, outputs summary) with a second, compatible request
+    riding it as a summary-tier subscriber, ended by the owner's
+    whole-run stop: both final summaries one frame but for the seq, K2
+    once a batch, the summary equal to `gadget_run` of the same stream on
+    the CPU. Then the same run with history (a window a harvest every
+    AGENT_HARVEST) under a StartRecording: ListWindows lists a window a
+    harvest, QueryWindows' answer equals `answer_query` over the store,
+    the fetched recording replays on `device` to every recorded digest,
+    and DumpState lists the finished shared runs and the alert table.
+    The server is stopped and waited for before it returns. Runs on the
+    CPU too, at small sizes."""
+    from inspektor_gadget_tpu_torch.agent import client as client_mod
+    from inspektor_gadget_tpu_torch.agent import wire
+    from inspektor_gadget_tpu_torch.agent.client import AgentClient
+    from inspektor_gadget_tpu_torch.agent.service import serve
+    from inspektor_gadget_tpu_torch.capture import RECORDINGS, iter_journals, replay_journal
+    from inspektor_gadget_tpu_torch.history import HISTORY, answer_query, decode_frames
+    from inspektor_gadget_tpu_torch.runtime.runtime import build_catalog
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    sock_dir = Path(tempfile.mkdtemp(prefix="igtpu-smoke-"))
+    target = f"unix://{sock_dir}/a.sock"
+    t_phase = time.perf_counter()
+    server, agent = serve(target, node_name="n0", device=device)
+    clients: list = []
+
+    def client(name: str):
+        c = AgentClient(target, name, rpc_deadline=120.0)
+        clients.append(c)
+        return c
+
+    frames: dict[str, list[bytes]] = {}
+    decode = wire.decode_msg
+
+    def spy(data: bytes):
+        h, p = decode(data)
+        if h.get("type") == wire.EV_SUMMARY:
+            frames.setdefault(threading.current_thread().name, []).append(data)
+        return h, p
+
+    client_mod.wire.decode_msg = spy
+    out: dict = {}
+    try:
+        probe = client("probe")
+        cat = probe.get_catalog(use_cache_on_error=False)
+        require(cat.pop("node") == "n0" and cat == build_catalog(),
+                "agent: GetCatalog differs from build_catalog()")
+
+        def drive(run_id: str, params: dict, *, subscriber: bool, stop_when) -> dict:
+            """The owner's shared run (and a summary-tier subscriber's
+            compatible request), stopped for every subscriber once
+            `stop_when()` holds; returns each one's out dict, summaries
+            and seconds."""
+            stop = threading.Event()
+            res: dict = {}
+
+            def run(name: str, **kw) -> None:
+                summaries: list = []
+                t0 = time.perf_counter()
+                got = client(name).run_gadget(
+                    "trace", "exec", params, share=True, outputs=("summary",),
+                    on_summary=lambda _n, s: summaries.append(s), **kw)
+                res[name] = {"out": got, "summaries": summaries,
+                             "seconds": time.perf_counter() - t0}
+
+            owner = threading.Thread(target=run, args=(f"{run_id}-owner",), daemon=True,
+                                     name=f"{run_id}-owner",
+                                     kwargs={"run_id": run_id, "stop_event": stop,
+                                             "stop_run": True, "keepalive": 5.0})
+            threads = [owner]
+            owner.start()
+            deadline = time.monotonic() + 120.0
+            while time.monotonic() < deadline and not any(
+                    r["run_id"] == run_id for r in probe.shared_runs("trace/exec")):
+                time.sleep(0.05)
+            if subscriber:
+                sub = threading.Thread(target=run, args=(f"{run_id}-subscriber",), daemon=True,
+                                       name=f"{run_id}-subscriber",
+                                       kwargs={"subscriber": {"tier": "summary"}})
+                threads.append(sub)
+                sub.start()
+            want_subs = 1 + subscriber
+            while time.monotonic() < deadline:
+                st = agent._streams.get(run_id)
+                if st is not None and (st.done or (st.live_subscribers() >= want_subs
+                                                   and stop_when(res))):
+                    break
+                time.sleep(0.02)
+            stop.set()
+            for t in threads:
+                t.join(timeout=120.0)
+                require(not t.is_alive(), f"agent run {run_id}: {t.name} never ended")
+            return res
+
+        # (a) 2-3: the shared run, the owner's stop after ~AGENT_BATCHES batches
+        reset_launches()
+        b0 = _source_batches()
+        res = drive("smoke-shared", agent_params(batch), subscriber=True,
+                    stop_when=lambda _r: _source_batches() - b0 >= AGENT_BATCHES)
+        launched = read_launches()
+        own, sub = res["smoke-shared-owner"], res["smoke-shared-subscriber"]
+        for name, r in res.items():
+            require(r["out"]["error"] is None, f"agent {name}: {r['out']['error']}")
+        require(sub["out"]["attach"] and sub["out"]["attach"]["run_id"] == "smoke-shared"
+                and sub["out"]["attach"]["shared"],
+                f"agent: the compatible request did not attach: {sub['out']['attach']}")
+        fo, fs = frames.get("smoke-shared-owner", []), frames.get("smoke-shared-subscriber", [])
+        require(len(fo) == len(fs) == 1, f"agent: {len(fo)} and {len(fs)} final summaries")
+
+        def without_seq(frame: bytes) -> bytes:
+            h, p = decode(frame)
+            return wire.encode_msg({k: v for k, v in h.items() if k != "seq"}, p)
+
+        require(without_seq(fo[0]) == without_seq(fs[0]),
+                "agent: the subscribers' final summary frames differ")
+        final = own["summaries"][-1]
+        events = int(final["events"])
+        batches = events // batch
+        require(events == batches * batch and batches >= AGENT_BATCHES,
+                f"agent: final summary {events} events, not whole batches of {batch}")
+        want_k2 = batches if device == "cuda" else 0
+        require(launched == {"K1": 0, "K2": want_k2, "K3": 0},
+                f"agent: launched {launched}, expected K2 {want_k2} (once a batch)")
+        cpu = gadget_run("cpu", batches, batch)
+        # the CPU's summary framed and read back as the agent's went
+        want = wire.decode_summary(*wire.decode_msg(wire.encode_msg(
+            *wire.encode_summary(cpu["summary"]))))
+        gap = compare_wire_summaries(final, want, "agent run, card vs CPU", anomaly_rel=5e-2)
+        ev_s = events / own["seconds"]
+        out["shared"] = {"events": events, "batches": batches, "seconds": own["seconds"],
+                         "ev_per_s": ev_s, "k2_launches": launched["K2"],
+                         "ae_rel_gap": gap, "frame_bytes": len(fo[0]),
+                         "local_ev_per_s": local_ev_per_s,
+                         "grpc_overhead": local_ev_per_s / ev_s}
+        log(f"[agent] (5j a) RunGadget trace/exec through the port's agent ({device}), shared "
+            f"with a summary-tier subscriber, the owner's stop after {AGENT_BATCHES} popped "
+            f"batches: {batches} x {batch} events in {own['seconds']:.2f} s, {ev_s:.0f} events/s "
+            f"end to end against 5d(a)'s LocalRuntime {local_ev_per_s:.0f} in this run "
+            f"(LocalRuntime / agent {local_ev_per_s / ev_s:.2f}x); K2 {launched['K2']} "
+            f"launches (once a batch); both final summaries one {len(fo[0])}-byte frame but "
+            f"for the seq; equal to the CPU's (distinct and entropy bit for bit, ae within "
+            f"{gap:.3g} of a score)")
+
+        # (a) 4: history a window a harvest, under a recording
+        hist, cap = root / "hist", root / "capture"
+        HISTORY.set_base_dir(str(hist))
+        RECORDINGS.set_base_dir(str(cap))
+        rec = probe.start_recording("smoke-rec")
+        require(rec.get("ok"), f"agent: StartRecording {rec}")
+        reset_launches()
+        b0 = _source_batches()
+        res = drive("smoke-history",
+                    agent_params(batch, harvest_interval=AGENT_HARVEST, history="true",
+                                 history_interval="0"),
+                    subscriber=False,
+                    stop_when=lambda r: _source_batches() - b0 >= AGENT_BATCHES)
+        launched_h = read_launches()
+        own = res["smoke-history-owner"]
+        require(own["out"]["error"] is None, f"agent history run: {own['out']['error']}")
+        stopped = probe.stop_recording("smoke-rec")
+        require(stopped.get("ok"), f"agent: StopRecording {stopped}")
+        harvests = len(own["summaries"])
+        cum = [0] + [int(x["events"]) for x in own["summaries"]]
+        sealing = sum(b > a for a, b in zip(cum, cum[1:]))  # a harvest with no new event seals none
+        events_h = cum[-1]
+        require(sealing >= 2, f"agent history run: {harvests} harvests, {sealing} with events")
+        rows = probe.list_windows(gadget="trace/exec")["windows"]
+        require(len(rows) == sealing and {r["node"] for r in rows} == {"n0"},
+                f"agent: ListWindows {len(rows)} windows for {sealing} harvests with events")
+        pushed = probe.query_windows(gadget="trace/exec")
+        store = decode_frames(list(HISTORY.fetch_windows(base_dir=str(hist),
+                                                         gadget="trace/exec", node="n0")))
+        want_q = answer_query(store).to_dict()
+        got_q = answer_query([pushed["window"]]).to_dict()
+        require(pushed["folded"] == len(rows) and want_q["events"] == events_h,
+                f"agent: QueryWindows folded {pushed['folded']} of {len(rows)} windows, "
+                f"{want_q['events']} events of {events_h}")
+        for k in ("events", "distinct", "entropy_bits", "heavy_hitters", "inv", "quantiles"):
+            require(got_q[k] == want_q[k], f"agent: QueryWindows {k} differs from answer_query")
+        fetched = probe.fetch_recording("smoke-rec", str(root / "bundle"))
+        (jpath,) = list(iter_journals(str(root / "bundle")))
+        reset_launches()
+        t_rep = time.perf_counter()
+        rp = replay_journal(jpath, device=device, param_overrides={
+            "operator.tpusketch.history-dir": str(root / "rehist")})
+        rep_s = time.perf_counter() - t_rep
+        launched_r = read_launches()
+        require(rp.digests_match and len(rp.recorded_digests) == harvests
+                and rp.events == events_h,
+                f"agent: replay of the fetched recording: digests_match {rp.digests_match}, "
+                f"{len(rp.recorded_digests)} digests for {harvests} harvests, {rp.events} "
+                f"events of {events_h}")
+        state = probe.dump_state()
+        done = {r["run_id"]: r for r in state["runs"] if r["shared"] and r["done"]}
+        require("smoke-history" in done and isinstance(state.get("alerts"), list)
+                and state.get("device") == str(agent.device),
+                f"agent: DumpState runs {[r['run_id'] for r in state['runs']]}")
+        k2_h = launched_h["K2"] + launched_r["K2"]
+        out["history"] = {"events": events_h, "harvests": harvests, "windows": len(rows),
+                          "seconds": own["seconds"], "recording": fetched,
+                          "replay_s": rep_s, "replay_digests": len(rp.digests),
+                          "k2_launches": k2_h, "dump_runs": sorted(done)}
+        log(f"[agent] (5j a) the same run with a window a harvest ({AGENT_HARVEST}) under "
+            f"StartRecording: {events_h} events, {harvests} harvests ({sealing} with events), "
+            f"ListWindows {len(rows)} "
+            f"windows, QueryWindows folded {pushed['folded']} equal to answer_query over the "
+            f"store; fetch_recording {fetched['files']} files, {fetched['bytes']} bytes; "
+            f"replay on the {device} {rep_s:.2f} s, every digest ({len(rp.digests)}) "
+            f"reproduced; DumpState lists the finished shared runs {sorted(done)} and "
+            f"{len(state['alerts'])} alerts; K2 {launched_h['K2']} + {launched_r['K2']} "
+            f"(run + replay)")
+        out["k2_launches"] = launched["K2"] + k2_h
+    finally:
+        client_mod.wire.decode_msg = decode
+        for c in clients:
+            c.close()
+        server.stop(grace=2.0).wait(30.0)
+        RECORDINGS.stop_all()
+        RECORDINGS.set_base_dir(None)
+        HISTORY.close_all()
+        HISTORY.set_base_dir(None)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def agent_cli(device: str, batch: int, root: Path) -> dict:
+    """Phase 5j (b): ``ig-tpu-torch agent --listen unix://<tmp>/b.sock
+    --node-name n1 --device <device> --flight-record-path <root>/fr.json
+    --metrics-addr 127.0.0.1:0`` as a subprocess (through AGENT_DRIVER,
+    which times torch's import), ``agent liveness`` polled as a subprocess
+    until it answers (AGENT_LIVENESS_S), one RunGadget paced at one batch
+    a second that the client stops once the agent's /metrics counts
+    AGENT_CLI_BATCHES popped batches (its summary must hold exactly those
+    events), ``debug state --remote`` as a subprocess (exit 0), then
+    SIGTERM: exit 0 within 30 s and the flight record written. ``debug
+    state`` starts beside the RunGadget (each pays a fresh process's
+    set-up; the agent's DumpState answers while it serves). The agent's
+    stderr is printed if it dies. Runs on the CPU too."""
+    import urllib.request
+
+    from inspektor_gadget_tpu_torch.agent.client import AgentClient
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    sock_dir = Path(tempfile.mkdtemp(prefix="igtpu-smoke-"))
+    target, fr = f"unix://{sock_dir}/b.sock", root / "fr.json"
+    out_path, err_path = root / "agent.out", root / "agent.err"
+    cwd = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-c", AGENT_DRIVER, "agent", "--listen", target, "--node-name", "n1",
+           "--device", device, "--flight-record-path", str(fr), "--metrics-addr",
+           "127.0.0.1:0"]
+    t0 = time.perf_counter()
+    with open(out_path, "w") as fo, open(err_path, "w") as fe:
+        proc = subprocess.Popen(cmd, stdout=fo, stderr=fe, cwd=cwd)
+
+    def died(what: str) -> None:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        print(f"chip_smoke: the agent's stderr:\n{err_path.read_text()[-4000:]}",
+              file=sys.stderr)
+        require(False, f"agent (5j b): {what} (exit {proc.returncode})")
+
+    res: dict = {}
+    dbg = None
+    try:
+        polls, live_s = 0, None
+        while time.perf_counter() - t0 < AGENT_LIVENESS_S:
+            if proc.poll() is not None:
+                died("exited before it answered")
+            polls += 1
+            r = subprocess.run([sys.executable, "-m", "inspektor_gadget_tpu_torch.agent.main",
+                                "liveness", "--target", target], capture_output=True,
+                               text=True, timeout=60, cwd=cwd)
+            if r.returncode == 0 and r.stdout.strip() == "ok":
+                live_s = time.perf_counter() - t0
+                break
+            time.sleep(0.2)
+        if live_s is None:
+            died(f"no answer to liveness within {AGENT_LIVENESS_S:.0f} s")
+        text = out_path.read_text()
+        m = re.search(r"\[driver\] torch import ([\d.]+) s", text)
+        port = re.search(r"metrics on http://127\.0\.0\.1:(\d+)/metrics", text)
+        require(m is not None and port is not None and f"device: {device}" in text,
+                f"agent (5j b): start-up lines missing: {text[-1000:]}")
+        metrics = f"http://127.0.0.1:{port[1]}/metrics"
+
+        def scrape(name: str) -> float:
+            body = urllib.request.urlopen(metrics, timeout=10).read().decode()
+            mm = re.search(rf'^{name}\{{gadget="trace/exec"\}} ([\d.e+]+)$', body, re.M)
+            return float(mm[1]) if mm else 0.0
+
+        def popped() -> float:
+            return scrape("ig_source_batches_total")
+
+        c = AgentClient(target, "n1", rpc_deadline=120.0)
+        stop, summaries = threading.Event(), []
+        got: dict = {}
+        t_run = time.perf_counter()
+        th = threading.Thread(target=lambda: got.update(c.run_gadget(
+            "trace", "exec", agent_params(batch, rate=str(batch)), outputs=("summary",),
+            on_summary=lambda _n, s: summaries.append(s), stop_event=stop)), daemon=True)
+        th.start()
+        t_dbg = time.perf_counter()
+        dbg = subprocess.Popen([sys.executable, "-m", "inspektor_gadget_tpu_torch.cli.main",
+                                "debug", "state", "--remote", f"n1={target}"],
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                               cwd=cwd)
+        first_s = None
+        while th.is_alive() and time.perf_counter() - t_run < 120.0:
+            n = popped()
+            if n and first_s is None:
+                first_s = time.perf_counter() - t_run
+            if n >= AGENT_CLI_BATCHES:
+                break
+            time.sleep(0.05)
+        stop.set()
+        th.join(timeout=120.0)
+        c.close()
+        run_s = time.perf_counter() - t_run
+        if th.is_alive() or proc.poll() is not None:
+            died("RunGadget never ended")
+        require(got.get("error") is None and summaries
+                and summaries[-1]["events"] == AGENT_CLI_BATCHES * batch,
+                f"agent (5j b): RunGadget {got.get('error')}, summaries "
+                f"{[s['events'] for s in summaries]}")
+        steps = scrape("ig_tpusketch_steps_total")
+        require(steps == AGENT_CLI_BATCHES, f"agent (5j b): {steps} sketch steps in the "
+                                            f"agent's /metrics for {AGENT_CLI_BATCHES} batches")
+        try:
+            dbg_out, dbg_err = dbg.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            dbg.kill()
+            dbg_out, dbg_err = dbg.communicate()
+        dbg_s = time.perf_counter() - t_dbg
+        require(dbg.returncode == 0 and dbg_out.startswith(f"=== n1 ({target}) ==="),
+                f"agent (5j b): debug state exited {dbg.returncode}: {dbg_err[-2000:]}")
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            died("SIGTERM: still running after 30 s")
+        term_s = time.perf_counter() - t_term
+        require(rc == 0 and fr.exists(), f"agent (5j b): SIGTERM exit {rc}, flight record "
+                                         f"{'written' if fr.exists() else 'missing'}")
+        record = json.loads(fr.read_text())
+        require(record.get("facts", {}).get("node") == "n1",
+                f"agent (5j b): flight record facts {record.get('facts')}")
+        res = {"liveness_s": live_s, "liveness_polls": polls, "torch_import_s": float(m[1]),
+               "run_s": run_s, "first_batch_s": first_s, "events": summaries[-1]["events"],
+               "steps": steps,
+               "debug_state_s": dbg_s,
+               "sigterm_s": term_s, "flight_record_bytes": fr.stat().st_size}
+        log(f"[agent] (5j b) ig-tpu-torch agent --device {device} as a subprocess: liveness "
+            f"answered after {live_s:.2f} s ({polls} polls; torch's import in it "
+            f"{float(m[1]):.2f} s); RunGadget of {AGENT_CLI_BATCHES} batches paced at one a "
+            f"second {run_s:.2f} s (the first batch popped after {first_s or 0:.2f} s: the "
+            f"run's set-up in a fresh process), summary events {summaries[-1]['events']}, "
+            f"{steps:.0f} sketch steps in its /metrics; debug state --remote beside it: exit 0 "
+            f"in {dbg_s:.2f} s of process; SIGTERM: exit 0 in {term_s:.2f} s, "
+            f"flight record {fr.stat().st_size} bytes")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        if dbg is not None and dbg.poll() is None:
+            dbg.kill()
+            dbg.communicate()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -3004,7 +3462,7 @@ def main() -> int:
                         "launches": launched, "ae_rel_gap": ae_gap, "cli": cli}
 
     # -- 5e (b). the history route through the CLI --------------------------------
-    hist = history_route("cuda", batch, CLI_SECONDS, GADGET_SKETCH, ckpt_root.parent,
+    hist = history_route("cuda", batch, HISTORY_CLI_SECONDS, GADGET_SKETCH, ckpt_root.parent,
                          cli["ev_per_s"])
     hc = hist["cli_run"]
     require(hc["k2_launches"] == hc["steps"] > 0,
@@ -3121,6 +3579,15 @@ def main() -> int:
     rem["seconds"] = time.perf_counter() - t_17b
     log(f"[17b] phase 5i took {rem['seconds']:.1f} s")
     report["remaining"] = rem
+
+    # -- 5j. the agent (ROADMAP 18a) ---------------------------------------------------
+    t_agent = time.perf_counter()
+    agent = agent_route("cuda", batch, ckpt_root.parent / "chip_smoke_agent", g_card["ev_per_s"])
+    launches["K2"] += agent["k2_launches"]
+    agent["cli"] = agent_cli("cuda", batch, ckpt_root.parent / "chip_smoke_agent_cli")
+    agent["seconds"] = time.perf_counter() - t_agent
+    log(f"[agent] phase 5j took {agent['seconds']:.1f} s")
+    report["agent"] = agent
 
     # -- 6. K3 against its plain version ----------------------------------------
     # the plain versions' float32 matmuls run in full f32, not TF32

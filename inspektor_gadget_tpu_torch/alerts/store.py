@@ -13,7 +13,7 @@ the first node's transition surfaces it, later nodes only extend the
 list, and the cluster alert resolves when the last node resolves.
 
 The port's copy of ``inspektor_gadget_tpu/alerts/store.py``. The port
-has no gRPC runtime yet to drive the aggregator (ROADMAP item 18);
+has no gRPC runtime yet to drive the aggregator (ROADMAP item 18b);
 its tests drive it directly.
 """
 

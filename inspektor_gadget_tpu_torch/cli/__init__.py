@@ -4,7 +4,7 @@ port's ``ig-tpu-torch`` (`cli.main`)."""
 
 import sys
 
-REMOTE_ITEM = "18"  # --remote runs through the agent's gRPC runtime
+REMOTE_ITEM = "18b"  # --remote runs and the local fleet go through the fan-out
 
 
 def unported(what: str, item: str) -> int:

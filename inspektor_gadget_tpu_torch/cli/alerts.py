@@ -10,8 +10,8 @@
          file against recorded traffic before deploying it.
 
 The port's copy of ``inspektor_gadget_tpu/cli/alerts.py``: `list` reads
-this process's table; its ``--remote`` route exits 2 naming the ROADMAP
-item of the agent's port.
+this process's table and, with ``--remote``, each agent's. The local
+fleet's agents (no ``--remote``) wait for the fan-out (ROADMAP item 18b).
 """
 
 from __future__ import annotations
@@ -22,7 +22,6 @@ import sys
 
 from ..alerts import ACTIVE, AlertEngine, RuleError
 from ..alerts.rules import load_rules_file
-from . import REMOTE_ITEM, unported
 
 
 def add_alerts_parser(sub) -> None:
@@ -30,10 +29,11 @@ def add_alerts_parser(sub) -> None:
                         "active alerts, rule validation, rule dry-runs")
     asub = ap.add_subparsers(dest="alerts_verb", required=True)
 
-    lp = asub.add_parser("list", help="active alerts of this process")
+    lp = asub.add_parser("list", help="active alerts of this process "
+                         "and of the --remote agents")
     lp.add_argument("--remote", default="",
-                    help="name=target[,...] (not ported yet: ROADMAP item "
-                         f"{REMOTE_ITEM})")
+                    help="name=target[,...]: add each agent's table "
+                         "(DumpState)")
     lp.add_argument("--active", action="store_true",
                     help="hide recently-resolved alerts")
     lp.add_argument("-o", "--output", default="table",
@@ -75,19 +75,45 @@ _HEADER = (f"{'RULE':<20s} {'STATE':<9s} {'SEVERITY':<9s} {'KEY':<18s} "
 
 
 def cmd_alerts_list(args) -> int:
-    if args.remote:
-        return unported("--remote (the agents' DumpState)", REMOTE_ITEM)
-    alerts = ACTIVE.active() if args.active else ACTIVE.all()
+    from ..params import ParamError
+    from .main import parse_targets
+    try:
+        targets = parse_targets(args.remote) if args.remote else {}
+    except ParamError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    tables: dict[str, list[dict]] = {
+        "local": ACTIVE.active() if args.active else ACTIVE.all()}
+    rc = 0
+    for node, target in targets.items():
+        from ..agent.client import AgentClient
+        client = AgentClient(target, node_name=node)
+        try:
+            remote = client.dump_state().get("alerts", [])
+            if args.active:
+                remote = [a for a in remote
+                          if a.get("state") in ("pending", "firing")]
+            tables[node] = remote
+        except Exception as e:  # noqa: BLE001 — per-node isolation
+            print(f"{node}: error: {e}", file=sys.stderr)
+            rc = 1
+        finally:
+            client.close()
     if args.output == "json":
-        print(json.dumps({"local": alerts}, indent=2, default=str))
-        return 0
-    if not alerts:
+        print(json.dumps(tables, indent=2, default=str))
+        return rc
+    printed = False
+    for origin, alerts in tables.items():
+        if not alerts:
+            continue
+        if not printed:
+            print(_HEADER)
+            printed = True
+        for a in alerts:
+            print(f"{_fmt_row(a)}  [{origin}]")
+    if not printed:
         print("no alerts")
-        return 0
-    print(_HEADER)
-    for a in alerts:
-        print(f"{_fmt_row(a)}  [local]")
-    return 0
+    return rc
 
 
 def cmd_alerts_rules(args) -> int:

@@ -13,8 +13,7 @@ backend. Both print what moved and exit nonzero only on hard errors —
 "nothing aged enough" is a clean no-op, not a failure.
 
 The port's copy of ``inspektor_gadget_tpu/cli/history.py``, on the local
-store; ``tiers --remote`` (the agents' DumpState) exits 2 naming ROADMAP
-item 18.
+store, and ``tiers --remote`` on the agents' DumpState.
 """
 
 from __future__ import annotations
@@ -24,7 +23,6 @@ import os
 import sys
 import time
 
-from . import REMOTE_ITEM, unported
 
 
 def add_history_parser(sub) -> None:
@@ -41,8 +39,7 @@ def add_history_parser(sub) -> None:
                          "$IG_HISTORY_DIR)")
     tp.add_argument("--remote", default="",
                     help="read agents' tier stats via DumpState: "
-                         "name=target[,...] (not ported yet: ROADMAP "
-                         f"item {REMOTE_ITEM})")
+                         "name=target[,...]")
     tp.add_argument("-o", "--output", default="table",
                     choices=["table", "json"])
     tp.set_defaults(func=cmd_history_tiers)
@@ -86,9 +83,35 @@ def _ts(v) -> str:
 
 
 def cmd_history_tiers(args) -> int:
-    if args.remote:
-        return unported("--remote (the agents' tier stats)", REMOTE_ITEM)
     from ..history import HISTORY
+    from ..params import ParamError
+    if args.remote:
+        from .main import parse_targets
+        try:
+            targets = parse_targets(args.remote)
+        except ParamError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        from ..agent.client import AgentClient
+        per_node = {}
+        rc = 0
+        for node, target in targets.items():
+            client = AgentClient(target, node)
+            try:
+                per_node[node] = client.dump_state().get(
+                    "history_tiers") or {}
+            except Exception as e:  # noqa: BLE001 — per-node isolation
+                per_node[node] = {"error": str(e)}
+                rc = 1
+            finally:
+                client.close()
+        if args.output == "json":
+            print(json.dumps(per_node, indent=2, default=str))
+            return rc
+        for node, tiers in per_node.items():
+            print(f"== {node} ==")
+            _print_tiers(tiers)
+        return rc
     stats = HISTORY.stats(args.history or None)
     tiers = HISTORY.tier_stats(args.history or None)
     if args.output == "json":

@@ -10,10 +10,12 @@ The port's copy of ``inspektor_gadget_tpu/cli/main.py``: ``list``,
 ``catalog``, ``version``, every gadget command on the local runtime,
 ``query``, ``watch`` and ``history`` on the local history store,
 ``record``, ``replay`` and ``alerts`` on this process's recordings, journals
-and alert table, with one more flag, ``--device {cuda,cpu}`` (default ``cuda``), the
-device the run's operators (and ``profile block-io --quantiles true``) put
-their state on. Subcommands and flags whose modules are not ported exit 2
-naming their ROADMAP item.
+and alert table, ``agent`` (the per-node daemon, `agent.main serve`) and
+``debug`` against agents named by ``--remote``, with one more flag,
+``--device {cuda,cpu}`` (default ``cuda``), the device the run's operators
+(and ``profile block-io --quantiles true``) put their state on.
+Subcommands and flags whose modules are not ported exit 2 naming their
+ROADMAP item.
 
     python -m inspektor_gadget_tpu_torch.cli.main trace exec --device cpu \\
         --source pysynthetic --timeout 3 --tpusketch-enable true
@@ -52,6 +54,7 @@ from ..gadgets import registry as gadget_registry  # noqa: E402
 from ..gadgets.interface import GadgetType  # noqa: E402
 from ..operators import operators as op_registry  # noqa: E402
 from ..params import Collection, ParamError  # noqa: E402
+from ..telemetry.tracing import RECORDER, TRACER, export_chrome, load_dump  # noqa: E402
 from . import REMOTE_ITEM, unported  # noqa: E402
 from .alerts import add_alerts_parser  # noqa: E402
 from .history import add_history_parser  # noqa: E402
@@ -64,11 +67,9 @@ __version__ = "0.1.0"
 # the reference's subcommands whose modules the port has not yet: each
 # exits 2 naming the ROADMAP item that ports it
 UNPORTED_COMMANDS = {
-    "deploy": ("render agent manifests / start local agents", "18"),
-    "undeploy": ("stop local agents / render deletion", "18"),
-    "agent": ("run the per-node agent daemon", "18"),
-    "debug": ("agent debugging: state dump, flight recorder, trace export", "18"),
-    "traces": ("Trace-resource lifecycle on agents", "18"),
+    "deploy": ("render agent manifests / start local agents", REMOTE_ITEM),
+    "undeploy": ("stop local agents / render deletion", REMOTE_ITEM),
+    "traces": ("Trace-resource lifecycle on agents", REMOTE_ITEM),
     "fleet": ("fleet health and shared runs", "11"),
     "bench": ("benchmark runs and the perf ledger", "20"),
     "doctor": ("probe capture windows per gadget", "19"),
@@ -96,6 +97,14 @@ def build_parser() -> argparse.ArgumentParser:
     add_alerts_parser(sub)
     add_record_parser(sub)
     add_replay_parser(sub)
+
+    # help-listing stub only: main() intercepts `agent` before argparse and
+    # forwards the raw argv to agent.main serve (REMAINDER can't pass
+    # through leading --flags it doesn't own)
+    sub.add_parser(
+        "agent", help="run the per-node agent daemon (all agent.main serve "
+        "flags pass through, e.g. --listen, --device, --metrics-addr)")
+    _add_debug_parser(sub)
 
     # help-listing stubs only: main() answers them before argparse
     for name, (help_, item) in UNPORTED_COMMANDS.items():
@@ -131,6 +140,51 @@ def build_parser() -> argparse.ArgumentParser:
                     )
             gp.set_defaults(func=cmd_run, desc=desc)
     return ap
+
+
+def _add_debug_parser(sub) -> None:
+    bp = sub.add_parser("debug", help="agent debugging: state dump, flight "
+                        "recorder, Chrome-trace export")
+    bp.add_argument("--remote", default="",
+                    help="name=target[,...] (the local fleet is not ported "
+                         f"yet: ROADMAP item {REMOTE_ITEM})")
+    bp.set_defaults(func=cmd_debug, node="")  # bare `debug` → state dump
+    bsub = bp.add_subparsers(dest="debug_verb")
+
+    # sub-verb flags use SUPPRESS defaults: argparse copies a subparser's
+    # defaults OVER the parent namespace, so a plain default would
+    # silently discard `debug --remote X <verb>` (flag before the verb)
+    def _remote_arg(p):
+        p.add_argument("--remote", default=argparse.SUPPRESS,
+                       help="name=target[,...]")
+
+    dsp = bsub.add_parser("state", help="dump agent state (DumpState)")
+    _remote_arg(dsp)
+    dsp.set_defaults(func=cmd_debug)
+
+    frp = bsub.add_parser("flight-record",
+                          help="recent spans/logs/errors per agent "
+                          "(the crash-safe black box)")
+    _remote_arg(frp)
+    frp.add_argument("--node", default=argparse.SUPPRESS,
+                     help="restrict to one node")
+    frp.add_argument("--from-dump", default=argparse.SUPPRESS,
+                     help="read a crash dump file instead of live agents "
+                          "(tolerates crash-truncated dumps)")
+    frp.set_defaults(func=cmd_debug_flight)
+
+    dtp = bsub.add_parser("trace", help="distributed-trace verbs")
+    dtsub = dtp.add_subparsers(dest="trace_verb", required=True)
+    tep = dtsub.add_parser("export", help="merge local + agent spans into "
+                           "Chrome trace-event JSON (Perfetto-loadable)")
+    _remote_arg(tep)
+    tep.add_argument("--node", default=argparse.SUPPRESS,
+                     help="restrict to one node")
+    tep.add_argument("--trace-id", default="",
+                     help="export only this trace (default: all retained)")
+    tep.add_argument("--out", default="ig-trace.json",
+                     help="output path, or '-' for stdout")
+    tep.set_defaults(func=cmd_debug_trace_export)
 
 
 def _help_text(text: str) -> str:
@@ -328,6 +382,145 @@ def cmd_run(args) -> int:
     return 0
 
 
+def parse_targets(spec: str) -> dict[str, str]:
+    """Parse 'name=host:port[,name=host:port...]' with a usage error on
+    malformed input (shared by --remote run/debug)."""
+    targets = {}
+    for kv in spec.split(","):
+        if "=" not in kv:
+            raise ParamError(
+                f"bad --remote entry {kv!r}: expected name=host:port")
+        name, target = kv.split("=", 1)
+        targets[name] = target
+    return targets
+
+
+def _debug_targets(args) -> dict[str, str] | None:
+    """--remote targets filtered by --node when set; None without
+    --remote (the local fleet's state file is ROADMAP item 18b). Raises
+    ParamError on malformed --remote or unknown --node."""
+    if not args.remote:
+        return None
+    targets = parse_targets(args.remote)
+    node = getattr(args, "node", "")
+    if node:
+        targets = {n: t for n, t in targets.items() if n == node}
+        if not targets:
+            raise ParamError(f"unknown node {node!r}")
+    return targets
+
+
+def _local_fleet(verb: str) -> int:
+    return unported(f"'debug {verb}' without --remote (the local fleet)",
+                    REMOTE_ITEM)
+
+
+def cmd_debug(args) -> int:
+    """ref: `kubectl-gadget debug` + DumpState RPC
+    (gadgettracermanager.go:204-219, cmd/kubectl-gadget/debug.go)."""
+    from ..agent.client import AgentClient
+    try:
+        targets = _debug_targets(args)
+    except ParamError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if targets is None:
+        return _local_fleet("state")
+    rc = 0
+    for node, target in targets.items():
+        client = AgentClient(target)
+        try:
+            state = client.dump_state()
+            print(f"=== {node} ({target}) ===")
+            print(json.dumps(state, indent=2, default=str))
+        except Exception as e:  # noqa: BLE001 — per-node isolation
+            print(f"=== {node} ({target}) === error: {e}", file=sys.stderr)
+            rc = 1
+        finally:
+            client.close()
+    return rc
+
+
+def cmd_debug_flight(args) -> int:
+    """ref: the flight-recorder analogue of `kubectl-gadget debug` — the
+    agent's crash-safe ring of recent spans/logs/errors over DumpState."""
+    from ..agent.client import AgentClient
+    dump_path = getattr(args, "from_dump", "")
+    if dump_path:
+        doc, err = load_dump(dump_path)
+        if doc is None:
+            print(f"error: {err}", file=sys.stderr)
+            return 1
+        if err:
+            print(f"warning: {err}", file=sys.stderr)
+        print(json.dumps({dump_path: doc}, indent=2, default=str))
+        return 0
+    try:
+        targets = _debug_targets(args)
+    except ParamError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if not targets:
+        # no agents: this process's own flight record is still evidence
+        print(json.dumps({"local": RECORDER.snapshot()}, indent=2,
+                         default=str))
+        return 0
+    rc = 0
+    out = {}
+    for node, target in targets.items():
+        client = AgentClient(target, node_name=node)
+        try:
+            out[node] = client.flight_record()
+        except Exception as e:  # noqa: BLE001 — per-node isolation
+            out[node] = {"error": str(e)}
+            rc = 1
+        finally:
+            client.close()
+    print(json.dumps(out, indent=2, default=str))
+    return rc
+
+
+def cmd_debug_trace_export(args) -> int:
+    """Merge this process's span ring with every agent's (via DumpState)
+    and write one Chrome trace-event JSON file (Perfetto-loadable)."""
+    from ..agent.client import AgentClient
+    try:
+        targets = _debug_targets(args)
+    except ParamError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if targets is None:
+        return _local_fleet("trace export")
+    spans = TRACER.export()
+    rc = 0
+    for node, target in targets.items():
+        client = AgentClient(target, node_name=node)
+        try:
+            # pull deep into the agent's span ring, not the 512-span
+            # debug default (a truncated export silently loses early
+            # spans) — but stay under gRPC's 4 MiB default message cap:
+            # ~250 B/span JSON puts 8192 spans around 2 MiB
+            fr = client.flight_record(max_spans=8192)
+            for s in fr.get("spans", []):
+                s.setdefault("node", node)
+                spans.append(s)
+        except Exception as e:  # noqa: BLE001 — per-node isolation
+            print(f"{node}: error: {e}", file=sys.stderr)
+            rc = 1
+        finally:
+            client.close()
+    doc = export_chrome(spans, trace_id=args.trace_id or None)
+    payload = json.dumps(doc, default=str)
+    if args.out == "-":
+        print(payload)
+    else:
+        with open(args.out, "w") as f:
+            f.write(payload)
+        n_spans = sum(1 for e in doc["traceEvents"] if e.get("ph") == "X")
+        print(f"wrote {n_spans} spans to {args.out}")
+    return rc
+
+
 def main(argv: list[str] | None = None) -> int:
     if _early_interrupt:
         return 0
@@ -335,6 +528,11 @@ def main(argv: list[str] | None = None) -> int:
         signal.signal(signal.SIGINT, _prev_sigint)
     if argv is None:
         argv = sys.argv[1:]
+    # `agent` forwards verbatim (argparse REMAINDER can't pass through
+    # leading --flags it doesn't own, e.g. `agent --metrics-addr :9100`)
+    if argv and argv[0] == "agent":
+        from ..agent.main import main as agent_main
+        return agent_main(["serve", *argv[1:]])
     if argv and argv[0] in UNPORTED_COMMANDS:
         return unported(f"'{argv[0]}'", UNPORTED_COMMANDS[argv[0]][1])
     ap = build_parser()

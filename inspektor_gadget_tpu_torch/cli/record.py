@@ -18,8 +18,8 @@ replay <path>   re-drive a journal (or every journal of a recording /
 The port's copy of ``inspektor_gadget_tpu/cli/record.py``: the verbs run
 on this process's RecordingManager and on paths, and `replay` takes
 ``--device {cuda,cpu}`` (default ``cuda``, no fallback). `record fetch`,
-`record stop --fetch` and every ``--remote`` route exit 2 naming the
-ROADMAP item of the agent's port.
+`record stop --fetch` and every ``--remote`` route go through the
+fan-out and exit 2 naming its ROADMAP item (18b).
 """
 
 from __future__ import annotations

@@ -9,8 +9,10 @@ recompute anywhere.
     ig-tpu-torch watch --list                     # accounting rows
 
 The port's copy of ``inspektor_gadget_tpu/cli/watch.py``: the
-in-process engines' path (``--local``, ``--list``). Subscribing to
-agents (``--remote``, or no ``--local``) exits 2 naming ROADMAP item 18.
+in-process engines' path (``--local``, ``--list``) and the agents'
+accounting rows (``--list --remote``, their DumpState). Subscribing to
+agents (``--id`` with ``--remote``, or without ``--local``) goes through
+the fan-out and exits 2 naming ROADMAP item 18b.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ def add_watch_parser(sub) -> None:
                     help="standing query id to watch (as registered via "
                          "the 'standing-queries' param)")
     wp.add_argument("--remote", default="",
-                    help="fan out to agents: name=target[,...] (not ported "
+                    help="fan out to agents: name=target[,...] (--list "
+                         "reads their rows; watching one query is not ported "
                          f"yet: ROADMAP item {REMOTE_ITEM})")
     wp.add_argument("--local", action="store_true",
                     help="read the in-process live engine instead of "
@@ -49,6 +52,8 @@ def add_watch_parser(sub) -> None:
                     help="stop after N refreshes (0 = until interrupted)")
     wp.add_argument("--duration", type=float, default=0.0,
                     help="stop after S seconds (0 = until interrupted)")
+    wp.add_argument("--deadline", type=float, default=3.0,
+                    help="per-agent RPC deadline for --list (seconds)")
     wp.add_argument("--interval", type=float, default=1.0,
                     help="poll interval for --local mode (seconds)")
     wp.add_argument("--top", type=int, default=10,
@@ -119,17 +124,38 @@ def _watch_local(args) -> int:
         time.sleep(max(args.interval, 0.01))
 
 
-def _list_queries(args) -> int:
-    from ..queries import live_stats
-    rows = [{"node": "local", **row} for row in live_stats()]
+def _list_queries(args, targets: dict | None) -> int:
+    rows: list[dict] = []
+    errors: dict[str, str] = {}
+    if args.local or not targets:
+        from ..queries import live_stats
+        rows = [{"node": "local", **row} for row in live_stats()]
+    else:
+        from ..agent.client import AgentClient
+        for node, target in targets.items():
+            client = None
+            try:
+                client = AgentClient(target, node,
+                                     rpc_deadline=args.deadline)
+                for row in (client.dump_state().get("standing_queries")
+                            or []):
+                    rows.append({"node": node, **row})
+            except Exception as e:  # noqa: BLE001 — per-node isolation
+                errors[node] = str(e)
+            finally:
+                if client is not None:
+                    client.close()
     if args.output == "json" or args.json:
-        print(json.dumps({"queries": rows, "errors": {}}, indent=2,
+        print(json.dumps({"queries": rows, "errors": errors}, indent=2,
                          default=str))
-        return 0
+        return 0 if not errors else 1
     print(f"{'NODE':<10s} {'QUERY':<18s} {'STATS':<28s} {'RANGE':>8s} "
           f"{'WIN':>4s} {'EVENTS':>12s} {'TICKS':>6s} {'PUB':>5s} "
           f"{'CACHE h/m/i':>12s}")
     for r in rows:
+        if "error" in r and "id" not in r:
+            print(f"{r.get('node', '?'):<10s} error: {r['error']}")
+            continue
         cache = r.get("cache") or {}
         cache_s = (f"{cache.get('hits', 0)}/{cache.get('misses', 0)}/"
                    f"{cache.get('invalidations', 0)}")
@@ -138,15 +164,26 @@ def _list_queries(args) -> int:
               f"{r.get('range_s', 0):>7.0f}s {r.get('windows', 0):>4d} "
               f"{r.get('events', 0):>12,d} {r.get('ticks', 0):>6d} "
               f"{r.get('published', 0):>5d} {cache_s:>12s}")
-    return 0
+    for node, err in errors.items():
+        print(f"{node}: error: {err}", file=sys.stderr)
+    return 0 if not errors else 1
 
 
 def cmd_watch(args) -> int:
+    from ..params import ParamError
+    targets: dict | None = None
     if args.remote:
+        from .main import parse_targets
+        try:
+            targets = parse_targets(args.remote)
+        except ParamError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+    if args.list_queries:
+        return _list_queries(args, targets)
+    if targets is not None:
         return unported("--remote (the agents' standing-query subscriptions)",
                         REMOTE_ITEM)
-    if args.list_queries:
-        return _list_queries(args)
     if not args.id:
         print("error: --id is required (or use --list)", file=sys.stderr)
         return 2

@@ -3,7 +3,7 @@ pkg/runtime/runtime.go:83-92 — Init, RunGadget, GetCatalog;
 CombinedGadgetResult :42-47 for per-node results/errors).
 
 The port's copy of ``inspektor_gadget_tpu/runtime`` runs locally only:
-the gRPC fan-out runtime waits for ROADMAP item 18 (the agent).
+the gRPC fan-out runtime waits for ROADMAP item 18b (the fan-out).
 """
 
 from .local import LocalRuntime

@@ -29,7 +29,7 @@ class GadgetResult:
 class CombinedGadgetResult(dict):
     """node → GadgetResult; partial failures stay per-node
     (ref: runtime.go:42-79). The reference's stream accounting and fleet
-    health fields come with its gRPC runtime (ROADMAP item 18)."""
+    health fields come with its gRPC runtime (ROADMAP item 18b)."""
 
     def first(self) -> Any:
         for r in self.values():

@@ -7,6 +7,7 @@ accounting of the ingest path (numpy only).
     _hits.labels(lane="0").inc()
 """
 
+from .http import MetricsServer, parse_addr
 from .pipeline import LagSketch, PipelineStats, live_stats
 from .registry import (DEFAULT_BUCKETS, REGISTRY, Counter, Gauge, Histogram, MetricFamily,
                        Registry, Span, counter, gauge, histogram, render_prometheus, snapshot)
@@ -16,7 +17,7 @@ from .tracing import (RECORDER, TRACER, FlightRecorder, FlightRecorderHandler, S
 
 __all__ = ["DEFAULT_BUCKETS", "RECORDER", "REGISTRY", "TRACER", "Counter", "FlightRecorder",
            "FlightRecorderHandler", "Gauge", "Histogram", "LagSketch", "MetricFamily",
-           "PipelineStats", "Registry", "Span", "SpanContext", "SpanRecord", "Tracer",
-           "counter", "device_annotation", "export_chrome", "gauge", "histogram",
-           "install_crash_handlers", "live_stats", "parse_traceparent", "render_prometheus",
-           "snapshot"]
+           "MetricsServer", "PipelineStats", "Registry", "Span", "SpanContext", "SpanRecord",
+           "Tracer", "counter", "device_annotation", "export_chrome", "gauge", "histogram",
+           "install_crash_handlers", "live_stats", "parse_addr", "parse_traceparent",
+           "render_prometheus", "snapshot"]

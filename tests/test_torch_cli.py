@@ -105,21 +105,23 @@ def test_cuda_without_a_card_exits_1():
     assert "torch.cuda.is_available() is false; pass device='cpu'" in r.stderr
 
 
-# the history, record and alerts commands run on this process; their
-# --remote routes (and record fetch, which only agents serve) wait for the
-# agent's port
+# the routes that go through the fan-out (ROADMAP item 18b): the agent's
+# gRPC runtime (--remote runs, queries, watches and recordings, record
+# fetch) and the local fleet (debug without --remote). `history tiers
+# --remote`, `alerts list --remote`, `agent` and `debug --remote` run
+# (tests/test_torch_agent_cli.py).
 REMOTE_ROUTES = {"query": ["query", "--remote", "n0=unix:///x.sock"],
                  "watch": ["watch", "--id", "q", "--remote", "n0=unix:///x.sock"],
-                 "history": ["history", "tiers", "--remote", "n0=unix:///x.sock"],
                  "record-list": ["record", "list", "--remote", "n0=unix:///x.sock"],
-                 "alerts-list": ["alerts", "list", "--remote", "n0=unix:///x.sock"],
-                 "record-fetch": ["record", "fetch", "--id", "x", "--dest", "d"]}
+                 "record-fetch": ["record", "fetch", "--id", "x", "--dest", "d"],
+                 "debug-local": ["debug", "state"]}
 
 
 @pytest.mark.parametrize("command", sorted({*cli.UNPORTED_COMMANDS, *REMOTE_ROUTES}))
 def test_unported_commands_exit_2_naming_their_item(command, capsys):
     if command in REMOTE_ROUTES:
         assert cli.main(REMOTE_ROUTES[command]) == 2
+        assert cli.REMOTE_ITEM == "18b"
         assert f"(ROADMAP item {cli.REMOTE_ITEM})" in capsys.readouterr().err
         return
     assert cli.main([command, "--help"]) == 2

@@ -108,13 +108,23 @@ def _run(monkeypatch, category, name, flags, trigger=None, timeout=4.0, op_param
 @needs_native
 @needs_root
 def test_trace_open_gadget_real_end_to_end(monkeypatch):
-    def trigger():
-        # repeat the open until the run window closes: fanotify only
-        # reports opens made while the mark is live
-        for _ in range(8):
+    # repeat the open until the run's thread has ended: fanotify only
+    # reports opens made while the mark is live, and under load the mark
+    # can go live late in the run
+    done = threading.Event()
+
+    def opener():
+        while not done.is_set():
             subprocess.run(["sh", "-c", "date > /tmp/ig_t_open"], check=True)
-            time.sleep(0.3)
-    events = _run_gadget(monkeypatch, "open", {"paths": "/tmp"}, trigger, timeout=3.0)
+            done.wait(0.3)
+
+    th = threading.Thread(target=opener, daemon=True)
+    try:
+        events = _run_gadget(monkeypatch, "open", {"paths": "/tmp"}, th.start, timeout=3.0)
+    finally:
+        done.set()
+        if th.is_alive():
+            th.join(10)
     hits = [e for e in events if e.path == "/tmp/ig_t_open"]
     assert hits and hits[0].pid > 0 and hits[0].comm != ""
 
