@@ -63,15 +63,16 @@ The history route (phase 5e(b)): 5d(b)'s CLI run again with
 ``--tpusketch-history true`` (a window a second into a store under
 build/) and phase 5c's standing queries, then ``query``, ``history
 tiers``, ``history compact``, ``query``, ``history archive`` and ``query
---archive-dir`` as subprocesses on its store, each exiting 0: the first
+--archive-dir`` as subprocesses on its store (the first two at once,
+since they only read it), each exiting 0: the first
 answer's events must equal the listed windows' sum and the run's last
 summary; the compacted and the rehydrated answers must equal the first
 in events, distinct, entropy and heavy hitters. Each subprocess's wall
 time and the time of torch's import and of the history functions in it
 are logged.
 
-Capture, alerts and replay (phase 5f): (a) 5d(a)'s run with the history
-plane sealing a window a harvest, a harvest every 4 batches, five JSON
+Capture, alerts and replay (phase 5f): (a) 5d(a)'s run, cut to 16
+batches (32 until phase 5k came), with the history plane sealing a window a harvest, a harvest every 4 batches, five JSON
 alert rules on sketch fields and the capture operator journaling it
 (unlimited retention: the journal outgrows the default 256 MB); the same
 run without capture; then `replay_journal` of the journal twice on the
@@ -85,7 +86,7 @@ the run-end resolve. (b) The CLI, ``trace exec --source synthetic --rate
 ``--capture-dir``, ``--capture-retention-bytes 0`` and
 ``--alerts-rules-file``, then ``record inspect``, ``replay --verify -o
 json``, ``alerts rules`` and ``alerts test --journal``, each a subprocess
-that must exit 0, the replay reporting ``digests_match`` and
+(all four at once) that must exit 0, the replay reporting ``digests_match`` and
 ``alerts_match``. Events/s with and without capture, journal bytes a
 batch, replay events/s on the card and on the CPU and each subprocess's
 wall time (torch's import timed) are logged.
@@ -113,7 +114,8 @@ A child under ``unshare -m`` exec'ing /bin/true, and ``trace exec
 --source native --localmanager-containername <its comm>
 --tpusketch-enable true --timeout 5 -o json`` as a subprocess: rows of
 the child named as its container, none foreign, the last summary's
-events equal to the rows; ``no-such-ctr`` scores none of the child's.
+events equal to the rows; ``no-such-ctr``, run at the same time, scores
+none of the child's.
 Where the host lacks root, ``unshare`` or the proc-exec source, (b)
 says which and does not run. The host's facts (card count, grpc and
 google.protobuf, root, unshare, the proc-exec source, the localmanager's
@@ -139,7 +141,8 @@ native -o json`` as a black box through the port's step framework.
 
 The remaining gadgets (phase 5i, ROADMAP 17b): (a) ``audit seccomp``
 (16 batches), ``advise seccomp-profile``, ``advise network-policy`` and
-``traceloop`` (4 batches each) as 5d(a) runs trace/exec, on the card and
+``traceloop`` (4 batches each; network-policy 2 since phase 5k came) as
+5d(a) runs trace/exec, on the card and
 on the CPU: equal summaries, K2 once a batch on the card and never on
 the CPU, and equal result bytes (the profiles' JSON, the policies' YAML,
 the traceloop table); each one's events/s beside 5d(a)'s. (b) Each 17b
@@ -177,6 +180,30 @@ in the agent are logged), a RunGadget of 2 batches paced at one a second
 events 2 x 2^17, 2 sketch steps), ``debug state --remote`` exit 0, and
 SIGTERM: exit 0 within 30 s and the flight record written. 5e(b)'s CLI
 run is 7 s and 5f(b)'s 4 s since 5j came (10 and 5 before).
+
+The fan-out (phase 5k, ROADMAP 18b): (a) two of the port's `serve` in
+this process on the card (nodes n0 and n1, unix sockets and the history
+store under a temp directory); on each an owner's shared run of 5d(a)'s
+stream at full width (pysynthetic seed 7 on n0, 8 on n1) with a harvest
+and a window every 300 ms, one summary-tier subscriber a node attached
+through `GrpcRuntime.subscribe_summaries`, each run ended for all once
+its source popped 8 batches. Both nodes end without error, K2 once a
+popped batch, each subscriber's last summary the owner's final frame but
+for the seq, `GrpcRuntime.query_history` answered by pushdown on both
+nodes and equal to `answer_query` over `canonical_order` of both stores'
+windows, and n1's summary equal to `gadget_run` of the same stream,
+batches and harvest points on the CPU (distinct and entropy bit for bit,
+ae within 5%); the fleet's events/s is logged beside 5j(a)'s single
+agent. (b) `deploy_local(2, device="cuda")` (state file under a temp
+directory, free loopback ports) starts two ``ig-tpu-torch agent``
+subprocesses, polled with ``agent liveness`` (120 s) and warmed by one
+run each to a first harvest; then ``ig-tpu-torch trace exec --remote
+node-0=...,node-1=... --source pysynthetic --batch-size 4096 --rate 20000
+--timeout 3 --tpusketch-enable true`` (5d's sketch flags) ``-o json`` as
+a subprocess: exit 0, rows from both nodes, no PARTIAL label. The row
+route sends one gRPC message an event, so its batch is cut to 4096 (a
+2**17 batch frame passes gRPC's 4 MiB cap); the sketch stays at full
+width. `undeploy_local` stops both agents, exit 0 within 30 s each.
 
 The launch counts are set to 0 just before each card run of a path and
 read just after it.
@@ -909,17 +936,19 @@ def _metric(snap: dict, name: str, gadget: str = "trace/exec") -> float:
 
 
 def gadget_run(device: str, batches: int, batch: int, *, ops: dict | None = None,
-               harvest_every: int = 0, source: str = "pysynthetic", rate: str = "1e9",
+               harvest_every: int = 0, harvest_at: list[int] | None = None,
+               seed: str = "7", source: str = "pysynthetic", rate: str = "1e9",
                sketch: bool = True, rows: list | None = None,
                keep_stream: bool = False, gadget: str = "exec",
                category: str = "trace") -> dict:
     """``<category>/<gadget>`` (trace/exec by default) through the port's
     `LocalRuntime`: the `source`
-    (pysynthetic by default: seed 7, vocab 2000, zipf 1.2, batches of
+    (pysynthetic by default: `seed` 7, vocab 2000, zipf 1.2, batches of
     `batch` paced at `rate` events/s), the sketch plane with GADGET_SKETCH
     and a harvest interval of 1h (so the only harvest is post_gadget_run's,
-    unless the batch callback harvests every `harvest_every` batches; no
-    sketch plane without `sketch`), the context cancelled from the batch
+    unless the batch callback harvests every `harvest_every` batches, or
+    once after batch k for each k in `harvest_at`; no sketch plane without
+    `sketch`), the context cancelled from the batch
     callback after `batches` batches. `ops` maps operator names to more
     param values (``tpusketch``'s on top of GADGET_SKETCH); `rows`
     collects the decoded rows, and `keep_stream` each batch's mntns and
@@ -938,7 +967,7 @@ def gadget_run(device: str, batches: int, batch: int, *, ops: dict | None = None
     from inspektor_gadget_tpu_torch.telemetry import snapshot
     desc = get(category, gadget)
     gp = desc.params().to_params()
-    for k, v in {"source": source, "seed": "7", "vocab": "2000", "zipf": "1.2",
+    for k, v in {"source": source, "seed": seed, "vocab": "2000", "zipf": "1.2",
                  "batch-size": str(batch), "rate": rate}.items():
         gp.set(k, v)
     ops = dict(ops or {})
@@ -964,9 +993,12 @@ def gadget_run(device: str, batches: int, batch: int, *, ops: dict | None = None
         kinds.update(np.unique(b.cols["kind"][:b.count]).tolist())
         if keep_stream:
             stream.append((b.cols["mntns"][:b.count].copy(), b.cols["key_hash"][:b.count].copy()))
-        if harvest_every and len(counts) % harvest_every == 0:
+        times = (int(len(counts) % harvest_every == 0) if harvest_every
+                 else (harvest_at or []).count(len(counts)))
+        if times:
             (inst,) = [i for i in live_instances() if i.ctx.run_id == ctx.run_id]
-            inst.harvest()
+            for _ in range(times):
+                inst.harvest()
         if len(counts) == batches:
             ctx.cancel()
 
@@ -978,7 +1010,8 @@ def gadget_run(device: str, batches: int, batch: int, *, ops: dict | None = None
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     require(res.error is None, f"gadget run on {device}: {res.error}")
-    harvests = ((batches // harvest_every if harvest_every else 0) + 1) if sketch else 0
+    timed = batches // harvest_every if harvest_every else len(harvest_at or [])
+    harvests = timed + 1 if sketch else 0
     require(len(counts) == batches and len(summaries) == harvests,
             f"gadget run on {device}: {len(counts)} batches, {len(summaries)} harvests")
     after = snapshot()
@@ -1080,9 +1113,10 @@ def history_route(device: str, batch: int, seconds: int, sketch: dict, root: Pat
     listed = HISTORY.list_windows(base_dir=str(hist_cli))
     dumpq = root / "chip_smoke_history_cli.json"
     q_args = ["query", "--history", str(hist_cli), "--gadget", "trace/exec", "-o", "json"]
-    hsteps = {"query": history_cli(q_args, dumpq)}
-    hsteps["tiers"] = history_cli(["history", "tiers", "--history", str(hist_cli), "-o", "json"],
-                                 dumpq)
+    # query and tiers only read the store: they run at once
+    hsteps = history_clis({"query": q_args,
+                           "tiers": ["history", "tiers", "--history", str(hist_cli), "-o",
+                                     "json"]}, root, "chip_smoke_history_cli")
     hsteps["compact"] = history_cli(["history", "compact", "--history", str(hist_cli),
                                     "--schedule", HIST_SCHEDULE, "-o", "json"], dumpq)
     hsteps["query compacted"] = history_cli(q_args, dumpq)
@@ -1141,15 +1175,51 @@ def history_cli(args: list[str], dump: Path) -> dict:
     """One ig-tpu-torch subcommand as a subprocess through
     HISTORY_DRIVER: it must exit 0. Returns its standard output, its wall
     time and the seconds the driver timed in it."""
-    dump.unlink(missing_ok=True)
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", HISTORY_DRIVER, str(dump), *args],
-                          capture_output=True, text=True, timeout=300,
-                          cwd=Path(__file__).resolve().parent)
-    wall = time.perf_counter() - t0
-    require(proc.returncode == 0, f"ig-tpu-torch {' '.join(args[:2])} exited "
-                                  f"{proc.returncode}: {proc.stderr[-2000:]}")
-    return {"stdout": proc.stdout, "wall_s": wall, **json.loads(dump.read_text())}
+    return history_clis({"": args}, dump.parent, dump.stem)[""]
+
+
+def run_at_once(cmds: dict[str, list[str]], timeout: float) -> dict[str, tuple]:
+    """Each command a subprocess from the repo's root, all started
+    together. Returns by name (the CompletedProcess, or None if it ran past
+    `timeout` and was killed; its wall time from its start to its own
+    exit)."""
+    cwd = Path(__file__).resolve().parent
+    done: dict = {}
+
+    def run(name: str, cmd: list[str]) -> None:
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, cwd=cwd)
+        except subprocess.TimeoutExpired:
+            proc = None
+        done[name] = (proc, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=run, args=item, daemon=True) for item in cmds.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return {name: done[name] for name in cmds}
+
+
+def history_clis(steps: dict[str, list[str]], root: Path, stem: str = "step") -> dict:
+    """`history_cli` of each step at once, each a subprocess of its own
+    (steps that read the same store or journal and write nothing another
+    reads): every one must exit 0. Returns each one's result by name."""
+    dumps = {name: root / f"{stem}-{i}.json" for i, name in enumerate(steps)}
+    for dump in dumps.values():
+        dump.unlink(missing_ok=True)
+    done = run_at_once({name: [sys.executable, "-c", HISTORY_DRIVER, str(dumps[name]), *args]
+                        for name, args in steps.items()}, timeout=300)
+    out = {}
+    for name, args in steps.items():
+        proc, wall = done[name]
+        require(proc is not None and proc.returncode == 0,
+                f"ig-tpu-torch {' '.join(args[:2])}: "
+                + (f"exited {proc.returncode}: {proc.stderr[-2000:]}" if proc is not None
+                   else "no exit in 300 s"))
+        out[name] = {"stdout": proc.stdout, "wall_s": wall, **json.loads(dumps[name].read_text())}
+    return out
 
 
 # phase 5f: capture, alerts and replay. Rules on sketch fields only (the
@@ -1169,7 +1239,7 @@ def capture_rules(events: int) -> list[dict]:
     ]
 
 
-CAPTURE_BATCHES = 32
+CAPTURE_ROUTE_BATCHES = 16  # 5f(a)'s runs and replays: 32 until 5k came
 CAPTURE_HARVEST_EVERY = 4
 CAPTURE_CLI_SECONDS = 4  # 5 s until 5j came
 CAPTURE_HISTORY = ("--tpusketch-history", "true", "--tpusketch-history-interval", "0")
@@ -1323,8 +1393,8 @@ def capture_cli(device: str, batch: int, root: Path, no_capture_ev_per_s: float)
     with GADGET_SKETCH, a window a harvest, ``--capture-dir`` (unlimited
     retention) and ``--alerts-rules-file``; then ``record inspect``,
     ``replay --verify -o json``, ``alerts rules`` and ``alerts test
-    --journal``, each a subprocess through `history_cli` that must exit
-    0. The replay must report ``digests_match`` and ``alerts_match``, over
+    --journal``, each a subprocess through `history_clis`, all four at
+    once, that must exit 0. The replay must report ``digests_match`` and ``alerts_match``, over
     every recorded batch and harvest."""
     rules, journal, hist = root / "rules.json", root / "cli-journal", root / "cli-hist"
     for d in (journal, hist):
@@ -1337,13 +1407,13 @@ def capture_cli(device: str, batch: int, root: Path, no_capture_ev_per_s: float)
     require(len(ep) >= 2 and run["alert_lines"], f"CLI capture run: {len(ep)} sketch epochs, "
                                                  f"{len(run['alert_lines'])} alert lines")
     run["ev_per_s"] = ep[-1]["events"] / run["run_s"]
-    dump = root / "cli-step.json"
-    steps = {"record inspect": history_cli(["record", "inspect", str(journal)], dump),
-             "replay --verify": history_cli(["replay", str(journal), "--verify", "-o", "json",
-                                             "--device", device], dump),
-             "alerts rules": history_cli(["alerts", "rules", "--file", str(rules)], dump),
-             "alerts test": history_cli(["alerts", "test", "--file", str(rules), "--journal",
-                                         str(journal)], dump)}
+    # the four steps read the journal and the rule file: they run at once
+    steps = history_clis({
+        "record inspect": ["record", "inspect", str(journal)],
+        "replay --verify": ["replay", str(journal), "--verify", "-o", "json", "--device", device],
+        "alerts rules": ["alerts", "rules", "--file", str(rules)],
+        "alerts test": ["alerts", "test", "--file", str(rules), "--journal", str(journal)]},
+        root, "cli-step")
     (jstats,) = json.loads(steps["record inspect"]["stdout"])["journals"].values()
     (rep,) = json.loads(steps["replay --verify"]["stdout"])
     require(rep["digests_match"] and rep["alerts_match"] and rep["harvests"] == len(ep)
@@ -1721,25 +1791,28 @@ def scoped_cli(device: str, facts: dict, root: Path) -> dict:
     try:
         time.sleep(1.0)  # the container must exist before the CLI's procfs scan
         mntns = os.stat(f"/proc/{child.pid}/ns/mnt").st_ino
-        for name in (BLACK_BOX_COMM, "no-such-ctr"):
-            dump = root / f"cli-{name}.json"
+        # the selected and the unselected run at once, on the same child
+        dumps = {name: root / f"cli-{name}.json" for name in (BLACK_BOX_COMM, "no-such-ctr")}
+        for dump in dumps.values():
             dump.unlink(missing_ok=True)
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-c", CLI_DRIVER, str(dump), "trace", "exec", "--device",
-                 device, "--source", "native", "--localmanager-containername", name,
-                 "--tpusketch-enable", "true", "--timeout", "5", "-o", "json"],
-                capture_output=True, text=True, timeout=240,
-                cwd=Path(__file__).resolve().parent)
-            require(proc.returncode == 0,
-                    f"5g(b) CLI run ({name}) exited {proc.returncode}: {proc.stderr[-2000:]}")
+        done = run_at_once({
+            name: [sys.executable, "-c", CLI_DRIVER, str(dump), "trace", "exec", "--device",
+                   device, "--source", "native", "--localmanager-containername", name,
+                   "--tpusketch-enable", "true", "--timeout", "5", "-o", "json"]
+            for name, dump in dumps.items()}, timeout=240)
+        for name, dump in dumps.items():
+            proc, wall = done[name]
+            require(proc is not None and proc.returncode == 0,
+                    f"5g(b) CLI run ({name}): " + (f"exited {proc.returncode}: "
+                                                   f"{proc.stderr[-2000:]}" if proc is not None
+                                                   else "no exit in 240 s"))
             lines = proc.stdout.splitlines()
             rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
             epochs = [int(m[2].replace(",", "")) for m in map(EPOCH_RE.match, lines) if m]
             info = json.loads(dump.read_text())
             runs[name] = {"rows": rows, "epochs": epochs, "k2": info["k2_launches"],
                           "steps": _metric(info["metrics"], "ig_tpusketch_steps_total"),
-                          "wall_s": time.perf_counter() - t0}
+                          "wall_s": wall}
     finally:
         child.kill()
         child.wait()
@@ -2100,7 +2173,8 @@ def trace_tcp_black_box() -> dict:
 # capture source with 5d(a)'s sketch plane at full width, card then CPU;
 # (b) every real window of the 17b gadgets the card's host offers
 SYSCALL_GADGETS = (("audit", "seccomp", 16), ("advise", "seccomp-profile", 4),
-                   ("advise", "network-policy", 4), ("traceloop", "traceloop", 4))
+                   ("advise", "network-policy", 2),  # 4 until phase 5k came
+                   ("traceloop", "traceloop", 4))
 TOP_SECONDS = 2.2  # each top gadget's run at --interval 1s: two ticks
 DD_FOLD_N = 10_000  # the direct fold's seeded latencies
 
@@ -2922,6 +2996,323 @@ def agent_cli(device: str, batch: int, root: Path) -> dict:
     return res
 
 
+# phase 5k: the fan-out (ROADMAP 18b). (a) two of the port's AgentServers in
+# this process, each an owner's shared run of 5d(a)'s stream with a window a
+# harvest, folded through GrpcRuntime's summary tier and its query_history;
+# (b) a local fleet of two `ig-tpu-torch agent` subprocesses (deploy_local)
+# and the CLI's row route across it
+FANOUT_BATCHES = 8   # each owner ends its run for all once its source has popped this many
+FANOUT_SEEDS = {"n0": "7", "n1": "8"}
+# (b)'s json-row route sends one EV_PAYLOAD_JSON message an event, so its
+# batch is cut to 4096 (a 2**17 batch is 131072 messages, and its frame
+# passes gRPC's 4 MiB cap); the sketch geometry stays at full width
+FANOUT_CLI_ARGS = ("--source", "pysynthetic", "--batch-size", "4096", "--rate", "20000",
+                   "--timeout", "3")
+FANOUT_LIVENESS_S = 120.0
+
+
+def _without(d: dict, *keys: str) -> dict:
+    return {k: v for k, v in d.items() if k not in keys}
+
+
+def fanout_route(device: str, batch: int, root: Path, agent_ev_per_s: float) -> dict:
+    """Phase 5k (a): `serve` twice in this process on `device` (nodes n0 and
+    n1, unix sockets under a temp directory, the history store under it
+    too). On each node an owner (`AgentClient`, share=True, outputs
+    summary) runs `agent_params` (pysynthetic seed 7 on n0, 8 on n1, a
+    harvest and a window every AGENT_HARVEST); `GrpcRuntime.subscribe_
+    summaries` attaches one summary-tier subscriber a node, and each owner
+    ends its run for all once its source has popped FANOUT_BATCHES
+    batches (counted per run at the operator). Requires: no error on
+    either node; K2 once a popped batch; each node's last subscriber
+    summary its owner's final frame but for the seq;
+    `GrpcRuntime.query_history` answered by pushdown on both nodes and
+    equal to `answer_query` over `canonical_order` of both stores'
+    windows read directly; n1's final summary equal to `gadget_run` of the
+    same stream, batches, harvest points and seals on the CPU (distinct
+    and entropy bit for bit, ae within 5%). Logs the fleet's events/s beside
+    5j(a)'s single agent. Runs on the CPU too, at small sizes."""
+    from inspektor_gadget_tpu_torch.agent import wire
+    from inspektor_gadget_tpu_torch.agent.client import AgentClient
+    from inspektor_gadget_tpu_torch.agent.service import serve
+    from inspektor_gadget_tpu_torch.fleet import canonical_order
+    from inspektor_gadget_tpu_torch.history import HISTORY, answer_query, decode_frames
+    from inspektor_gadget_tpu_torch.operators.tpusketch import TpuSketchInstance
+    from inspektor_gadget_tpu_torch.runtime import GrpcRuntime
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    tmp = Path(tempfile.mkdtemp(prefix="igtpu-smoke-"))
+    hist = tmp / "history"
+    HISTORY.set_base_dir(str(hist))
+    runs = {node: f"smoke-fanout-{node}" for node in FANOUT_SEEDS}
+    popped: dict[str, int] = {}
+    enrich = TpuSketchInstance.enrich_batch
+
+    def counted(self, b) -> None:
+        enrich(self, b)
+        if b.count:
+            popped[self.ctx.run_id] = popped.get(self.ctx.run_id, 0) + 1
+
+    TpuSketchInstance.enrich_batch = counted
+    t_phase = time.perf_counter()
+    servers, agents, targets = [], {}, {}
+    runtime = None
+    out: dict = {}
+    try:
+        for node in FANOUT_SEEDS:
+            targets[node] = f"unix://{tmp}/{node}.sock"
+            server, agents[node] = serve(targets[node], node_name=node, device=device)
+            servers.append(server)
+        owners: dict = {}
+        stops = {node: threading.Event() for node in FANOUT_SEEDS}
+
+        def own(node: str) -> None:
+            summaries: list = []
+            c = AgentClient(targets[node], f"{node}-owner", rpc_deadline=120.0)
+            try:
+                got = c.run_gadget(
+                    "trace", "exec",
+                    {**agent_params(batch, harvest_interval=AGENT_HARVEST, history="true",
+                                    history_interval="0"), "gadget.seed": FANOUT_SEEDS[node]},
+                    run_id=runs[node], share=True, keepalive=5.0, outputs=("summary",),
+                    on_summary=lambda _n, s: summaries.append(s), stop_event=stops[node],
+                    stop_run=True)
+            finally:
+                c.close()
+            owners[node] = {"out": got, "summaries": summaries, "end": time.perf_counter()}
+
+        reset_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=own, args=(n,), daemon=True) for n in FANOUT_SEEDS]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 120.0
+        while time.monotonic() < deadline and not all(
+                runs[n] in agents[n]._streams for n in FANOUT_SEEDS):
+            time.sleep(0.01)
+        runtime = GrpcRuntime(dict(targets))
+        last: dict = {}
+        subs: dict = {}
+        sub = threading.Thread(target=lambda: subs.update(runtime.subscribe_summaries(
+            gadget="trace/exec", on_summary=lambda n, s: last.__setitem__(n, s))), daemon=True)
+        sub.start()
+        while time.monotonic() < deadline and not all(
+                agents[n]._streams[runs[n]].live_subscribers() >= 2 for n in FANOUT_SEEDS):
+            time.sleep(0.01)
+        attached = {n: agents[n]._streams[runs[n]].live_subscribers() for n in FANOUT_SEEDS}
+        pending = set(FANOUT_SEEDS)
+        while pending and time.monotonic() < deadline:
+            for n in sorted(pending):
+                if popped.get(runs[n], 0) >= FANOUT_BATCHES or agents[n]._streams[runs[n]].done:
+                    stops[n].set()
+                    pending.discard(n)
+            time.sleep(0.005)
+        for n in pending:
+            stops[n].set()
+        for t in threads + [sub]:
+            t.join(timeout=120.0)
+            require(not t.is_alive(), "fan-out (5k a): a stream never ended")
+        launched = read_launches()
+        wall = max(o["end"] for o in owners.values()) - t0
+        require(attached == {n: 2 for n in FANOUT_SEEDS},
+                f"fan-out (5k a): subscribers attached {attached}, expected the owner and one "
+                f"summary-tier subscriber a node")
+        per_node: dict = {}
+        for node in FANOUT_SEEDS:
+            own_out, sub_out = owners[node]["out"], subs.get(node, {"error": "no result"})
+            require(own_out["error"] is None and sub_out.get("error") is None,
+                    f"fan-out (5k a) {node}: owner {own_out['error']}, subscriber "
+                    f"{sub_out.get('error')}")
+            require(sub_out["attach"] and sub_out["attach"]["run_id"] == runs[node],
+                    f"fan-out (5k a) {node}: the subscriber attached to {sub_out['attach']}")
+            final = owners[node]["summaries"][-1]
+            require(_without(last.get(node, {}), "seq") == _without(final, "seq"),
+                    f"fan-out (5k a) {node}: the subscriber's last summary is not the owner's "
+                    f"final frame")
+            events = int(final["events"])
+            batches = events // batch
+            require(events == batches * batch and batches == popped[runs[node]]
+                    and batches >= FANOUT_BATCHES,
+                    f"fan-out (5k a) {node}: {events} events, {popped.get(runs[node])} popped "
+                    f"batches of {batch}")
+            per_node[node] = {"events": events, "batches": batches,
+                              "harvests": len(owners[node]["summaries"]),
+                              "frame_records": sub_out["records"]}
+        total_batches = sum(v["batches"] for v in per_node.values())
+        want_k2 = total_batches if device == "cuda" else 0
+        require(launched == {"K1": 0, "K2": want_k2, "K3": 0},
+                f"fan-out (5k a): launched {launched}, expected K2 {want_k2} (once a batch)")
+        t_q = time.perf_counter()
+        ans = runtime.query_history(gadget="trace/exec")
+        query_s = time.perf_counter() - t_q
+        HISTORY.close_all()
+        direct = []
+        for node in FANOUT_SEEDS:
+            direct += decode_frames(list(HISTORY.fetch_windows(
+                base_dir=str(hist), gadget="trace/exec", node=node)))
+        want_q = answer_query(canonical_order(direct)).to_dict()
+        got_q = ans.to_dict()
+        require(got_q["paths"] == {n: "pushdown" for n in FANOUT_SEEDS} and not got_q["errors"],
+                f"fan-out (5k a): query_history paths {got_q['paths']}, errors {got_q['errors']}")
+        require(want_q["events"] == sum(v["events"] for v in per_node.values()),
+                f"fan-out (5k a): the stores hold {want_q['events']} events")
+        for k in ("events", "distinct", "entropy_bits", "heavy_hitters", "inv", "quantiles",
+                  "nodes"):
+            require(got_q[k] == want_q[k],
+                    f"fan-out (5k a): query_history {k} differs from answer_query over the "
+                    f"stores' windows in canonical order")
+        n1 = owners["n1"]["summaries"]
+        harvest_at = [int(s["events"]) // batch for s in n1[:-1]]
+        # the same history plane: a seal resolves the names of its window's
+        # heavy keys, so the summaries' `names` need the same seals
+        cpu = gadget_run("cpu", per_node["n1"]["batches"], batch, seed=FANOUT_SEEDS["n1"],
+                         harvest_at=harvest_at,
+                         ops={"tpusketch": {"history": "true", "history-interval": "0",
+                                            "history-dir": str(root / "cpu-history")}})
+        want = wire.decode_summary(*wire.decode_msg(wire.encode_msg(
+            *wire.encode_summary(cpu["summary"]))))
+        gap = compare_wire_summaries(n1[-1], want, "fan-out n1, agent vs CPU",
+                                     anomaly_rel=5e-2)
+        ev_s = sum(v["events"] for v in per_node.values()) / wall
+        out = {"nodes": per_node, "seconds": wall, "ev_per_s": ev_s, "k2_launches": launched["K2"],
+               "agent_ev_per_s": agent_ev_per_s, "query_s": query_s,
+               "query_windows": len(direct), "ae_rel_gap": gap, "harvest_at_n1": harvest_at}
+        log(f"[fanout] (5k a) two agents in this process ({device}), each an owner's shared "
+            f"run with a window a harvest ({AGENT_HARVEST}) and a summary-tier subscriber "
+            f"through GrpcRuntime.subscribe_summaries: "
+            + ", ".join(f"{n} {v['batches']} x {batch} events, {v['harvests']} harvests"
+                        for n, v in per_node.items())
+            + f"; {ev_s:.0f} events/s for the fleet ({wall:.2f} s) against 5j(a)'s single "
+            f"agent {agent_ev_per_s:.0f} in this run ({ev_s / agent_ev_per_s:.2f}x); K2 "
+            f"{launched['K2']} launches (once a batch); each subscriber's last summary the "
+            f"owner's final frame but for the seq; query_history by pushdown on both nodes in "
+            f"{query_s * 1e3:.1f} ms, equal to answer_query over the {len(direct)} stored "
+            f"windows in canonical order; n1 equal to the CPU's gadget_run at the same "
+            f"{len(harvest_at)} harvest points (distinct and entropy bit for bit, ae within "
+            f"{gap:.3g} of a score)")
+    finally:
+        TpuSketchInstance.enrich_batch = enrich
+        if runtime is not None:
+            runtime.close()
+        for server in servers:
+            server.stop(grace=2.0).wait(30.0)
+        HISTORY.close_all()
+        HISTORY.set_base_dir(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def fanout_cli(device: str, root: Path) -> dict:
+    """Phase 5k (b): `deploy_local(2, device=device)` (the state file under a
+    temp directory, free loopback ports) starts two ``ig-tpu-torch agent``
+    subprocesses; ``agent liveness`` is polled until each answers
+    (FANOUT_LIVENESS_S) and each serves one warm-up run up to its first
+    harvest with events (a fresh agent's first run pays its CUDA context).
+    Then ``ig-tpu-torch trace exec --remote node-0=...,node-1=...
+    FANOUT_CLI_ARGS --tpusketch-enable true`` (GADGET_SKETCH, full width)
+    ``-o json`` as a subprocess: exit 0, rows from both nodes, no PARTIAL
+    label. `undeploy_local` must stop both, exit 0 within 30 s each. Runs
+    on the CPU too."""
+    from inspektor_gadget_tpu_torch.agent.client import AgentClient
+    from inspektor_gadget_tpu_torch.agent.main import main as agent_main
+    from inspektor_gadget_tpu_torch.cli import deploy as D
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    tmp = Path(tempfile.mkdtemp(prefix="igtpu-smoke-"))
+    state = str(tmp / "agents.json")
+    cwd = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    targets = D.deploy_local(2, device=device, path=state, log_dir=str(root / "logs"))
+    res: dict = {}
+    try:
+        pids = json.loads(Path(state).read_text())["pids"]
+        live: dict = {}
+        while time.perf_counter() - t0 < FANOUT_LIVENESS_S and len(live) < len(targets):
+            for node, target in targets.items():
+                if node in live:
+                    continue
+                require(D._alive(pids[node]), f"fan-out (5k b): agent {node} exited: "
+                        + (root / "logs" / f"{node}.log").read_text()[-2000:])
+                with open(os.devnull, "w") as null, contextlib.redirect_stdout(null), \
+                        contextlib.redirect_stderr(null):
+                    if agent_main(["liveness", "--target", target]) == 0:
+                        live[node] = time.perf_counter() - t0
+            time.sleep(0.2)
+        require(len(live) == len(targets), f"fan-out (5k b): liveness answered for {live} "
+                                           f"within {FANOUT_LIVENESS_S:.0f} s")
+        warm: dict = {}
+
+        def warm_up(node: str) -> None:
+            stop, t = threading.Event(), time.perf_counter()
+
+            def on_summary(_n, s) -> None:
+                if s["events"]:
+                    stop.set()
+
+            c = AgentClient(targets[node], f"{node}-warm", rpc_deadline=120.0)
+            timer = threading.Timer(120.0, stop.set)
+            timer.daemon = True
+            timer.start()
+            try:
+                got = c.run_gadget("trace", "exec",
+                                   agent_params(4096, rate="20000", harvest_interval="300ms"),
+                                   outputs=("summary",), on_summary=on_summary, stop_event=stop)
+            finally:
+                timer.cancel()
+                c.close()
+            warm[node] = {"error": got["error"], "seconds": time.perf_counter() - t}
+
+        threads = [threading.Thread(target=warm_up, args=(n,), daemon=True) for n in targets]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=150.0)
+        require(all(w["error"] is None for w in warm.values()) and len(warm) == len(targets),
+                f"fan-out (5k b): warm-up runs {warm}")
+        flags = [x for k, v in GADGET_SKETCH.items() for x in (f"--tpusketch-{k}", v)]
+        spec = ",".join(f"{n}={t}" for n, t in targets.items())
+        rows_path = root / "rows.json"
+        cmd = [sys.executable, "-m", "inspektor_gadget_tpu_torch.cli.main", "trace", "exec",
+               "--remote", spec, *FANOUT_CLI_ARGS, "--tpusketch-enable", "true", *flags,
+               "-o", "json"]
+        t_cli = time.perf_counter()
+        with open(rows_path, "w") as fo:
+            r = subprocess.run(cmd, stdout=fo, stderr=subprocess.PIPE, text=True, timeout=300,
+                               cwd=cwd)
+        cli_s = time.perf_counter() - t_cli
+        nodes: dict = {}
+        with open(rows_path) as f:
+            for line in f:
+                if line.startswith("{"):
+                    node = json.loads(line)["node"]
+                    nodes[node] = nodes.get(node, 0) + 1
+        require(r.returncode == 0 and set(nodes) == set(targets) and "PARTIAL" not in r.stderr,
+                f"fan-out (5k b): trace exec --remote exited {r.returncode}, rows by node "
+                f"{nodes}, stderr {r.stderr[-2000:]}")
+        t_un = time.perf_counter()
+        stopped = D.undeploy_local(state, wait=30.0)
+        undeploy_s = time.perf_counter() - t_un
+        codes = {n: D.EXIT_CODES.get(n) for n in targets}
+        require(sorted(stopped) == sorted(targets) and all(c == 0 for c in codes.values()),
+                f"fan-out (5k b): undeploy stopped {stopped}, exit codes {codes}")
+        res = {"liveness_s": live, "warm_up": warm, "cli_s": cli_s, "rows": nodes,
+               "undeploy_s": undeploy_s, "rows_bytes": rows_path.stat().st_size}
+        log(f"[fanout] (5k b) deploy_local(2, device={device}): liveness after "
+            + ", ".join(f"{n} {s:.2f} s" for n, s in live.items())
+            + "; warm-up runs to a first harvest "
+            + ", ".join(f"{n} {w['seconds']:.2f} s" for n, w in warm.items())
+            + f"; trace exec --remote {' '.join(FANOUT_CLI_ARGS)} -o json at full sketch width: "
+            f"exit 0 in {cli_s:.2f} s of process, rows {nodes}, no PARTIAL label; "
+            f"undeploy_local: both exit 0 in {undeploy_s:.2f} s")
+    finally:
+        if Path(state).exists():
+            with contextlib.suppress(TimeoutError):
+                D.undeploy_local(state, wait=30.0)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -3530,7 +3921,7 @@ def main() -> int:
     cap_root = ckpt_root.parent / "chip_smoke_capture"
     shutil.rmtree(cap_root, ignore_errors=True)
     t_cap = time.perf_counter()
-    cap = capture_route("cuda", CAPTURE_BATCHES, batch, cap_root)
+    cap = capture_route("cuda", CAPTURE_ROUTE_BATCHES, batch, cap_root)
     launches["K2"] += cap["k2_launches"]
     cap_cli = capture_cli("cuda", batch, cap_root, cli["ev_per_s"])
     cc = cap_cli["cli_run"]
@@ -3588,6 +3979,16 @@ def main() -> int:
     agent["seconds"] = time.perf_counter() - t_agent
     log(f"[agent] phase 5j took {agent['seconds']:.1f} s")
     report["agent"] = agent
+
+    # -- 5k. the fan-out (ROADMAP 18b) ------------------------------------------------
+    t_fan = time.perf_counter()
+    fan = fanout_route("cuda", batch, ckpt_root.parent / "chip_smoke_fanout",
+                       agent["shared"]["ev_per_s"])
+    launches["K2"] += fan["k2_launches"]
+    fan["cli"] = fanout_cli("cuda", ckpt_root.parent / "chip_smoke_fanout_cli")
+    fan["seconds"] = time.perf_counter() - t_fan
+    log(f"[fanout] phase 5k took {fan['seconds']:.1f} s")
+    report["fanout"] = fan
 
     # -- 6. K3 against its plain version ----------------------------------------
     # the plain versions' float32 matmuls run in full f32, not TF32

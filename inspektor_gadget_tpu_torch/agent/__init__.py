@@ -12,8 +12,9 @@ The port's copy of ``inspektor_gadget_tpu/agent``: the same module paths,
 class names, RPC names and wire bytes (`ig.proto`, `wire.py`), so a port
 node and a reference node answer one client alike. Every run the agent
 starts takes the agent's ``device`` (``cuda`` by default, no fallback).
-The fan-out (`runtime/grpc_runtime.py`, the exec-tunnel dialer) is
-ROADMAP item 18b.
+The client half, the fan-out over a fleet of agents, is
+`runtime/grpc_runtime.py` (with `dialer.ExecTunnelDialer` for agents no
+address routes to).
 
 The exports load on first use: the capture journal and the history
 store import `agent.wire`, and the hook client and `liveness` need no

@@ -12,9 +12,8 @@ firing on N nodes folds into ONE cluster alert carrying the node list —
 the first node's transition surfaces it, later nodes only extend the
 list, and the cluster alert resolves when the last node resolves.
 
-The port's copy of ``inspektor_gadget_tpu/alerts/store.py``. The port
-has no gRPC runtime yet to drive the aggregator (ROADMAP item 18b);
-its tests drive it directly.
+The port's copy of ``inspektor_gadget_tpu/alerts/store.py``; the port's
+`GrpcRuntime` folds its fan-out's alerts through the aggregator.
 """
 
 from __future__ import annotations

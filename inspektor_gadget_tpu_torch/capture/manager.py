@@ -21,7 +21,8 @@ plays the role tpusketch's checkpoint-dir global plays for sketch state.
 The port's copy of ``inspektor_gadget_tpu/capture/manager.py``; a
 journal's manifest records the torch device type of the run it tees
 (``platform``). The agent serves it over its recording RPCs
-(`agent.service`); the fetch fan-out waits for ROADMAP item 18b.
+(`agent.service`), and `GrpcRuntime.fetch_recording` pulls every node's
+journals into one bundle.
 """
 
 from __future__ import annotations

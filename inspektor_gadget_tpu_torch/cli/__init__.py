@@ -4,8 +4,6 @@ port's ``ig-tpu-torch`` (`cli.main`)."""
 
 import sys
 
-REMOTE_ITEM = "18b"  # --remote runs and the local fleet go through the fan-out
-
 
 def unported(what: str, item: str) -> int:
     """Exit 2 naming the ROADMAP item that ports `what`."""

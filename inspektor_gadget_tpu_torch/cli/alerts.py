@@ -9,9 +9,7 @@
          and print the transitions they would cause — dry-running a rule
          file against recorded traffic before deploying it.
 
-The port's copy of ``inspektor_gadget_tpu/cli/alerts.py``: `list` reads
-this process's table and, with ``--remote``, each agent's. The local
-fleet's agents (no ``--remote``) wait for the fan-out (ROADMAP item 18b).
+The port's copy of ``inspektor_gadget_tpu/cli/alerts.py``.
 """
 
 from __future__ import annotations
@@ -29,11 +27,9 @@ def add_alerts_parser(sub) -> None:
                         "active alerts, rule validation, rule dry-runs")
     asub = ap.add_subparsers(dest="alerts_verb", required=True)
 
-    lp = asub.add_parser("list", help="active alerts of this process "
-                         "and of the --remote agents")
+    lp = asub.add_parser("list", help="active alerts (local + agents)")
     lp.add_argument("--remote", default="",
-                    help="name=target[,...]: add each agent's table "
-                         "(DumpState)")
+                    help="name=target[,...]; defaults to the local fleet")
     lp.add_argument("--active", action="store_true",
                     help="hide recently-resolved alerts")
     lp.add_argument("-o", "--output", default="table",
@@ -76,9 +72,9 @@ _HEADER = (f"{'RULE':<20s} {'STATE':<9s} {'SEVERITY':<9s} {'KEY':<18s} "
 
 def cmd_alerts_list(args) -> int:
     from ..params import ParamError
-    from .main import parse_targets
+    from .main import _debug_targets
     try:
-        targets = parse_targets(args.remote) if args.remote else {}
+        targets = _debug_targets(args)
     except ParamError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

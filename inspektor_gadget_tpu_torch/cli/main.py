@@ -4,18 +4,20 @@ Reference contract: cmd/common/registry.go:46-101 builds a cobra tree with
 one command per category/gadget, flags materialized from ParamDescs
 (gadget + operators + runtime); RunE wires runtime.Init → gadgetcontext →
 parser callback → formatter (registry.go:172-346). `ig` uses the local
-runtime (cmd/ig/main.go:36-57).
+runtime (cmd/ig/main.go:36-57); `--remote` switches to the gRPC fan-out
+runtime (kubectl-gadget analogue, cmd/kubectl-gadget/main.go:48-69).
 
 The port's copy of ``inspektor_gadget_tpu/cli/main.py``: ``list``,
-``catalog``, ``version``, every gadget command on the local runtime,
-``query``, ``watch`` and ``history`` on the local history store,
-``record``, ``replay`` and ``alerts`` on this process's recordings, journals
-and alert table, ``agent`` (the per-node daemon, `agent.main serve`) and
-``debug`` against agents named by ``--remote``, with one more flag,
-``--device {cuda,cpu}`` (default ``cuda``), the device the run's operators
-(and ``profile block-io --quantiles true``) put their state on.
-Subcommands and flags whose modules are not ported exit 2 naming their
-ROADMAP item.
+``catalog``, ``version``, every gadget command on the local runtime or,
+with ``--remote``, fanned out to agents, ``query``, ``watch``,
+``history``, ``record``, ``replay`` and ``alerts`` on this process or the
+agents, ``agent`` (the per-node daemon, `agent.main serve`), ``debug``,
+``deploy``, ``undeploy`` and ``traces``, with one more flag, ``--device
+{cuda,cpu}`` (default ``cuda``): the device the run's operators (and
+``profile block-io --quantiles true``) put their state on, and for
+``deploy --local`` the device of the agents it starts. The commands
+whose modules are not ported (``fleet``, ``bench``, ``doctor``) exit 2
+naming their ROADMAP item.
 
     python -m inspektor_gadget_tpu_torch.cli.main trace exec --device cpu \\
         --source pysynthetic --timeout 3 --tpusketch-enable true
@@ -55,7 +57,7 @@ from ..gadgets.interface import GadgetType  # noqa: E402
 from ..operators import operators as op_registry  # noqa: E402
 from ..params import Collection, ParamError  # noqa: E402
 from ..telemetry.tracing import RECORDER, TRACER, export_chrome, load_dump  # noqa: E402
-from . import REMOTE_ITEM, unported  # noqa: E402
+from . import unported  # noqa: E402
 from .alerts import add_alerts_parser  # noqa: E402
 from .history import add_history_parser  # noqa: E402
 from .query import add_query_parser  # noqa: E402
@@ -67,9 +69,6 @@ __version__ = "0.1.0"
 # the reference's subcommands whose modules the port has not yet: each
 # exits 2 naming the ROADMAP item that ports it
 UNPORTED_COMMANDS = {
-    "deploy": ("render agent manifests / start local agents", REMOTE_ITEM),
-    "undeploy": ("stop local agents / render deletion", REMOTE_ITEM),
-    "traces": ("Trace-resource lifecycle on agents", REMOTE_ITEM),
     "fleet": ("fleet health and shared runs", "11"),
     "bench": ("benchmark runs and the perf ledger", "20"),
     "doctor": ("probe capture windows per gadget", "19"),
@@ -91,6 +90,29 @@ def build_parser() -> argparse.ArgumentParser:
     vp = sub.add_parser("version", help="print version")
     vp.set_defaults(func=lambda a: (print(f"ig-tpu-torch {__version__}"), 0)[1])
 
+    dp = sub.add_parser("deploy", help="render agent manifests / start local agents")
+    dp.add_argument("--render", action="store_true",
+                    help="print DaemonSet+RBAC manifests")
+    dp.add_argument("--local", type=int, default=0,
+                    help="start N local agent daemons")
+    dp.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="device of the local agents (no fallback: cuda without a "
+                         "card fails)")
+    dp.add_argument("--apply", action="store_true",
+                    help="apply manifests via kubectl and wait for rollout")
+    dp.add_argument("--context", default="", help="kubectl context for --apply")
+    dp.add_argument("--rollout-timeout", type=float, default=120.0)
+    dp.add_argument("--image", default="")
+    dp.set_defaults(func=cmd_deploy)
+
+    up = sub.add_parser("undeploy", help="stop local agents / render deletion")
+    up.add_argument("--render", action="store_true",
+                    help="print kubectl deletion manifest list")
+    up.add_argument("--apply", action="store_true",
+                    help="delete the deployed manifests via kubectl")
+    up.add_argument("--context", default="", help="kubectl context for --apply")
+    up.set_defaults(func=cmd_undeploy)
+
     add_query_parser(sub)
     add_watch_parser(sub)
     add_history_parser(sub)
@@ -105,6 +127,25 @@ def build_parser() -> argparse.ArgumentParser:
         "agent", help="run the per-node agent daemon (all agent.main serve "
         "flags pass through, e.g. --listen, --device, --metrics-addr)")
     _add_debug_parser(sub)
+
+    # legacy CRD-path verbs (ref: cmd/kubectl-gadget/utils/trace.go:340-848 —
+    # CreateTrace / SetTraceOperation / waitForCondition, over agent RPCs)
+    tp = sub.add_parser("traces", help="Trace-resource lifecycle on agents")
+    tsub = tp.add_subparsers(dest="verb", required=True)
+    for verb in ("start", "stop", "generate", "get", "delete", "list"):
+        vparser = tsub.add_parser(verb)
+        vparser.add_argument("--remote", default="",
+                             help="name=target[,...]; defaults to the local fleet")
+        if verb != "list":
+            vparser.add_argument("--name", required=True)
+        if verb == "start":
+            vparser.add_argument("--gadget", required=True,
+                                 help="category/name, e.g. advise/seccomp-profile")
+            vparser.add_argument("--node", default="",
+                                 help="restrict the trace to one node")
+            vparser.add_argument("-p", "--param", action="append", default=[],
+                                 help="gadget parameter k=v (repeatable)")
+        vparser.set_defaults(func=cmd_traces, verb=verb)
 
     # help-listing stubs only: main() answers them before argparse
     for name, (help_, item) in UNPORTED_COMMANDS.items():
@@ -146,8 +187,7 @@ def _add_debug_parser(sub) -> None:
     bp = sub.add_parser("debug", help="agent debugging: state dump, flight "
                         "recorder, Chrome-trace export")
     bp.add_argument("--remote", default="",
-                    help="name=target[,...] (the local fleet is not ported "
-                         f"yet: ROADMAP item {REMOTE_ITEM})")
+                    help="name=target[,...]; defaults to the local fleet")
     bp.set_defaults(func=cmd_debug, node="")  # bare `debug` → state dump
     bsub = bp.add_subparsers(dest="debug_verb")
 
@@ -156,7 +196,7 @@ def _add_debug_parser(sub) -> None:
     # silently discard `debug --remote X <verb>` (flag before the verb)
     def _remote_arg(p):
         p.add_argument("--remote", default=argparse.SUPPRESS,
-                       help="name=target[,...]")
+                       help="name=target[,...]; defaults to the local fleet")
 
     dsp = bsub.add_parser("state", help="dump agent state (DumpState)")
     _remote_arg(dsp)
@@ -196,11 +236,11 @@ def _help_text(text: str) -> str:
 def _add_common_flags(gp: argparse.ArgumentParser) -> None:
     gp.add_argument("--remote", default="",
                     help="fan out to agents: name=target[,name=target...] "
-                         f"(not ported yet: ROADMAP item {REMOTE_ITEM})")
+                         "(the kubectl-gadget mode)")
     gp.add_argument("--node", default="", help="restrict --remote to one node")
     gp.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="device of the run's operator state (no fallback: cuda "
-                         "without a card fails)")
+                         "without a card fails; --remote runs take each agent's)")
     gp.add_argument("-o", "--output", default="columns",
                     choices=["columns", "json"], help="output format")
     gp.add_argument("--timeout", type=float, default=0.0,
@@ -252,9 +292,19 @@ def print_alert(ev: dict) -> None:
     sys.stdout.flush()
 
 
+def print_cluster_alert(ev: dict) -> None:
+    """One cluster-folded alert transition (the GrpcRuntime dedup) as the
+    reference's CLI prints it."""
+    nodes = ",".join(ev.get("nodes") or [])
+    key = f" key={ev['key']}" if ev.get("key") else ""
+    sys.stdout.write(
+        f"\n!! alert {ev['rule']} -> {ev['transition']}{key} "
+        f"value={ev.get('value', 0):.6g} nodes=[{nodes}] "
+        f"[{ev.get('severity', '')}]\n")
+    sys.stdout.flush()
+
+
 def cmd_run(args) -> int:
-    if args.remote:
-        return unported("--remote (the agent's gRPC runtime)", REMOTE_ITEM)
     desc = args.desc
     gadget_params = desc.params().to_params()
     common = {"max-rows": str(args.max_rows), "sort": args.sort or None}
@@ -292,11 +342,14 @@ def cmd_run(args) -> int:
         if sp.get("enable").as_bool():
             extra["on_sketch_summary"] = print_sketch_summary
 
-    # a run with alert rules prints its transitions inline
+    # local runs surface alert transitions inline (remote runs ride the
+    # EV_ALERT stream through the GrpcRuntime dedup instead)
+    alerts_set = False
     if "operator.alerts." in op_params:
         alp = op_params["operator.alerts."]
-        if alp.get("rules-file").as_string() or alp.get("rules").as_string():
-            extra["on_alert_event"] = print_alert
+        alerts_set = bool(alp.get("rules-file").as_string() or alp.get("rules").as_string())
+    if alerts_set and not args.remote:
+        extra["on_alert_event"] = print_alert
 
     extra["output"] = args.output
     ctx = GadgetContext(
@@ -308,9 +361,13 @@ def cmd_run(args) -> int:
         device=args.device,
     )
 
+    if args.remote:
+        from ..environment import Environment, set_environment
+        set_environment(Environment.KUBERNETES)  # show node columns
+
     cols = ctx.columns
     filters = parse_filters(args.filter, cols) if args.filter and cols else []
-    if filters:
+    if filters and not args.remote:
         # push filters into the gadget's batch loop: rows that can't match
         # are dropped columnar and never become Python objects (batch-
         # capable gadgets set display_filters_applied and on_event skips
@@ -359,15 +416,45 @@ def cmd_run(args) -> int:
 
     signal.signal(signal.SIGINT, on_sigint)
 
-    from ..runtime.local import LocalRuntime
-    runtime = LocalRuntime()
-    result = runtime.run_gadget(
-        ctx,
-        on_event=on_event if desc.gadget_type in (GadgetType.TRACE,) else None,
-        on_event_array=on_event_array
-        if desc.gadget_type in (GadgetType.TRACE_INTERVALS, GadgetType.ONE_SHOT)
-        else None,
-    )
+    run_kwargs = {}
+    if args.remote:
+        from ..runtime.grpc_runtime import GrpcRuntime
+        try:
+            targets = parse_targets(args.remote)
+        except ParamError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        runtime = GrpcRuntime(targets)
+        if args.node:
+            ctx.runtime_params = runtime.params().to_params()
+            ctx.runtime_params.set("node", args.node)
+        if alerts_set:
+            # cluster-folded alerts from the GrpcRuntime dedup
+            run_kwargs["on_alert"] = print_cluster_alert
+    else:
+        from ..runtime.local import LocalRuntime
+        runtime = LocalRuntime()
+    try:
+        result = runtime.run_gadget(
+            ctx,
+            on_event=on_event if desc.gadget_type in (GadgetType.TRACE,) else None,
+            on_event_array=on_event_array
+            if desc.gadget_type in (GadgetType.TRACE_INTERVALS, GadgetType.ONE_SHOT)
+            else None,
+            **run_kwargs,
+        )
+    finally:
+        runtime.close()
+    if getattr(result, "partial", False) and result.contributing():
+        # a degraded fleet answer is LABELED partial, never silently
+        # full-looking (supervisor.FleetHealth states ride the result).
+        # Zero contributors is not a partial answer — it is a plain
+        # failure, and the per-node error lines below cover it.
+        unhealthy = {n: s for n, s in result.health.items() if s != "healthy"}
+        print("warning: PARTIAL result — contributing: "
+              + (",".join(result.contributing()) or "<none>")
+              + (f"; unhealthy: {unhealthy}" if unhealthy else ""),
+              file=sys.stderr)
     errs = result.errors()
     if errs:
         for node, err in errs.items():
@@ -395,24 +482,19 @@ def parse_targets(spec: str) -> dict[str, str]:
     return targets
 
 
-def _debug_targets(args) -> dict[str, str] | None:
-    """--remote targets filtered by --node when set; None without
-    --remote (the local fleet's state file is ROADMAP item 18b). Raises
-    ParamError on malformed --remote or unknown --node."""
-    if not args.remote:
-        return None
-    targets = parse_targets(args.remote)
+def _debug_targets(args) -> dict[str, str]:
+    """--remote targets, else the local fleet, filtered by --node when
+    set; may be empty (caller decides whether local-process data
+    suffices). Raises ParamError on malformed --remote or unknown
+    --node."""
+    from .deploy import local_targets
+    targets = parse_targets(args.remote) if args.remote else local_targets()
     node = getattr(args, "node", "")
     if node:
         targets = {n: t for n, t in targets.items() if n == node}
         if not targets:
             raise ParamError(f"unknown node {node!r}")
     return targets
-
-
-def _local_fleet(verb: str) -> int:
-    return unported(f"'debug {verb}' without --remote (the local fleet)",
-                    REMOTE_ITEM)
 
 
 def cmd_debug(args) -> int:
@@ -424,8 +506,9 @@ def cmd_debug(args) -> int:
     except ParamError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    if targets is None:
-        return _local_fleet("state")
+    if not targets:
+        print("no agents (use deploy --local N or --remote)", file=sys.stderr)
+        return 2
     rc = 0
     for node, target in targets.items():
         client = AgentClient(target)
@@ -489,8 +572,6 @@ def cmd_debug_trace_export(args) -> int:
     except ParamError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    if targets is None:
-        return _local_fleet("trace export")
     spans = TRACER.export()
     rc = 0
     for node, target in targets.items():
@@ -518,6 +599,128 @@ def cmd_debug_trace_export(args) -> int:
             f.write(payload)
         n_spans = sum(1 for e in doc["traceEvents"] if e.get("ph") == "X")
         print(f"wrote {n_spans} spans to {args.out}")
+    return rc
+
+
+def cmd_deploy(args) -> int:
+    from .deploy import AGENT_IMAGE, deploy_local, render_manifests
+    if args.render:
+        print(render_manifests(image=args.image or AGENT_IMAGE))
+        return 0
+    if args.apply:
+        # ref: deploy.go:100-546 — apply + wait for DaemonSet rollout
+        from .apply import KubectlApplier
+        from .apply import deploy as apply_deploy
+        try:
+            desired, ready = apply_deploy(
+                KubectlApplier(context=args.context),
+                render_manifests(image=args.image or AGENT_IMAGE),
+                rollout_timeout=args.rollout_timeout)
+        except (RuntimeError, TimeoutError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        print(f"deployed: {ready}/{desired} agents ready")
+        return 0
+    if args.local > 0:
+        try:
+            targets = deploy_local(args.local, device=args.device)
+        except RuntimeError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        spec = ",".join(f"{k}={v}" for k, v in targets.items())
+        print(f"started {args.local} agents; use: --remote {spec}")
+        return 0
+    print("use --render or --local N", file=sys.stderr)
+    return 2
+
+
+def cmd_undeploy(args) -> int:
+    from .deploy import render_undeploy, undeploy_local
+    if args.render:
+        print(render_undeploy())
+        return 0
+    if args.apply:
+        from .apply import KubectlApplier
+        from .apply import undeploy as apply_undeploy
+        from .deploy import render_manifests
+        try:
+            removed = apply_undeploy(KubectlApplier(context=args.context),
+                                     render_manifests())
+        except RuntimeError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        print("removed: " + ", ".join(f"{k}/{n}" for k, n in removed))
+        return 0
+    stopped = undeploy_local()
+    print(f"stopped {len(stopped)} agents" + (f": {', '.join(stopped)}"
+                                              if stopped else ""))
+    return 0
+
+
+def cmd_traces(args) -> int:
+    """Serve the §3.5 call stack from the client side: build a CR-shaped
+    Trace doc, apply it with the operation annotation to every agent (one
+    Trace per node, as utils/trace.go:340 creates), surface status/output."""
+    from ..agent.client import AgentClient
+    from ..gadgets.trace_resource import OPERATION_ANNOTATION
+    from .deploy import local_targets
+    try:
+        targets = parse_targets(args.remote) if args.remote else local_targets()
+    except ParamError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if not targets:
+        print("no agents (use deploy --local N or --remote)", file=sys.stderr)
+        return 2
+    params = {}
+    if args.verb == "start":
+        for kv in args.param:
+            if "=" not in kv:
+                print(f"error: bad -p {kv!r}: expected k=v", file=sys.stderr)
+                return 2
+            k, v = kv.split("=", 1)
+            params[k] = v
+    rc = 0
+    for node, target in targets.items():
+        client = AgentClient(target, node_name=node)
+        try:
+            if args.verb == "list":
+                for doc in client.list_traces():
+                    st = doc.get("status", {})
+                    print(f"{node:12s} {doc['metadata']['name']:20s} "
+                          f"{doc['spec'].get('gadget', ''):24s} "
+                          f"{st.get('state', '')}"
+                          + (f"  error: {st['operationError']}"
+                             if st.get("operationError") else ""))
+                continue
+            if args.verb == "delete":
+                print(f"{node}: deleted={client.delete_trace(args.name)}")
+                continue
+            if args.verb == "get":
+                doc = client.get_trace(args.name)
+            else:  # start/stop/generate ride the operation annotation
+                doc = {
+                    "metadata": {"name": args.name,
+                                 "annotations": {OPERATION_ANNOTATION: args.verb}},
+                    "spec": ({"gadget": args.gadget, "node": args.node,
+                              "parameters": params}
+                             if args.verb == "start" else {}),
+                }
+                doc = client.apply_trace(doc)
+            st = doc.get("status", {})
+            if st.get("operationError"):
+                print(f"{node}: error: {st['operationError']}", file=sys.stderr)
+                rc = 1
+            elif args.verb in ("generate", "get") and st.get("output"):
+                print(f"=== {node} ===")
+                print(st["output"], end="" if st["output"].endswith("\n") else "\n")
+            else:
+                print(f"{node}: {doc['metadata']['name']} {st.get('state', '')}")
+        except Exception as e:  # noqa: BLE001 — per-node isolation
+            print(f"{node}: error: {e}", file=sys.stderr)
+            rc = 1
+        finally:
+            client.close()
     return rc
 
 

@@ -7,13 +7,15 @@ range — whole-traffic or one subpopulation slice (`--key mntns:<ns>`,
 `--key kind:<syscall>`, `--key 'mntns:<ns>|kind:<k>'`) — merged
 client-side from whichever nodes' sealed windows overlap the range.
 
+    ig-tpu-torch query --remote n0=...,n1=... --last 1h --key mntns:4026531840
     ig-tpu-torch query --history ./bundle-history --start-ts 1718000000 \
         --end-ts 1718003600 --slices
     ig-tpu-torch query --gadget trace/exec --last 1h --key mntns:4026531840
 
 The port's copy of ``inspektor_gadget_tpu/cli/query.py``: the local
-store's path. ``--remote`` (the agents' fan-out) and ``--topology`` (the
-fleet aggregation tier) exit 2 naming their ROADMAP items. One flag more,
+store, or with ``--remote`` the agents' (`GrpcRuntime.query_history`).
+``--topology`` (the fleet aggregation tier) exits 2 naming its ROADMAP
+item, 11. One flag more,
 ``--archive-dir``: the archive root whose manifest rows a local query
 rehydrates (the reference's agents hold it from ``--history-archive-dir``).
 """
@@ -25,7 +27,7 @@ import sys
 import time
 
 from ..params.validators import parse_duration
-from . import REMOTE_ITEM, unported
+from . import unported
 
 
 def add_query_parser(sub) -> None:
@@ -34,15 +36,15 @@ def add_query_parser(sub) -> None:
         "windows: cardinality / heavy hitters / entropy for a (key, "
         "time-range) slice, merged across nodes")
     qp.add_argument("--remote", default="",
-                    help="fan out to agents: name=target[,...] (not ported "
-                         f"yet: ROADMAP item {REMOTE_ITEM}); default: the "
-                         "local history store")
+                    help="fan out to agents: name=target[,...]; default: "
+                         "the local history store")
     qp.add_argument("--history", default="",
                     help="local history directory to query (default: the "
                          "node area, $IG_HISTORY_DIR)")
     qp.add_argument("--archive-dir", default="",
                     help="archive root (filesystem backend) to rehydrate "
-                         "offloaded segments from")
+                         "offloaded segments from (local store only: agents "
+                         "take theirs from --history-archive-dir)")
     qp.add_argument("--gadget", default="",
                     help="restrict to one gadget's windows, e.g. trace/exec")
     qp.add_argument("--start-ts", type=float, default=None,
@@ -78,9 +80,10 @@ def add_query_parser(sub) -> None:
 
 
 def cmd_query(args) -> int:
-    if args.remote:
-        return unported("--remote (the agents' range-query fan-out)", REMOTE_ITEM)
-    if args.topology:
+    from ..params import ParamError
+    # getattr: programmatic callers hand in plain namespaces that
+    # predate the fleet tier; only the parser guarantees the attribute
+    if getattr(args, "topology", ""):
         return unported("--topology (the fleet aggregation tier)", "11")
     start_ts, end_ts = args.start_ts, args.end_ts
     if args.last:
@@ -92,17 +95,32 @@ def cmd_query(args) -> int:
     ranges = dict(gadget=args.gadget, start_ts=start_ts, end_ts=end_ts,
                   start_seq=args.start_seq, end_seq=args.end_seq)
     key = args.key or None
-    from ..history import HISTORY, answer_query, decode_frames
-    if args.archive_dir:
-        HISTORY.set_archive(args.archive_dir, base_dir=args.history or None)
-    losses: list = []
-    frames = list(HISTORY.fetch_windows(
-        base_dir=args.history or None, losses=losses, key=key, **ranges))
-    dropped = [f"local: torn window tail ({loss.get('reason', '?')}, "
-               f"{loss.get('dropped_bytes', 0)} bytes)"
-               for loss in losses]
-    answer = answer_query(decode_frames(frames), key=key, top=args.top,
-                          dropped=dropped, paths={"local": "local"})
+
+    if args.remote:
+        from ..runtime.grpc_runtime import GrpcRuntime
+        from .main import parse_targets
+        try:
+            targets = parse_targets(args.remote)
+        except ParamError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        runtime = GrpcRuntime(targets)
+        try:
+            answer = runtime.query_history(key=key, top=args.top, **ranges)
+        finally:
+            runtime.close()
+    else:
+        from ..history import HISTORY, answer_query, decode_frames
+        if getattr(args, "archive_dir", ""):
+            HISTORY.set_archive(args.archive_dir, base_dir=args.history or None)
+        losses: list = []
+        frames = list(HISTORY.fetch_windows(
+            base_dir=args.history or None, losses=losses, key=key, **ranges))
+        dropped = [f"local: torn window tail ({loss.get('reason', '?')}, "
+                   f"{loss.get('dropped_bytes', 0)} bytes)"
+                   for loss in losses]
+        answer = answer_query(decode_frames(frames), key=key, top=args.top,
+                              dropped=dropped, paths={"local": "local"})
 
     if args.output == "json":
         print(json.dumps(answer.to_dict(), indent=2, default=str))

@@ -15,11 +15,8 @@ replay <path>   re-drive a journal (or every journal of a recording /
                 clock; --verify exits 1 unless the replayed summary
                 digests and alert transitions reproduce the recording
 
-The port's copy of ``inspektor_gadget_tpu/cli/record.py``: the verbs run
-on this process's RecordingManager and on paths, and `replay` takes
-``--device {cuda,cpu}`` (default ``cuda``, no fallback). `record fetch`,
-`record stop --fetch` and every ``--remote`` route go through the
-fan-out and exit 2 naming its ROADMAP item (18b).
+The port's copy of ``inspektor_gadget_tpu/cli/record.py``; `replay` takes
+``--device {cuda,cpu}`` (default ``cuda``, no fallback).
 """
 
 from __future__ import annotations
@@ -27,8 +24,6 @@ from __future__ import annotations
 import json
 import os
 import sys
-
-from . import REMOTE_ITEM, unported
 
 
 def add_record_parser(sub) -> None:
@@ -39,10 +34,11 @@ def add_record_parser(sub) -> None:
 
     def _remote_arg(p):
         p.add_argument("--remote", default="",
-                       help="name=target[,...] (not ported yet: ROADMAP "
-                            f"item {REMOTE_ITEM}); this process when unset")
+                       help="name=target[,...]; defaults to the local "
+                            "fleet, else this process")
 
-    sp = rsub.add_parser("start", help="arm a recording in this process")
+    sp = rsub.add_parser("start", help="arm a recording (agents via RPC, "
+                         "or this process when no agents)")
     sp.add_argument("--id", required=True, help="recording id")
     _remote_arg(sp)
     sp.add_argument("--max-segment-bytes", type=int, default=None)
@@ -56,7 +52,7 @@ def add_record_parser(sub) -> None:
     _remote_arg(tp)
     tp.add_argument("--fetch", default="",
                     help="also pull every node's journals into this "
-                         f"bundle directory (not ported yet: ROADMAP item {REMOTE_ITEM})")
+                         "bundle directory")
     tp.set_defaults(func=cmd_record_stop)
 
     lp = rsub.add_parser("list", help="recordings per node")
@@ -101,11 +97,10 @@ def add_replay_parser(sub) -> None:
     pp.set_defaults(func=cmd_replay)
 
 
-def _remote(args) -> int | None:
-    """Exit 2 naming the agent's ROADMAP item when `--remote` is set."""
-    if getattr(args, "remote", ""):
-        return unported("--remote (the agents' recording RPCs)", REMOTE_ITEM)
-    return None
+def _targets(args) -> dict[str, str]:
+    from .deploy import local_targets
+    from .main import parse_targets
+    return parse_targets(args.remote) if args.remote else local_targets()
 
 
 def _start_opts(args) -> dict:
@@ -121,46 +116,107 @@ def _start_opts(args) -> dict:
 
 
 def cmd_record_start(args) -> int:
-    rc = _remote(args)
-    if rc is not None:
-        return rc
-    # this process's own manager (local gadget runs)
-    from ..capture import RECORDINGS
+    from ..params import ParamError
     try:
-        rec = RECORDINGS.start(args.id, **_start_opts(args))
-    except (ValueError, OSError) as e:
+        targets = _targets(args)
+    except ParamError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    print(f"recording {rec.id} started (local) -> {rec.path}")
-    return 0
+    if not targets:
+        # no agents: arm this process's own manager (local gadget runs)
+        from ..capture import RECORDINGS
+        try:
+            rec = RECORDINGS.start(args.id, **_start_opts(args))
+        except (ValueError, OSError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        print(f"recording {rec.id} started (local) -> {rec.path}")
+        return 0
+    from ..runtime.grpc_runtime import GrpcRuntime
+    runtime = GrpcRuntime(targets)
+    try:
+        results, errors = runtime.start_recording(args.id,
+                                                  opts=_start_opts(args))
+    finally:
+        runtime.close()
+    for node, res in results.items():
+        print(f"{node}: recording {args.id} started -> {res.get('dir', '')}")
+    for node, err in errors.items():
+        print(f"{node}: error: {err}", file=sys.stderr)
+    return 1 if errors else 0
 
 
 def cmd_record_stop(args) -> int:
-    rc = _remote(args)
-    if rc is not None:
-        return rc
-    if args.fetch:
-        return unported("record stop --fetch (the agents' fetch fan-out)", REMOTE_ITEM)
-    from ..capture import RECORDINGS
+    from ..params import ParamError
     try:
-        meta = RECORDINGS.stop(args.id)
-    except KeyError as e:
+        targets = _targets(args)
+    except ParamError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    print(f"recording {args.id} stopped: "
-          f"{len(meta.get('journals', []))} journal(s)")
-    return 0
+    if not targets:
+        from ..capture import RECORDINGS
+        try:
+            meta = RECORDINGS.stop(args.id)
+        except KeyError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        print(f"recording {args.id} stopped: "
+              f"{len(meta.get('journals', []))} journal(s)")
+        return 0
+    from ..runtime.grpc_runtime import GrpcRuntime
+    runtime = GrpcRuntime(targets)
+    try:
+        results, errors = runtime.stop_recording(args.id)
+        for node, res in results.items():
+            js = (res.get("recording") or {}).get("journals", [])
+            print(f"{node}: recording {args.id} stopped "
+                  f"({len(js)} journal(s))")
+        for node, err in errors.items():
+            print(f"{node}: error: {err}", file=sys.stderr)
+        if args.fetch:
+            bundle = runtime.fetch_recording(args.id, args.fetch)
+            _print_bundle(bundle, args.fetch)
+            errors.update(bundle.get("errors") or {})
+    finally:
+        runtime.close()
+    return 1 if errors else 0
+
+
+def _print_bundle(bundle: dict, dest: str) -> None:
+    for node, st in (bundle.get("nodes") or {}).items():
+        print(f"{node}: fetched {st['files']} file(s), {st['bytes']:,} bytes")
+    for node, err in (bundle.get("errors") or {}).items():
+        print(f"{node}: fetch error: {err}", file=sys.stderr)
+    print(f"bundle -> {dest}")
 
 
 def cmd_record_list(args) -> int:
-    rc = _remote(args)
-    if rc is not None:
-        return rc
-    from ..capture import RECORDINGS
-    tables = {"local": RECORDINGS.list()}
+    from ..params import ParamError
+    try:
+        targets = _targets(args)
+    except ParamError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    tables: dict[str, list[dict]] = {}
+    rc = 0
+    if not targets:
+        from ..capture import RECORDINGS
+        tables["local"] = RECORDINGS.list()
+    else:
+        from ..runtime.grpc_runtime import GrpcRuntime
+        runtime = GrpcRuntime(targets)
+        try:
+            results, errors = runtime.list_recordings()
+        finally:
+            runtime.close()
+        for node, res in results.items():
+            tables[node] = res.get("recordings") or []
+        for node, err in errors.items():
+            print(f"{node}: error: {err}", file=sys.stderr)
+            rc = 1
     if args.output == "json":
         print(json.dumps(tables, indent=2, default=str))
-        return 0
+        return rc
     printed = False
     for node, recs in tables.items():
         for r in recs:
@@ -171,13 +227,10 @@ def cmd_record_list(args) -> int:
                   f"{r.get('state', ''):<10s} {r.get('path', '')}")
     if not printed:
         print("no recordings")
-    return 0
+    return rc
 
 
 def cmd_record_inspect(args) -> int:
-    rc = _remote(args)
-    if rc is not None:
-        return rc
     from ..capture import JournalReader, RECORDINGS, is_journal, iter_journals
     target = args.target
     if os.path.isdir(target):
@@ -192,19 +245,53 @@ def cmd_record_inspect(args) -> int:
         print(json.dumps({"path": target, "journals": journals}, indent=2,
                          default=str))
         return 0
-    # a recording id of this process's manager
+    # a recording id: local manager first, then agents
     try:
         print(json.dumps(RECORDINGS.inspect(target), indent=2, default=str))
         return 0
     except (FileNotFoundError, ValueError):
         pass
-    print(f"error: no recording {target!r} locally (agents: ROADMAP item "
-          f"{REMOTE_ITEM})", file=sys.stderr)
-    return 2
+    from ..params import ParamError
+    try:
+        targets = _targets(args)
+    except ParamError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if not targets:
+        print(f"error: no recording {target!r} locally and no agents",
+              file=sys.stderr)
+        return 2
+    from ..runtime.grpc_runtime import GrpcRuntime
+    runtime = GrpcRuntime(targets)
+    try:
+        results, errors = runtime.list_recordings(target)
+    finally:
+        runtime.close()
+    out = {node: res for node, res in results.items()}
+    for node, err in errors.items():
+        out[node] = {"error": err}
+    print(json.dumps(out, indent=2, default=str))
+    return 1 if errors else 0
 
 
 def cmd_record_fetch(args) -> int:
-    return unported("'record fetch' (the agents' fetch fan-out)", REMOTE_ITEM)
+    from ..params import ParamError
+    try:
+        targets = _targets(args)
+    except ParamError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if not targets:
+        print("no agents (use deploy --local N or --remote)", file=sys.stderr)
+        return 2
+    from ..runtime.grpc_runtime import GrpcRuntime
+    runtime = GrpcRuntime(targets)
+    try:
+        bundle = runtime.fetch_recording(args.id, args.dest)
+    finally:
+        runtime.close()
+    _print_bundle(bundle, args.dest)
+    return 1 if bundle.get("errors") else 0
 
 
 def cmd_replay(args) -> int:

@@ -1,27 +1,25 @@
 """`ig-tpu watch` — live standing-query answers.
 
 `query` asks once; `watch` rides a registered standing query: the node
-folds each sealed window into the materialized answer at seal time, so
-this verb renders refreshes as they land — no per-refresh range
-recompute anywhere.
+folds each sealed window into the materialized answer at seal time and
+publishes it on the summary tier, so this verb renders refreshes as
+they land — no per-refresh range recompute anywhere.
 
+    ig-tpu-torch watch --remote n0=...,n1=... --id hot-tenants
+    ig-tpu-torch watch --remote ... --id hot-tenants --json --iterations 10
+    ig-tpu-torch watch --list --remote ...        # accounting rows per node
     ig-tpu-torch watch --local --id hot-tenants   # in-process engine read
-    ig-tpu-torch watch --list                     # accounting rows
 
-The port's copy of ``inspektor_gadget_tpu/cli/watch.py``: the
-in-process engines' path (``--local``, ``--list``) and the agents'
-accounting rows (``--list --remote``, their DumpState). Subscribing to
-agents (``--id`` with ``--remote``, or without ``--local``) goes through
-the fan-out and exits 2 naming ROADMAP item 18b.
+The port's copy of ``inspektor_gadget_tpu/cli/watch.py``.
 """
 
 from __future__ import annotations
 
 import json
 import sys
+import threading
 import time
 
-from . import REMOTE_ITEM, unported
 from .query import _print_answer
 
 
@@ -33,9 +31,8 @@ def add_watch_parser(sub) -> None:
                     help="standing query id to watch (as registered via "
                          "the 'standing-queries' param)")
     wp.add_argument("--remote", default="",
-                    help="fan out to agents: name=target[,...] (--list "
-                         "reads their rows; watching one query is not ported "
-                         f"yet: ROADMAP item {REMOTE_ITEM})")
+                    help="fan out to agents: name=target[,...]; defaults "
+                         "to the local fleet")
     wp.add_argument("--local", action="store_true",
                     help="read the in-process live engine instead of "
                          "subscribing to agents (embedded runs)")
@@ -43,6 +40,9 @@ def add_watch_parser(sub) -> None:
                     help="one accounting row per live standing query "
                          "(coverage, refreshes, cache hit/miss) instead "
                          "of watching one")
+    wp.add_argument("--gadget", default="",
+                    help="restrict to one gadget's shared run "
+                         "(category/name)")
     wp.add_argument("--run", default="",
                     help="attach to one specific run id")
     wp.add_argument("--json", action="store_true",
@@ -79,6 +79,37 @@ def _render_refresh(answer, meta: dict, *, args, n: int) -> None:
     _print_answer(answer, key=None, show_slices=False, top=args.top,
                   quantiles=args.quantiles)
     print(flush=True)
+
+
+def _watch_remote(args, targets: dict) -> int:
+    from ..runtime.grpc_runtime import GrpcRuntime
+    stop = threading.Event()
+    count = [0]
+
+    def on_answer(answer, meta):
+        count[0] += 1
+        _render_refresh(answer, meta, args=args, n=count[0])
+        if args.iterations and count[0] >= args.iterations:
+            stop.set()
+
+    if args.duration:
+        timer = threading.Timer(args.duration, stop.set)
+        timer.daemon = True
+        timer.start()
+    runtime = GrpcRuntime(targets)
+    try:
+        results = runtime.subscribe_query(
+            query_id=args.id, gadget=args.gadget, run_id=args.run,
+            on_answer=on_answer, stop_event=stop)
+    finally:
+        runtime.close()
+    errs = {n: r["error"] for n, r in sorted(results.items())
+            if r.get("error")}
+    for node, err in errs.items():
+        print(f"{node}: error: {err}", file=sys.stderr)
+    if count[0] == 0 and errs:
+        return 1
+    return 0
 
 
 def _watch_local(args) -> int:
@@ -181,13 +212,16 @@ def cmd_watch(args) -> int:
             return 2
     if args.list_queries:
         return _list_queries(args, targets)
-    if targets is not None:
-        return unported("--remote (the agents' standing-query subscriptions)",
-                        REMOTE_ITEM)
     if not args.id:
         print("error: --id is required (or use --list)", file=sys.stderr)
         return 2
-    if not args.local:
-        return unported("watching the local fleet's agents (use --local for "
-                        "in-process engines)", REMOTE_ITEM)
-    return _watch_local(args)
+    if args.local:
+        return _watch_local(args)
+    if targets is None:
+        from .deploy import local_targets
+        targets = local_targets()
+    if not targets:
+        print("no agents (use deploy --local N, --remote, or --local "
+              "for in-process engines)", file=sys.stderr)
+        return 2
+    return _watch_remote(args, targets)

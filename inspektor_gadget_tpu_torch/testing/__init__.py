@@ -7,12 +7,11 @@ steps — subprocess commands, workload generators, cleanup steps — run in
 order with start-and-stop semantics, guaranteed cleanup, and declarative
 output matching against normalized JSON events.
 
-The port's copy of ``inspektor_gadget_tpu/testing/__init__.py``, without
-the chaos tools (`AgentProcess`, `ChaosProxy`, `SkewClock`): they drive
-the agent, which ROADMAP item 18b ports; asking for one raises
-ImportError naming it.
+The port's copy of ``inspektor_gadget_tpu/testing/__init__.py``, its chaos
+tools (`AgentProcess`, `ChaosProxy`, `SkewClock`) included.
 """
 
+from .chaos import AgentProcess, ChaosProxy, SkewClock
 from .match import (
     build_common_data,
     expect_all_entries_to_match,
@@ -23,17 +22,10 @@ from .match import (
 )
 from .steps import Command, FuncStep, TestStep, run_test_steps
 
-_CHAOS = ("AgentProcess", "ChaosProxy", "SkewClock")
-
-
-def __getattr__(name: str):
-    if name in _CHAOS:
-        raise ImportError(f"{name} (testing.chaos) is not ported to ig-tpu-torch yet "
-                          "(ROADMAP item 18b)")
-    raise AttributeError(name)
-
-
 __all__ = [
+    "AgentProcess",
+    "ChaosProxy",
+    "SkewClock",
     "Command",
     "FuncStep",
     "TestStep",

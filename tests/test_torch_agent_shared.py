@@ -1,7 +1,8 @@
 """Shared runs on the port's agent: one gadget run, many subscribers, on
 one agent on the CPU — the eight cases of ``tests/test_shared_runs_e2e.py``
-with the fleet taken out (its fan-out runtime, chaos proxy and `fleet
-runs` CLI are ROADMAP items 18b and 11): the owner is an AgentClient
+with the fleet taken out (the fleet half, with the port's fan-out
+runtime and chaos proxy, is ``tests/test_torch_shared_fleet.py``; the
+`fleet runs` CLI is ROADMAP item 11): the owner is an AgentClient
 run request with ``share=True``, the other subscribers attach to it.
 
 - K subscribers ride ONE gadget (run registry and active-runs gauge

@@ -213,7 +213,13 @@ def test_port_imports_no_jax():
             "inspektor_gadget_tpu_torch.capture.replay",
             "inspektor_gadget_tpu_torch.gadgets.top.recordings",
             "inspektor_gadget_tpu_torch.gadgets.top.alerts",
-            "inspektor_gadget_tpu_torch.cli.record", "inspektor_gadget_tpu_torch.cli.alerts"} \
+            "inspektor_gadget_tpu_torch.cli.record", "inspektor_gadget_tpu_torch.cli.alerts",
+            "inspektor_gadget_tpu_torch.runtime.grpc_runtime",
+            "inspektor_gadget_tpu_torch.runtime.supervisor",
+            "inspektor_gadget_tpu_torch.fleet", "inspektor_gadget_tpu_torch.fleet.aggregator",
+            "inspektor_gadget_tpu_torch.agent.dialer", "inspektor_gadget_tpu_torch.cli.deploy",
+            "inspektor_gadget_tpu_torch.cli.apply",
+            "inspektor_gadget_tpu_torch.testing.chaos"} \
         <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

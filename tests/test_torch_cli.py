@@ -90,12 +90,6 @@ def test_sketch_plane_on_the_cpu_prints_epochs():
     assert '"pid"' not in r.stdout  # -F uid:99 matches no row
 
 
-def test_remote_exits_2_naming_its_item():
-    r = run(PORT, "trace", "exec", "--remote", "n0=unix:///nonexistent.sock", "--timeout", "1")
-    assert r.returncode == 2
-    assert f"ROADMAP item {cli.REMOTE_ITEM}" in r.stderr
-
-
 def test_cuda_without_a_card_exits_1():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -105,25 +99,10 @@ def test_cuda_without_a_card_exits_1():
     assert "torch.cuda.is_available() is false; pass device='cpu'" in r.stderr
 
 
-# the routes that go through the fan-out (ROADMAP item 18b): the agent's
-# gRPC runtime (--remote runs, queries, watches and recordings, record
-# fetch) and the local fleet (debug without --remote). `history tiers
-# --remote`, `alerts list --remote`, `agent` and `debug --remote` run
-# (tests/test_torch_agent_cli.py).
-REMOTE_ROUTES = {"query": ["query", "--remote", "n0=unix:///x.sock"],
-                 "watch": ["watch", "--id", "q", "--remote", "n0=unix:///x.sock"],
-                 "record-list": ["record", "list", "--remote", "n0=unix:///x.sock"],
-                 "record-fetch": ["record", "fetch", "--id", "x", "--dest", "d"],
-                 "debug-local": ["debug", "state"]}
-
-
-@pytest.mark.parametrize("command", sorted({*cli.UNPORTED_COMMANDS, *REMOTE_ROUTES}))
+# the reference's commands whose modules the port lacks; the routes of the
+# fan-out run in tests/test_torch_cli_routes.py
+@pytest.mark.parametrize("command", sorted(cli.UNPORTED_COMMANDS))
 def test_unported_commands_exit_2_naming_their_item(command, capsys):
-    if command in REMOTE_ROUTES:
-        assert cli.main(REMOTE_ROUTES[command]) == 2
-        assert cli.REMOTE_ITEM == "18b"
-        assert f"(ROADMAP item {cli.REMOTE_ITEM})" in capsys.readouterr().err
-        return
     assert cli.main([command, "--help"]) == 2
     err = capsys.readouterr().err
     assert f"'{command}' is not ported" in err

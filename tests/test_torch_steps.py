@@ -58,10 +58,11 @@ def test_ig_cli_names_the_port():
 
 
 @pytest.mark.parametrize("name", ["AgentProcess", "ChaosProxy", "SkewClock"])
-def test_chaos_tools_raise_naming_18b(name):
+def test_chaos_tools_are_exported(name):
     import inspektor_gadget_tpu_torch.testing as steps_pkg
-    with pytest.raises(ImportError, match=r"ROADMAP item 18b"):
-        getattr(steps_pkg, name)
+    from inspektor_gadget_tpu_torch.testing import chaos
+    assert getattr(steps_pkg, name) is getattr(chaos, name)
+    assert name in steps_pkg.__all__
 
 
 def test_trace_exec_steps():
