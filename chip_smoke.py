@@ -61,10 +61,11 @@ events/s, drops and harvest times are logged beside phase 5c's.
 
 The history route (phase 5e(b)): 5d(b)'s CLI run again with
 ``--tpusketch-history true`` (a window a second into a store under
-build/) and phase 5c's standing queries, then ``query``, ``history
-tiers``, ``history compact``, ``query``, ``history archive`` and ``query
---archive-dir`` as subprocesses on its store (the first two at once,
-since they only read it), each exiting 0: the first
+build/) and phase 5c's standing queries, then ``query`` and ``history
+tiers`` as two subprocesses at once (they only read the store), and
+``history compact``, ``query``, ``history archive`` and ``query
+--archive-dir`` in turn in one more (one import of torch for the four,
+since phase 5l came), each exiting 0: the first
 answer's events must equal the listed windows' sum and the run's last
 summary; the compacted and the rehydrated answers must equal the first
 in events, distinct, entropy and heavy hitters. Each subprocess's wall
@@ -123,7 +124,8 @@ procfs scan time) are logged after the build.
 
 The trace gadget family (phase 5h): (a) ``trace open``, ``trace tcp``
 and ``trace dns`` (the gadgets of the three synthetic kinds) as 5d(a)
-runs trace/exec, 16 batches of 2**17 on the card and on the CPU: equal
+runs trace/exec, 8 batches of 2**17 (16 until phase 5l came) on the card
+and on the CPU: equal
 summaries, K2 once a batch, each one's events/s beside 5d(a)'s; then
 the other nine trace gadgets, 2 batches of 8192 with the sketch off,
 every row decoded from the synthetic branch (no row of a real event
@@ -204,6 +206,34 @@ a subprocess: exit 0, rows from both nodes, no PARTIAL label. The row
 route sends one gRPC message an event, so its batch is cut to 4096 (a
 2**17 batch frame passes gRPC's 4 MiB cap); the sketch stays at full
 width. `undeploy_local` stops both agents, exit 0 within 30 s each.
+
+Sharded ingest, the collective merge and the fleet tier (phase 5l,
+ROADMAP 11): (a) 24 seeded zipf batches of 2**17 (heavy hitters of 100
+keys, under top-k's 128, where the streaming candidates are exact on
+every path) at the production geometry, pre-staged on the card, dealt
+round-robin over 1, 2 and 4 lanes on ["cuda:0"] * n (lanes sharing one
+card: a check of the lane algebra, not a deployment), harvested after
+batch 13 (mid-round at 2 and 4 lanes: the open round flushed with
+zero-weight fillers) and at the end: every merged leaf and the digest's
+bytes equal the single-lane `bundle_ingest_step` fold on the card and on
+the CPU, K2 once a lane a round; the device-only events/s of 4-lane
+rounds against 1-lane ones and the harvest merge's ms are logged. (b)
+The operator: unpatched, on a one-card host ``shard-ingest true``
+raises the one-device ParamError (and ``chips 2`` its "exceeds the 1
+local device(s)" one); with `_lane_devices` patched to [cuda:0, cuda:0],
+5d(a)'s `LocalRuntime` run (vocabulary 100) for 16 batches with
+``--tpusketch-shard-ingest true --tpusketch-chips 2`` and a harvest
+after batch 7 gives the summaries of the unsharded run of the same
+stream (estimates bit for bit, ae within 5%), K2 once a lane a round.
+(c) A one-rank NCCL group on tcp://127.0.0.1:<free port>, in a process
+of its own run beside (b): `make_fleet_merge` over two lane rows (SUM on
+int32, int64 and float32, MAX on the HLL registers, all_gather of the
+top-k candidates) gives `cluster_merge`'s `bundle_digest`; two ranks
+cannot share one card under NCCL, so the two-rank merge is a gloo test
+on the CPU. (d) In 5k(b), beside its CLI run and at the same time:
+``fleet health --remote``, ``query --remote`` and ``query --remote
+--topology auto:2`` over the windows the warm-up runs sealed, each exit
+0, the topology answer the flat one's.
 
 The launch counts are set to 0 just before each card run of a path and
 read just after it.
@@ -895,9 +925,11 @@ runpy.run_module("inspektor_gadget_tpu_torch.cli.main", run_name="__main__", alt
 # runs one ig-tpu-torch subcommand as `python -m` does (runpy, as
 # __main__), with torch's import and the history functions the command
 # calls timed; an exit hook writes the seconds to the path given as the
-# first argument
-HISTORY_DRIVER = """\
-import atexit, json, runpy, sys, time
+# first argument. With ``--steps <json list of argv lists>`` it runs those
+# subcommands in turn in this one process (`cli.main.main`), each one's
+# output, exit code and times kept apart in the dump
+HISTORY_SCRIPT = """\
+import atexit, contextlib, io, json, runpy, sys, time
 t0 = time.perf_counter()
 dump = sys.argv.pop(1)
 import torch  # noqa: F401 -- every command of the CLI imports it first
@@ -919,6 +951,21 @@ for owner, name in ((H, "decode_frames"), (H, "answer_query"), (H.HISTORY, "stat
                     (H.ArchiveTier, "archive_store")):
     timed(owner, name)
 t_cli = time.perf_counter()
+if sys.argv[1:2] == ["--steps"]:
+    from inspektor_gadget_tpu_torch.cli.main import main
+    head, done = {**spent, "cli_import_s": time.perf_counter() - t_cli}, []
+    for argv in json.loads(sys.argv[2]):
+        spent.clear()
+        out, t = io.StringIO(), time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = main(argv)
+        done.append({"rc": rc, "stdout": out.getvalue(), "cli_s": time.perf_counter() - t,
+                     **spent})
+        if rc:
+            break
+    with open(dump, "w") as f:
+        json.dump({**head, "steps": done}, f)
+    sys.exit(done[-1]["rc"] if done else 0)
 def _dump():
     spent["cli_s"] = time.perf_counter() - t_cli
     with open(dump, "w") as f:
@@ -940,10 +987,10 @@ def gadget_run(device: str, batches: int, batch: int, *, ops: dict | None = None
                seed: str = "7", source: str = "pysynthetic", rate: str = "1e9",
                sketch: bool = True, rows: list | None = None,
                keep_stream: bool = False, gadget: str = "exec",
-               category: str = "trace") -> dict:
+               category: str = "trace", vocab: str = "2000") -> dict:
     """``<category>/<gadget>`` (trace/exec by default) through the port's
     `LocalRuntime`: the `source`
-    (pysynthetic by default: `seed` 7, vocab 2000, zipf 1.2, batches of
+    (pysynthetic by default: `seed` 7, `vocab` 2000, zipf 1.2, batches of
     `batch` paced at `rate` events/s), the sketch plane with GADGET_SKETCH
     and a harvest interval of 1h (so the only harvest is post_gadget_run's,
     unless the batch callback harvests every `harvest_every` batches, or
@@ -967,7 +1014,7 @@ def gadget_run(device: str, batches: int, batch: int, *, ops: dict | None = None
     from inspektor_gadget_tpu_torch.telemetry import snapshot
     desc = get(category, gadget)
     gp = desc.params().to_params()
-    for k, v in {"source": source, "seed": seed, "vocab": "2000", "zipf": "1.2",
+    for k, v in {"source": source, "seed": seed, "vocab": vocab, "zipf": "1.2",
                  "batch-size": str(batch), "rate": rate}.items():
         gp.set(k, v)
     ops = dict(ops or {})
@@ -1089,11 +1136,12 @@ def cli_run(device: str, batch: int, seconds: int, dump: Path, sketch: dict,
 def history_route(device: str, batch: int, seconds: int, sketch: dict, root: Path,
                   no_history_ev_per_s: float) -> dict:
     """Phase 5e(b): `cli_run` with the history plane on (a window a
-    second into a store under `root`, STANDING_QUERIES), then, each a
-    subprocess through `history_cli` on that store: ``query``, ``history
-    tiers``, ``history compact`` (HIST_SCHEDULE, so every window ages
-    and merges), the query again, ``history archive`` at the final
-    level, the query a third time rehydrating from the archive. Holds
+    second into a store under `root`, STANDING_QUERIES), then on that
+    store ``query`` and ``history tiers`` (two subprocesses at once), and
+    in one more subprocess (`history_steps`), in turn: ``history
+    compact`` (HIST_SCHEDULE, so every window ages and merges), the query
+    again, ``history archive`` at the final level, the query a third
+    time rehydrating from the archive. Holds
     the first answer's events to the listed windows' sum and the run's
     last summary, the compacted and rehydrated answers to the first (events,
     distinct, entropy, heavy hitters) and logs each step's times. Runs on
@@ -1117,13 +1165,16 @@ def history_route(device: str, batch: int, seconds: int, sketch: dict, root: Pat
     hsteps = history_clis({"query": q_args,
                            "tiers": ["history", "tiers", "--history", str(hist_cli), "-o",
                                      "json"]}, root, "chip_smoke_history_cli")
-    hsteps["compact"] = history_cli(["history", "compact", "--history", str(hist_cli),
-                                    "--schedule", HIST_SCHEDULE, "-o", "json"], dumpq)
-    hsteps["query compacted"] = history_cli(q_args, dumpq)
-    hsteps["archive"] = history_cli(["history", "archive", "--history", str(hist_cli),
-                                    "--archive-dir", str(arch_cli), "--schedule", HIST_SCHEDULE,
-                                    "-o", "json"], dumpq)
-    hsteps["query rehydrated"] = history_cli(q_args + ["--archive-dir", str(arch_cli)], dumpq)
+    # the four that write or read what the one before wrote: in turn, in one
+    # process (one import of torch for the four)
+    later, proc_times = history_steps({
+        "compact": ["history", "compact", "--history", str(hist_cli), "--schedule",
+                    HIST_SCHEDULE, "-o", "json"],
+        "query compacted": q_args,
+        "archive": ["history", "archive", "--history", str(hist_cli), "--archive-dir",
+                    str(arch_cli), "--schedule", HIST_SCHEDULE, "-o", "json"],
+        "query rehydrated": q_args + ["--archive-dir", str(arch_cli)]}, dumpq)
+    hsteps.update(later)
     first, compacted, rehydrated = (json.loads(hsteps[k]["stdout"]) for k in (
         "query", "query compacted", "query rehydrated"))
     require(first["windows"] == len(listed) > 1 and first["events"] == sum(
@@ -1160,22 +1211,44 @@ def history_route(device: str, batch: int, seconds: int, sketch: dict, root: Pat
         f"rehydrated answers equal the first in events, distinct, entropy and heavy hitters")
     for name, st in hsteps.items():
         timed = {k: v for k, v in st.items() if k.endswith("_s") and k != "wall_s"}
-        log(f"[history] (5e b) {name}: exit 0, {st['wall_s']:.2f} s of process; " + ", ".join(
+        where = ("of process" if name not in later
+                 else "in the process of the four below (after its imports)")
+        log(f"[history] (5e b) {name}: exit 0, {st['wall_s']:.2f} s {where}; " + ", ".join(
             f"{k[:-2]} {v * 1e3:.1f} ms" for k, v in timed.items()))
+    log(f"[history] (5e b) compact, query, archive and query in one process: "
+        f"{proc_times['wall_s']:.2f} s of process, torch's import "
+        f"{proc_times['torch_import_s'] * 1e3:.1f} ms, the CLI's "
+        f"{proc_times['cli_import_s'] * 1e3:.1f} ms")
     return {"cli_run": hcli, "windows": len(listed),
                          "steps": {k: {x: y for x, y in v.items() if x != "stdout"}
                                    for k, v in hsteps.items()},
+                         "one_process": proc_times,
                          "compact": cstats, "archive": astats,
                          "answer": {k: first[k] for k in ("windows", "events", "distinct",
                                                           "entropy_bits")}}
 
 
 
-def history_cli(args: list[str], dump: Path) -> dict:
-    """One ig-tpu-torch subcommand as a subprocess through
-    HISTORY_DRIVER: it must exit 0. Returns its standard output, its wall
-    time and the seconds the driver timed in it."""
-    return history_clis({"": args}, dump.parent, dump.stem)[""]
+def history_steps(steps: dict[str, list[str]], dump: Path) -> tuple[dict, dict]:
+    """Several ig-tpu-torch subcommands in turn in ONE subprocess through
+    HISTORY_SCRIPT ``--steps`` (one import of torch and of the CLI for
+    all): each must exit 0. Returns each step's standard output and
+    times by name (``wall_s`` its own time in the process), and the
+    process's (``wall_s``, torch's and the CLI's import)."""
+    dump.unlink(missing_ok=True)
+    (proc, wall), = run_at_once({"": [sys.executable, "-c", HISTORY_SCRIPT, str(dump),
+                                      "--steps", json.dumps(list(steps.values()))]},
+                                timeout=300).values()
+    require(proc is not None and proc.returncode == 0,
+            f"ig-tpu-torch {' / '.join(' '.join(a[:2]) for a in steps.values())}: "
+            + (f"exited {proc.returncode}: {proc.stderr[-2000:]}" if proc is not None
+               else "no exit in 300 s"))
+    got = json.loads(dump.read_text())
+    out = {name: {"stdout": st.pop("stdout"), "wall_s": st.pop("cli_s"), **st}
+           for name, st in zip(steps, got.pop("steps"))}
+    for st in out.values():
+        st.pop("rc")
+    return out, {"wall_s": wall, **got}
 
 
 def run_at_once(cmds: dict[str, list[str]], timeout: float) -> dict[str, tuple]:
@@ -1209,7 +1282,7 @@ def history_clis(steps: dict[str, list[str]], root: Path, stem: str = "step") ->
     dumps = {name: root / f"{stem}-{i}.json" for i, name in enumerate(steps)}
     for dump in dumps.values():
         dump.unlink(missing_ok=True)
-    done = run_at_once({name: [sys.executable, "-c", HISTORY_DRIVER, str(dumps[name]), *args]
+    done = run_at_once({name: [sys.executable, "-c", HISTORY_SCRIPT, str(dumps[name]), *args]
                         for name, args in steps.items()}, timeout=300)
     out = {}
     for name, args in steps.items():
@@ -1848,7 +1921,7 @@ def scoped_cli(device: str, facts: dict, root: Path) -> dict:
 TRACE_SKETCHED = ("open", "tcp", "dns")
 TRACE_DECODED = ("bind", "capabilities", "fsslower", "mount", "network", "oomkill", "signal",
                  "sni", "tcpconnect")
-TRACE_BATCHES = 16
+TRACE_BATCHES = 8  # 5h(a)'s runs, card and CPU: 16 until phase 5l came
 TRACE_DECODE_BATCH = 8192
 # each gadget's real event kinds (native/events.h): a synthetic row carries
 # none of them, so its decoder took the synthetic branch
@@ -3212,8 +3285,13 @@ def fanout_cli(device: str, root: Path) -> dict:
     Then ``ig-tpu-torch trace exec --remote node-0=...,node-1=...
     FANOUT_CLI_ARGS --tpusketch-enable true`` (GADGET_SKETCH, full width)
     ``-o json`` as a subprocess: exit 0, rows from both nodes, no PARTIAL
-    label. `undeploy_local` must stop both, exit 0 within 30 s each. Runs
-    on the CPU too."""
+    label. Beside it, at the same time (5l d): ``fleet health --remote``,
+    ``query --remote`` and ``query --remote --topology auto:2`` over the
+    windows the warm-up runs sealed (a window a harvest, into a store
+    under the temp directory): each exits 0, every agent healthy, the
+    topology answer the flat one's (events, distinct, entropy, heavy
+    hitters). `undeploy_local` must stop both, exit 0 within 30 s each.
+    Runs on the CPU too."""
     from inspektor_gadget_tpu_torch.agent.client import AgentClient
     from inspektor_gadget_tpu_torch.agent.main import main as agent_main
     from inspektor_gadget_tpu_torch.cli import deploy as D
@@ -3223,7 +3301,15 @@ def fanout_cli(device: str, root: Path) -> dict:
     state = str(tmp / "agents.json")
     cwd = Path(__file__).resolve().parent
     t0 = time.perf_counter()
-    targets = D.deploy_local(2, device=device, path=state, log_dir=str(root / "logs"))
+    prev_hist = os.environ.get("IG_HISTORY_DIR")
+    os.environ["IG_HISTORY_DIR"] = str(tmp / "history")  # the agents' stores
+    try:
+        targets = D.deploy_local(2, device=device, path=state, log_dir=str(root / "logs"))
+    finally:
+        if prev_hist is None:
+            os.environ.pop("IG_HISTORY_DIR", None)
+        else:
+            os.environ["IG_HISTORY_DIR"] = prev_hist
     res: dict = {}
     try:
         pids = json.loads(Path(state).read_text())["pids"]
@@ -3256,7 +3342,8 @@ def fanout_cli(device: str, root: Path) -> dict:
             timer.start()
             try:
                 got = c.run_gadget("trace", "exec",
-                                   agent_params(4096, rate="20000", harvest_interval="300ms"),
+                                   agent_params(4096, rate="20000", harvest_interval="300ms",
+                                                history="true", history_interval="0"),
                                    outputs=("summary",), on_summary=on_summary, stop_event=stop)
             finally:
                 timer.cancel()
@@ -3276,11 +3363,37 @@ def fanout_cli(device: str, root: Path) -> dict:
         cmd = [sys.executable, "-m", "inspektor_gadget_tpu_torch.cli.main", "trace", "exec",
                "--remote", spec, *FANOUT_CLI_ARGS, "--tpusketch-enable", "true", *flags,
                "-o", "json"]
+        cli_main = [sys.executable, "-m", "inspektor_gadget_tpu_torch.cli.main"]
+        query = [*cli_main, "query", "--remote", spec, "--gadget", "trace/exec", "-o", "json"]
+        side: dict = {}
+        beside = threading.Thread(target=lambda: side.update(run_at_once({
+            "fleet health": [*cli_main, "fleet", "health", "--remote", spec, "-o", "json"],
+            "query": query, "query --topology": [*query, "--topology", "auto:2"]},
+            timeout=300)), daemon=True)
         t_cli = time.perf_counter()
+        beside.start()
         with open(rows_path, "w") as fo:
             r = subprocess.run(cmd, stdout=fo, stderr=subprocess.PIPE, text=True, timeout=300,
                                cwd=cwd)
         cli_s = time.perf_counter() - t_cli
+        beside.join(timeout=330)
+        for name in ("fleet health", "query", "query --topology"):
+            proc, _wall = side.get(name, (None, 0.0))
+            require(proc is not None and proc.returncode == 0,
+                    f"fleet tier (5l d): {name} --remote "
+                    + (f"exited {proc.returncode}: {proc.stderr[-2000:]}" if proc is not None
+                       else "did not exit in 300 s"))
+        health = json.loads(side["fleet health"][0].stdout)["agents"]
+        flat, tree = (json.loads(side[k][0].stdout) for k in ("query", "query --topology"))
+        require(sorted(a["node"] for a in health if a["state"] == "healthy") == sorted(targets),
+                f"fleet tier (5l d): fleet health {health}")
+        require(flat["windows"] >= len(targets) and flat["events"] > 0
+                and all(tree[k] == flat[k] for k in ("events", "distinct", "entropy_bits",
+                                                     "heavy_hitters"))
+                and tree["fleet"]["depth"] == 1,
+                f"fleet tier (5l d): the topology answer {[tree[k] for k in ('windows', 'events')]}"
+                f" differs from the flat one {[flat[k] for k in ('windows', 'events')]}")
+        fleet_cli = {name: side[name][1] for name in side}
         nodes: dict = {}
         with open(rows_path) as f:
             for line in f:
@@ -3297,7 +3410,9 @@ def fanout_cli(device: str, root: Path) -> dict:
         require(sorted(stopped) == sorted(targets) and all(c == 0 for c in codes.values()),
                 f"fan-out (5k b): undeploy stopped {stopped}, exit codes {codes}")
         res = {"liveness_s": live, "warm_up": warm, "cli_s": cli_s, "rows": nodes,
-               "undeploy_s": undeploy_s, "rows_bytes": rows_path.stat().st_size}
+               "undeploy_s": undeploy_s, "rows_bytes": rows_path.stat().st_size,
+               "fleet_cli": {"wall_s": fleet_cli, "windows": flat["windows"],
+                             "events": flat["events"]}}
         log(f"[fanout] (5k b) deploy_local(2, device={device}): liveness after "
             + ", ".join(f"{n} {s:.2f} s" for n, s in live.items())
             + "; warm-up runs to a first harvest "
@@ -3305,12 +3420,342 @@ def fanout_cli(device: str, root: Path) -> dict:
             + f"; trace exec --remote {' '.join(FANOUT_CLI_ARGS)} -o json at full sketch width: "
             f"exit 0 in {cli_s:.2f} s of process, rows {nodes}, no PARTIAL label; "
             f"undeploy_local: both exit 0 in {undeploy_s:.2f} s")
+        log(f"[shard] (5l d) beside that run, at once: fleet health --remote (both agents "
+            f"healthy), query --remote and query --remote --topology auto:2 over the warm-up "
+            f"runs' {flat['windows']} windows: exit 0 in "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in fleet_cli.items())
+            + f" of process; the topology answer equals the flat one (events {flat['events']}, "
+            f"distinct ~{flat['distinct']:.0f}, entropy {flat['entropy_bits']:.4f} b, "
+            f"{len(flat['heavy_hitters'])} heavy hitters), merge tree depth "
+            f"{tree['fleet']['depth']}")
     finally:
         if Path(state).exists():
             with contextlib.suppress(TimeoutError):
                 D.undeploy_local(state, wait=30.0)
         shutil.rmtree(tmp, ignore_errors=True)
     return res
+
+
+# phase 5l: sharded ingest, the collective merge and the fleet tier. The
+# heavy-hitter vocabulary stays under top-k's 128, where the streaming
+# candidate set is exact on every path (tests/test_torch_sharded_ingest.py):
+# above k the table is an approximation on the single-lane path too, and
+# the lanes' union at harvest may keep other candidates
+SHARD_BATCHES = 24
+SHARD_MID = 13          # the mid-run harvest: after this batch, mid-round at 2 and 4 lanes
+SHARD_LANES = (1, 2, 4)
+SHARD_VOCAB = 100
+SHARD_OP_BATCHES = 16
+SHARD_OP_HARVEST_AT = [7]
+# the collective merge over a one-rank NCCL group, in a process of its own
+# (so a hung NCCL init costs its timeout, not the script): two lane rows
+# on cuda:0 at the production geometry, merged by `make_fleet_merge` over
+# the group and by `cluster_merge` in the process; both digests dumped
+NCCL_MERGE_SCRIPT = """\
+import json, sys, time
+t0 = time.perf_counter()
+dump, port, seed, device = sys.argv[1], sys.argv[2], int(sys.argv[3]), sys.argv[4]
+import numpy as np
+import torch
+import torch.distributed as dist
+from inspektor_gadget_tpu_torch.fleet.collective import bundle_digest, make_fleet_merge
+from inspektor_gadget_tpu_torch.ops import sketches as S
+from inspektor_gadget_tpu_torch.parallel.cluster import cluster_merge
+from inspektor_gadget_tpu_torch.parallel.distributed import (init_distributed,
+                                                            make_multihost_mesh)
+from inspektor_gadget_tpu_torch.sources import ZipfFoldedSource
+from inspektor_gadget_tpu_torch.sources.synthetic import DIST, DISTINCT, HH, VALUES, WEIGHTS
+dev = torch.device(device)
+if dev.type == "cuda":
+    torch.cuda.set_device(dev)
+t_import = time.perf_counter()
+init_distributed(f"127.0.0.1:{port}", 1, 0, device=dev, timeout_s=120)
+t_init = time.perf_counter()
+mesh = make_multihost_mesh(devices=[dev, dev])
+src = ZipfFoldedSource(seed, vocab=100)
+rows = []
+for d in mesh:
+    b = S.bundle_init(**S.PRODUCTION_GEOMETRY, device=d)
+    h = torch.from_numpy(src.generate(1 << 17).view(np.int32)).to(d)
+    S.bundle_ingest_step(b, h[HH], h[DISTINCT], h[DIST], h[WEIGHTS], 3.0, h[VALUES])
+    rows.append(b)
+t_merge = time.perf_counter()
+merged = make_fleet_merge(dist.group.WORLD)(rows)
+if dev.type == "cuda":
+    torch.cuda.synchronize()
+merge_s = time.perf_counter() - t_merge
+out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+       "digest": bundle_digest(merged), "want": bundle_digest(cluster_merge(rows)),
+       "events": float(merged.events), "import_s": t_import - t0, "init_s": t_init - t_import,
+       "merge_ms": merge_s * 1e3}
+dist.destroy_process_group()
+with open(dump, "w") as f:
+    json.dump(out, f)
+"""
+
+
+def dealt_rounds(batches: int, chips: int, harvest_at: list[int]) -> int:
+    """The sharded steps the operator's dealing runs for `batches` batches
+    over `chips` lanes with a harvest after each batch in `harvest_at` and
+    one at the end: a round a full set of lanes, plus one a harvest that
+    finds a round open (its empty lanes ride zero-weight fillers)."""
+    rounds, pending = 0, 0
+    for i in range(1, batches + 1):
+        pending += 1
+        if pending == chips:
+            rounds, pending = rounds + 1, 0
+        if i in harvest_at and pending:
+            rounds, pending = rounds + 1, 0
+    return rounds + (1 if pending else 0)
+
+
+def shard_lanes(device: str, batch: int, geom: dict, seed: int) -> dict:
+    """Phase 5l(a): SHARD_BATCHES seeded zipf batches (heavy hitters of
+    SHARD_VOCAB keys; ragged tails; drops) pre-staged on `device`, dealt
+    round-robin over 1, 2 and 4 lanes on [`device`] * n through
+    `make_bundle_ingest_sharded`, harvested (`make_bundle_harvest_sharded`)
+    after batch SHARD_MID, flushing the open round with zero-weight
+    fillers, and at the end. Every merged leaf and the digest's bytes must
+    equal the single-lane `bundle_ingest_step` fold of the same prefix on
+    `device` and on the CPU; K2 must launch once a lane a round. Then the
+    device-only events/s of 4-lane rounds against 1-lane ones over the
+    same staged batches, and the harvest merge's ms. Runs on the CPU too."""
+    from inspektor_gadget_tpu_torch.ops import sketches as S
+    from inspektor_gadget_tpu_torch.parallel.mesh import ingest_mesh
+    from inspektor_gadget_tpu_torch.sources import ZipfFoldedSource
+    from inspektor_gadget_tpu_torch.sources.synthetic import (DIST, DISTINCT, HH, LANES, VALUES,
+                                                              WEIGHTS)
+    dev = torch.device(device)
+    src = ZipfFoldedSource(seed, vocab=SHARD_VOCAB)
+    host = [src.generate(batch, valid=batch - 977 * (i % 3)) for i in range(SHARD_BATCHES)]
+    drops = [float(i % 5) for i in range(SHARD_BATCHES)]
+    staged = [torch.from_numpy(h.view(np.int32)).to(dev) for h in host]
+    events = [int(h[WEIGHTS].sum()) for h in host]
+
+    def sync() -> None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def fold(where: torch.device, lanes: list) -> tuple:
+        b, mid = S.bundle_init(**geom, device=where), None
+        for i, x in enumerate(lanes):
+            S.bundle_ingest_step(b, x[HH], x[DISTINCT], x[DIST], x[WEIGHTS], drops[i], x[VALUES])
+            if i + 1 == SHARD_MID:
+                mid = S.bundle_map(torch.clone, b)
+        return mid, b
+
+    t0 = time.perf_counter()
+    dev_mid, dev_end = fold(dev, staged)
+    sync()
+    t1 = time.perf_counter()
+    cpu_mid, cpu_end = fold(torch.device("cpu"),
+                            [torch.from_numpy(h.view(np.int32)) for h in host])
+    cpu_fold_s = time.perf_counter() - t1
+    want = {"mid": (dev_mid, cpu_mid), "end": (dev_end, cpu_end)}
+
+    def sharded(n: int):
+        mesh = ingest_mesh(n, [dev] * n)
+        like = S.bundle_init(**geom, device=dev)
+        return (S.make_bundle_ingest_sharded(mesh, like), S.make_bundle_harvest_sharded(mesh, like),
+                S.bundle_stack_sharded(like, mesh))
+
+    zero = torch.zeros((LANES, batch), dtype=torch.int32, device=dev)
+
+    def run_round(step, lanes, rnd: list) -> None:
+        step(lanes, [x[HH] for x, _ in rnd], [x[DISTINCT] for x, _ in rnd],
+             [x[DIST] for x, _ in rnd], [x[WEIGHTS] for x, _ in rnd], [d for _, d in rnd],
+             [x[VALUES] for x, _ in rnd])
+
+    out: dict = {"cpu_fold_s": cpu_fold_s, "lanes": {}}
+    for n in SHARD_LANES:
+        step, harvest, lanes = sharded(n)
+        pending: dict = {}
+        nxt, rounds, got = 0, 0, {}
+
+        def flush() -> None:
+            nonlocal rounds, pending
+            if pending:
+                run_round(step, lanes, [pending.get(k, (zero, 0.0)) for k in range(n)])
+                rounds, pending = rounds + 1, {}
+
+        reset_launches()
+        for i, x in enumerate(staged):
+            pending[nxt], nxt = (x, drops[i]), (nxt + 1) % n
+            if len(pending) == n:
+                flush()
+            if i + 1 == SHARD_MID:
+                flush()
+                got["mid"] = harvest(lanes)
+        flush()
+        got["end"] = harvest(lanes)
+        launched = read_launches()
+        require(rounds == dealt_rounds(SHARD_BATCHES, n, [SHARD_MID]),
+                f"sharded ingest (5l a), {n} lanes: {rounds} rounds")
+        want_k2 = rounds * n if dev.type == "cuda" else 0
+        require(launched == {"K1": 0, "K2": want_k2, "K3": 0},
+                f"sharded ingest (5l a), {n} lanes: launched {launched}, expected K2 {want_k2} "
+                f"(once a lane a round, {rounds} rounds)")
+        for point in ("mid", "end"):
+            g = S.bundle_to_numpy(got[point])
+            gd = S.bundle_digest(got[point]).cpu().numpy().tobytes()
+            for ref, where in zip(want[point], (device, "cpu")):
+                r = S.bundle_to_numpy(ref)
+                bad = [i for i, (a, b) in enumerate(zip(g, r))
+                       if a.dtype != b.dtype or not np.array_equal(a, b)]
+                require(len(g) == len(r) and not bad,
+                        f"sharded ingest (5l a), {n} lanes, {point} harvest: leaves {bad} differ "
+                        f"from the single-lane fold on the {where}")
+                require(gd == S.bundle_digest(ref).cpu().numpy().tobytes(),
+                        f"sharded ingest (5l a), {n} lanes, {point} harvest: digest bytes differ "
+                        f"from the single-lane fold on the {where}")
+        out["lanes"][n] = {"rounds": rounds, "k2_launches": launched["K2"]}
+
+    # device-only events/s: the same staged batches as 1-lane and as
+    # 4-lane rounds, after a warm-up round each; and the harvest's merge
+    timing: dict = {}
+    for n in (1, 4):
+        step, harvest, lanes = sharded(n)
+        run_round(step, lanes, [(staged[k], 0.0) for k in range(n)])
+        sync()
+        t = time.perf_counter()
+        for r0 in range(0, SHARD_BATCHES, n):
+            run_round(step, lanes, [(staged[r0 + k], 0.0) for k in range(n)])
+        sync()
+        dt = time.perf_counter() - t
+        merge_ms = []
+        for _ in range(10):
+            sync()
+            t = time.perf_counter()
+            harvest(lanes)
+            sync()
+            merge_ms.append((time.perf_counter() - t) * 1e3)
+        timing[n] = {"ev_per_s": sum(events) / dt, "merge_ms": statistics.median(merge_ms)}
+    out["timing"] = timing
+    out["fold_s"] = t1 - t0
+    log(f"[shard] (5l a) {SHARD_BATCHES} zipf batches of {batch} (heavy hitters of {SHARD_VOCAB} "
+        f"keys, ragged tails, drops), every plane, dealt over "
+        + ", ".join(f"{n} lane(s) ({d['rounds']} rounds, K2 {d['k2_launches']})"
+                    for n, d in out["lanes"].items())
+        + f" on [{device}] * n, harvested after batch {SHARD_MID} (mid-round at 2 and 4) and at "
+        f"the end: every leaf and the digest's bytes equal the single-lane bundle_ingest_step fold "
+        f"on the {device} and on the CPU ({cpu_fold_s:.2f} s)")
+    log(f"[shard] (5l a) device-only, the same staged batches: 4-lane rounds "
+        f"{timing[4]['ev_per_s']:.0f} events/s against 1-lane {timing[1]['ev_per_s']:.0f} "
+        f"({timing[4]['ev_per_s'] / timing[1]['ev_per_s']:.2f}x; the lanes share one {device}); "
+        f"the harvest merge {timing[4]['merge_ms']:.2f} ms at 4 lanes, {timing[1]['merge_ms']:.2f} "
+        f"ms at 1 (host clock, median of 10, ending in a synchronize)")
+    return out
+
+
+def shard_operator(device: str, batch: int) -> dict:
+    """Phase 5l(b): the operator's shard plane. Unpatched, on a one-card
+    host ``shard-ingest true`` must raise the one-device ParamError, and
+    with ``chips 2`` the "exceeds the 1 local device(s)" one. Then
+    `_lane_devices` patched to two lanes on `device`:
+    5d(a)'s `gadget_run` (heavy hitters of SHARD_VOCAB keys) for
+    SHARD_OP_BATCHES batches with ``--tpusketch-shard-ingest true
+    --tpusketch-chips 2`` and a harvest after batch 7 (mid-round), and the
+    same stream unsharded: summaries equal (estimates bit for bit, ae
+    within 5%), K2 once a lane a round. Runs on the CPU too."""
+    from inspektor_gadget_tpu_torch.operators import tpusketch as P
+    from inspektor_gadget_tpu_torch.params import ParamError
+    cards = torch.cuda.device_count() if device == "cuda" else 1
+    refused = {}
+    for chips, said in (("auto", "this host exposes 1 device"),
+                        ("2", "exceeds the 1 local device(s)")):
+        try:
+            P.TpuSketchInstance(P.SketchConfig(shard_ingest=True, chips=chips),
+                                P.SketchContext(), device=device).post_gadget_run()
+        except ParamError as e:
+            refused[chips] = str(e)
+        if cards == 1:
+            require(said in refused.get(chips, ""),
+                    f"shard-ingest, chips {chips}, on a one-card host (5l b): "
+                    f"{refused.get(chips, 'no ParamError')}")
+        else:
+            require(not refused, f"shard-ingest on a {cards}-card host (5l b): {refused}")
+    lane = torch.device(device, 0) if device == "cuda" else torch.device("cpu")
+    real = P._lane_devices
+    P._lane_devices = lambda chips, dev: [lane] * (chips if chips is not None else 2)
+    try:
+        reset_launches()
+        sharded = gadget_run(device, SHARD_OP_BATCHES, batch, vocab=str(SHARD_VOCAB),
+                             harvest_at=SHARD_OP_HARVEST_AT,
+                             ops={"tpusketch": {"shard-ingest": "true", "chips": "2"}})
+        launched = read_launches()
+    finally:
+        P._lane_devices = real
+    plain = gadget_run(device, SHARD_OP_BATCHES, batch, vocab=str(SHARD_VOCAB),
+                       harvest_at=SHARD_OP_HARVEST_AT)
+    rounds = dealt_rounds(SHARD_OP_BATCHES, 2, SHARD_OP_HARVEST_AT)
+    want_k2 = 2 * rounds if device == "cuda" else 0
+    require(launched == {"K1": 0, "K2": want_k2, "K3": 0},
+            f"the operator's shard plane (5l b): launched {launched}, expected K2 {want_k2} "
+            f"(2 lanes x {rounds} rounds)")
+    gap = max(compare_summaries(g, w, f"sharded vs unsharded run (5l b), harvest {i + 1}",
+                                anomaly_rel=5e-2)
+              for i, (g, w) in enumerate(zip(sharded["summaries"], plain["summaries"])))
+    s = sharded["summary"]
+    log(f"[shard] (5l b) shard-ingest true, unpatched on this {cards}-card host: "
+        + ("; ".join(f"chips {k}: ParamError ({v})" for k, v in refused.items()) if refused
+           else "accepted")
+        + f"; with _lane_devices patched to [{lane}, {lane}] (two lanes sharing one card: a "
+        f"check, not a deployment), LocalRuntime trace/exec, pysynthetic seed 7, vocab "
+        f"{SHARD_VOCAB}, {SHARD_OP_BATCHES} x {batch}, every plane, a harvest after batch "
+        f"{SHARD_OP_HARVEST_AT[0]}: {sharded['ev_per_s']:.0f} events/s against "
+        f"{plain['ev_per_s']:.0f} unsharded; K2 {launched['K2']} ({rounds} rounds of 2 lanes); "
+        f"both summaries equal the unsharded run's (events {s.events}, distinct ~{s.distinct:.0f}, "
+        f"entropy {s.entropy_bits:.4f} b, ae within {gap:.3g} of a score)")
+    return {"refused": refused, "cards": cards, "k2_launches": launched["K2"], "rounds": rounds,
+            "ev_per_s": sharded["ev_per_s"], "plain_ev_per_s": plain["ev_per_s"],
+            "ae_rel_gap": gap}
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_nccl_merge(device: str, root: Path, seed: int) -> tuple:
+    """Phase 5l(c), started: NCCL_MERGE_SCRIPT in a process of its own on a free
+    loopback port (gloo on the CPU). `finish_nccl_merge` reads it."""
+    root.mkdir(parents=True, exist_ok=True)
+    dump = root / "chip_smoke_nccl.json"
+    dump.unlink(missing_ok=True)
+    cmd = [sys.executable, "-c", NCCL_MERGE_SCRIPT, str(dump), str(free_port()), str(seed),
+           "cuda:0" if device == "cuda" else "cpu"]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=Path(__file__).resolve().parent)
+    return proc, dump, time.perf_counter()
+
+
+def finish_nccl_merge(started: tuple, timeout: float = 240.0) -> dict:
+    """Phase 5l(c): the one-rank group's `make_fleet_merge` digest must equal
+    `cluster_merge`'s over the same two lane rows."""
+    proc, dump, t0 = started
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        require(False, f"the collective merge (5l c) ran past {timeout:.0f} s")
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"the collective merge (5l c) exited {proc.returncode}: "
+                                  f"{err[-2000:]}")
+    res = json.loads(dump.read_text())
+    require(res["world"] == 1 and res["digest"] == res["want"]
+            and res["events"] == 2 * (1 << 17),
+            f"the collective merge (5l c): {res}")
+    log(f"[shard] (5l c) a one-rank {res['backend']} group on tcp://127.0.0.1 (init "
+        f"{res['init_s']:.2f} s, torch's import {res['import_s']:.2f} s, {wall:.1f} s of "
+        f"process): make_fleet_merge over 2 lane rows at the production geometry ({res['merge_ms']:.1f} "
+        f"ms: SUM on int32, int64 and float32, MAX on the int32 HLL registers, all_gather of the "
+        f"top-k candidates), its bundle_digest equal to cluster_merge's ({res['digest'][:16]}...). "
+        f"Two ranks cannot share one card under NCCL (duplicate GPU): the two-rank merge is the "
+        f"gloo test on the CPU (tests/test_torch_fleet_collective.py)")
+    return {**res, "wall_s": wall}
+
 
 
 def main() -> int:
@@ -3989,6 +4434,19 @@ def main() -> int:
     fan["seconds"] = time.perf_counter() - t_fan
     log(f"[fanout] phase 5k took {fan['seconds']:.1f} s")
     report["fanout"] = fan
+
+    # -- 5l. sharded ingest, the collective merge, the fleet tier (ROADMAP 11) -------
+    t_shard = time.perf_counter()
+    shard = {"lanes": shard_lanes("cuda", batch, prod, args.seed + 11)}
+    launches["K2"] += sum(d["k2_launches"] for d in shard["lanes"]["lanes"].values())
+    nccl = start_nccl_merge("cuda", ckpt_root.parent / "chip_smoke_shard", args.seed + 12)
+    shard["operator"] = shard_operator("cuda", batch)
+    launches["K2"] += shard["operator"]["k2_launches"]
+    shard["collective"] = finish_nccl_merge(nccl)
+    shard["fleet_cli"] = fan["cli"].get("fleet_cli")
+    shard["seconds"] = time.perf_counter() - t_shard
+    log(f"[shard] phase 5l took {shard['seconds']:.1f} s (and 5l(d) ran inside 5k(b))")
+    report["shard"] = shard
 
     # -- 6. K3 against its plain version ----------------------------------------
     # the plain versions' float32 matmuls run in full f32, not TF32

@@ -12,11 +12,11 @@ The port's copy of ``inspektor_gadget_tpu/cli/main.py``: ``list``,
 with ``--remote``, fanned out to agents, ``query``, ``watch``,
 ``history``, ``record``, ``replay`` and ``alerts`` on this process or the
 agents, ``agent`` (the per-node daemon, `agent.main serve`), ``debug``,
-``deploy``, ``undeploy`` and ``traces``, with one more flag, ``--device
+``deploy``, ``undeploy``, ``traces`` and ``fleet``, with one more flag, ``--device
 {cuda,cpu}`` (default ``cuda``): the device the run's operators (and
 ``profile block-io --quantiles true``) put their state on, and for
 ``deploy --local`` the device of the agents it starts. The commands
-whose modules are not ported (``fleet``, ``bench``, ``doctor``) exit 2
+whose modules are not ported (``bench``, ``doctor``) exit 2
 naming their ROADMAP item.
 
     python -m inspektor_gadget_tpu_torch.cli.main trace exec --device cpu \\
@@ -59,6 +59,7 @@ from ..params import Collection, ParamError  # noqa: E402
 from ..telemetry.tracing import RECORDER, TRACER, export_chrome, load_dump  # noqa: E402
 from . import unported  # noqa: E402
 from .alerts import add_alerts_parser  # noqa: E402
+from .fleet import add_fleet_parser  # noqa: E402
 from .history import add_history_parser  # noqa: E402
 from .query import add_query_parser  # noqa: E402
 from .record import add_record_parser, add_replay_parser  # noqa: E402
@@ -69,7 +70,6 @@ __version__ = "0.1.0"
 # the reference's subcommands whose modules the port has not yet: each
 # exits 2 naming the ROADMAP item that ports it
 UNPORTED_COMMANDS = {
-    "fleet": ("fleet health and shared runs", "11"),
     "bench": ("benchmark runs and the perf ledger", "20"),
     "doctor": ("probe capture windows per gadget", "19"),
 }
@@ -114,6 +114,7 @@ def build_parser() -> argparse.ArgumentParser:
     up.set_defaults(func=cmd_undeploy)
 
     add_query_parser(sub)
+    add_fleet_parser(sub)
     add_watch_parser(sub)
     add_history_parser(sub)
     add_alerts_parser(sub)

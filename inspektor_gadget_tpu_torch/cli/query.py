@@ -13,9 +13,8 @@ client-side from whichever nodes' sealed windows overlap the range.
     ig-tpu-torch query --gadget trace/exec --last 1h --key mntns:4026531840
 
 The port's copy of ``inspektor_gadget_tpu/cli/query.py``: the local
-store, or with ``--remote`` the agents' (`GrpcRuntime.query_history`).
-``--topology`` (the fleet aggregation tier) exits 2 naming its ROADMAP
-item, 11. One flag more,
+store, or with ``--remote`` the agents' (`GrpcRuntime.query_history`,
+through the fleet aggregation tier with ``--topology``). One flag more,
 ``--archive-dir``: the archive root whose manifest rows a local query
 rehydrates (the reference's agents hold it from ``--history-archive-dir``).
 """
@@ -27,7 +26,6 @@ import sys
 import time
 
 from ..params.validators import parse_duration
-from . import unported
 
 
 def add_query_parser(sub) -> None:
@@ -73,7 +71,7 @@ def add_query_parser(sub) -> None:
                          "tier: 'auto', 'auto:<fan_in>', or a declared "
                          "zone grammar like 'zone-a=n0,n1;zone-b=n2' "
                          "(byte-identical answer, O(log N) fan-in; "
-                         "remote mode only; not ported yet: ROADMAP item 11)")
+                         "remote mode only)")
     qp.add_argument("-o", "--output", default="table",
                     choices=["table", "json"])
     qp.set_defaults(func=cmd_query)
@@ -81,10 +79,6 @@ def add_query_parser(sub) -> None:
 
 def cmd_query(args) -> int:
     from ..params import ParamError
-    # getattr: programmatic callers hand in plain namespaces that
-    # predate the fleet tier; only the parser guarantees the attribute
-    if getattr(args, "topology", ""):
-        return unported("--topology (the fleet aggregation tier)", "11")
     start_ts, end_ts = args.start_ts, args.end_ts
     if args.last:
         try:
@@ -95,6 +89,9 @@ def cmd_query(args) -> int:
     ranges = dict(gadget=args.gadget, start_ts=start_ts, end_ts=end_ts,
                   start_seq=args.start_seq, end_seq=args.end_seq)
     key = args.key or None
+    # getattr: programmatic callers hand in plain namespaces that
+    # predate the fleet tier; only the parser guarantees the attribute
+    topology = getattr(args, "topology", "")
 
     if args.remote:
         from ..runtime.grpc_runtime import GrpcRuntime
@@ -106,10 +103,25 @@ def cmd_query(args) -> int:
             return 2
         runtime = GrpcRuntime(targets)
         try:
-            answer = runtime.query_history(key=key, top=args.top, **ranges)
+            if topology:
+                from ..fleet import TopologyError
+                try:
+                    answer = runtime.query_history(
+                        key=key, top=args.top, topology=topology,
+                        **ranges)
+                except TopologyError as e:
+                    print(f"error: {e}", file=sys.stderr)
+                    return 2
+            else:
+                answer = runtime.query_history(key=key, top=args.top,
+                                               **ranges)
         finally:
             runtime.close()
     else:
+        if topology:
+            print("error: --topology needs --remote (the aggregation "
+                  "tier folds across agents)", file=sys.stderr)
+            return 2
         from ..history import HISTORY, answer_query, decode_frames
         if getattr(args, "archive_dir", ""):
             HISTORY.set_archive(args.archive_dir, base_dir=args.history or None)

@@ -23,8 +23,17 @@ same instance can be built without the framework from a `SketchConfig`
 (the params, ``-`` written ``_``) and a `SketchContext` (what it reads
 from the gadget context): ``TpuSketchInstance(config, context,
 device=...)``. Both routes validate through the same `ParamDesc`
-validators and the reference's cross-param checks. Sharded ingest
-raises, naming the ROADMAP item that ports it.
+validators and the reference's cross-param checks.
+
+With ``shard-ingest true`` and ``chips`` of 2 or more, the staged ingest
+runs on that many device lanes (`_lane_devices`, every card by default):
+batch i lands on lane i mod chips, through that lane's own pinned pool
+and stager, and a round of one batch a lane runs one K2 a lane
+(`ops.sketches.make_bundle_ingest_sharded`); every read of the state
+(harvest, seal, checkpoint, display) merges the lanes first
+(`cluster_merge`), bit-identical to the one-device fold of the same
+stream. The window plane stays on the instance's device. ``chips=1`` is
+the exact unsharded path, and ``IG_SHARD_DISABLE=1`` forces it.
 
 The reference donates its bundle to each step; the port updates it in
 place under ``_bundle_mu``, and every host snapshot that must outlive
@@ -37,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import threading
 import time
 import uuid
@@ -62,8 +72,10 @@ from ..ops.invertible import (InvSketch, class_weights, inv_capacity, inv_decode
                               inv_decode_device, inv_decode_finish, inv_init, inv_merge,
                               inv_update, parse_priority_classes, validate_class_budget)
 from ..ops.sketches import (bundle_digest, bundle_from_numpy, bundle_ingest_step, bundle_init,
-                            bundle_merge, bundle_to_numpy, decode_digest)
+                            bundle_merge, bundle_stack_sharded, bundle_to_numpy, decode_digest,
+                            make_bundle_harvest_sharded, make_bundle_ingest_sharded)
 from ..ops.window import hll_ingest_step, wcms_advance, wcms_ingest_step, wcms_init, wcms_query
+from ..parallel.mesh import ingest_mesh, local_devices
 from ..params import ParamDesc, ParamDescs, ParamError, Params, TypeHint
 from ..params.validators import validate_int_range
 from ..queries import QueryError, StandingQueryEngine, load_queries, load_queries_file
@@ -128,6 +140,20 @@ def _validate_chips(value: str) -> None:
         raise ValueError(f"{value!r} is not an integer or 'auto'") from None
     if v < 1:
         raise ValueError(f"chips must be >= 1, got {v}")
+
+
+def _lane_devices(chips: int | None, device: torch.device) -> list[torch.device]:
+    """The devices the sharded ingest lanes run on, lane k on the k-th:
+    every local card for a CUDA instance, the one CPU for a CPU instance;
+    the first `chips` of them (all for None). Module-level, so that tests
+    pin a topology, lanes sharing a device included."""
+    devs = local_devices() if device.type == "cuda" else [torch.device("cpu")]
+    return devs if chips is None else devs[:chips]
+
+
+def _local_device_count(device: torch.device) -> int:
+    """Devices visible to the sharded ingest plane."""
+    return len(_lane_devices(None, device))
 
 
 def _validate_priority_classes(value: str) -> None:
@@ -423,10 +449,13 @@ class TpuSketch(Operator):
                                   "analytic bounds only)"),
             ParamDesc(key="shard-ingest", default="false", type_hint=TypeHint.BOOL,
                       description="shard the staged ingest plane across local devices "
-                                  "(not ported yet: ROADMAP item 11)"),
+                                  "(round-robin lanes, collective harvest; needs >= 2 "
+                                  "local devices; IG_SHARD_DISABLE=1 forces the "
+                                  "single-device path)"),
             ParamDesc(key="chips", default="auto", validator=_validate_chips,
                       description="device lanes for shard-ingest: 'auto' = all local "
-                                  "devices; 1 = the exact single-device path"),
+                                  "devices; 1 = the exact single-device path; must not "
+                                  "exceed the local device count"),
             ParamDesc(key="history", default="false", type_hint=TypeHint.BOOL,
                       description="seal time-windowed sketch snapshots into the node's "
                                   "history store"),
@@ -555,11 +584,45 @@ class TpuSketchInstance(OperatorInstance):
             raise ParamError(
                 f"param 'quantile-field': {self._qt_field!r} is not a "
                 f"wire column (one of {', '.join(BATCH_COLUMNS)})")
-        # -- planes and configurations ported by later ROADMAP items ---------
-        if cfg.shard_ingest or (cfg.chips != "auto" and int(cfg.chips) > 1):
-            raise ParamError(
-                "param 'shard-ingest'/'chips': sharded ingest over several devices "
-                "is not ported yet (ROADMAP item 11); chips=1 is the single-device path")
+        # -- sharded ingest: every topology error before the first batch ----
+        self._shard_on = False
+        self._chips = 1
+        shard_req = cfg.shard_ingest
+        ndev = _local_device_count(self.device)
+        if os.environ.get("IG_SHARD_DISABLE", "") == "1":
+            # the escape hatch outranks the topology checks: a fleet-wide
+            # chips=N config still starts on a host with fewer devices
+            if shard_req or cfg.chips != "auto":
+                _log.warning("IG_SHARD_DISABLE=1: shard-ingest/chips params are inert — "
+                             "forced to the single-chip path")
+            shard_req = False
+        elif cfg.chips != "auto" and int(cfg.chips) > ndev:
+            raise ParamError(f"param 'chips': {cfg.chips} exceeds the {ndev} local "
+                             f"device(s) on this host")
+        if shard_req:
+            if ndev < 2:
+                raise ParamError(
+                    "param 'shard-ingest': this host exposes 1 device — sharded ingest "
+                    "needs >= 2 local devices (chips=1 is the single-chip path and needs "
+                    "no flag)")
+            self._chips = ndev if cfg.chips == "auto" else int(cfg.chips)
+            if self._chips >= 2 and ctx.batch_size > 0 and ctx.batch_size % self._chips:
+                raise ParamError(
+                    f"param 'chips': batch-size {ctx.batch_size} is not divisible by chips "
+                    f"{self._chips} — round-robin lane fills need whole batches per lane")
+            self._shard_on = self._chips >= 2
+        # the lanes are built at the first batch. Batch i always lands on
+        # lane i mod chips (_next_lane, which no flush moves), and _pending
+        # holds each lane's staged batch until the round is full or a read
+        # of the state flushes it with zero-weight fillers
+        self._mesh: list[torch.device] | None = None
+        self._sharded = None
+        self._ingest_sharded = self._harvest_sharded = None
+        self._lane_pools: list[PinnedBufferPool] = []
+        self._lane_stagers: list[H2DStager] = []
+        self._lane_zeros: list[torch.Tensor] = []
+        self._next_lane = 0
+        self._pending: dict[int, dict] = {}
         # -- standing-query plane: every misconfig raises before the first batch
         sq_specs = None
         if not cfg.standing_queries:
@@ -716,7 +779,7 @@ class TpuSketchInstance(OperatorInstance):
                          attrs=attrs) as span, device_annotation(name):
             yield span
 
-    def _note_watermarks(self, pop_ts: float, oldest_ts: float) -> None:
+    def _note_watermarks(self, pop_ts: float, oldest_ts: float, lane: int = 0) -> None:
         """Batch-grain lag watermarks: host lag = pop − oldest event,
         device lag = dispatch (now) − pop. Unstamped batches read as zero
         lag."""
@@ -725,8 +788,8 @@ class TpuSketchInstance(OperatorInstance):
             pop_ts = now
         if oldest_ts <= 0.0 or oldest_ts > pop_ts:
             oldest_ts = pop_ts
-        self._pstats.note_host_lag(pop_ts - oldest_ts)
-        self._pstats.note_device_lag(max(now - pop_ts, 0.0))
+        self._pstats.note_host_lag(pop_ts - oldest_ts, lane)
+        self._pstats.note_device_lag(max(now - pop_ts, 0.0), lane)
 
     # -- host snapshots (copies: on the CPU .numpy() is the live state) ------
 
@@ -825,6 +888,92 @@ class TpuSketchInstance(OperatorInstance):
         self._pad = max(self._pad, pad)
         return self._pool, self._stager
 
+    # -- the sharded ingest plane ------------------------------------------------
+
+    def _ensure_sharded(self) -> None:
+        """The lanes, the sharded step and harvest, and one bundle a lane
+        (lane 0 seeded with the live, possibly resumed, bundle)."""
+        if self._sharded is not None:
+            return
+        self._mesh = ingest_mesh(self._chips, _lane_devices(self._chips, self.device))
+        self._ingest_sharded = make_bundle_ingest_sharded(self._mesh, self.bundle)
+        self._harvest_sharded = make_bundle_harvest_sharded(self._mesh, self.bundle)
+        self._sharded = bundle_stack_sharded(self.bundle, self._mesh)
+
+    def _lane_staging(self, pad: int) -> tuple[PinnedBufferPool, H2DStager]:
+        """The pool and stager of the lane the next batch lands on. Each
+        lane has its own pinned pool and a stager copying to its own
+        device on its own copy stream, and one cached zero lane (the
+        filler of a flushed round, which touches no staging state). A pad
+        growth flushes the open round at the old shape, drains, and
+        rebuilds every lane."""
+        self._ensure_sharded()
+        if not self._lane_pools or self._lane_pools[0].capacity != pad:
+            with self._bundle_mu:
+                self._dispatch_round_locked()
+            for st in self._lane_stagers:
+                st.drain()
+            self._lane_pools = [PinnedBufferPool(pad, lanes=5 if self._qt_on else 4,
+                                                 max_free=self._h2d_depth + 2, device=d, lane=k)
+                                for k, d in enumerate(self._mesh)]
+            self._lane_stagers = [H2DStager(pool, depth=self._h2d_depth, device=d,
+                                            stats=self._pstats)
+                                  for pool, d in zip(self._lane_pools, self._mesh)]
+            self._lane_zeros = [torch.zeros(pad, dtype=torch.int32, device=d)
+                                for d in self._mesh]
+        self._pad = max(self._pad, pad)
+        return self._lane_pools[self._next_lane], self._lane_stagers[self._next_lane]
+
+    def _shard_absorb_locked(self, hh_d, distinct_d, dist_d, w_d, new_drops: float,
+                             slot: int, values_d=None) -> None:
+        """Park one staged batch on its lane (its arrays already on the
+        lane's device; `slot` is the stager slot to fence at dispatch) and
+        move the round-robin on; a full round dispatches. Caller holds
+        _bundle_mu."""
+        lane = self._next_lane
+        arrays = (hh_d, distinct_d, dist_d, w_d)
+        if self._qt_on:
+            arrays += (values_d if values_d is not None else self._lane_zeros[lane],)
+        self._pending[lane] = {"arrays": arrays, "slot": slot, "drops": max(new_drops, 0.0)}
+        self._next_lane = (lane + 1) % self._chips
+        if len(self._pending) >= self._chips:
+            self._dispatch_round_locked()
+
+    def _dispatch_round_locked(self) -> None:
+        """One sharded step over the pending lanes: one K2 a lane on the
+        lane's device. A lane without a batch (a read of the state
+        mid-round, a ragged tail) rides its cached zero lane: weight 0
+        adds to no plane, so a flushed round folds exactly the batches it
+        holds. Each real batch's stager slot is fenced on its lane's
+        token. Caller holds _bundle_mu."""
+        if not self._pending:
+            return
+        n_arr = 5 if self._qt_on else 4
+        for lane in range(self._chips):
+            if lane not in self._pending:
+                self._pending[lane] = {"arrays": (self._lane_zeros[lane],) * n_arr,
+                                       "slot": None, "drops": 0.0}
+        by_lane = [self._pending[k] for k in range(self._chips)]
+        cols = [[p["arrays"][i] for p in by_lane] for i in range(n_arr)]
+        self._sharded, tokens = self._ingest_sharded(
+            self._sharded, *cols[:4], [p["drops"] for p in by_lane],
+            cols[4] if self._qt_on else None)
+        for lane, (p, tok) in enumerate(zip(by_lane, tokens)):
+            if p["slot"] is not None:
+                self._lane_stagers[lane].fence_slot(p["slot"], tok)
+        self._pending = {}
+        self._pstats.note_round()
+
+    def _merged_locked(self):
+        """The bundle every read consumes: the live bundle, or under
+        shard-ingest the open round flushed and the lanes merged
+        (`cluster_merge`, on lane 0's device), bit-identical to the
+        one-device fold of the same stream. Caller holds _bundle_mu."""
+        if not self._shard_on or self._sharded is None:
+            return self.bundle
+        self._dispatch_round_locked()
+        return self._harvest_sharded(self._sharded)
+
     def _after_batch(self) -> None:
         """The interval seal and the timed harvest."""
         if self._hist_on and self._hist_interval > 0 and \
@@ -844,9 +993,11 @@ class TpuSketchInstance(OperatorInstance):
         pad = self._pad
         while pad < n:
             pad *= 2
+        lane = self._next_lane if self._shard_on else 0
         t0 = time.perf_counter()
         with self._span("tpusketch/h2d", events=n, pad=pad):
-            pool, stager = self._staging_for(pad)
+            pool, stager = (self._lane_staging(pad) if self._shard_on
+                            else self._staging_for(pad))
             block = pool.get()
             arr = block.numpy()
             rows: dict[str, int] = {}
@@ -872,6 +1023,7 @@ class TpuSketchInstance(OperatorInstance):
             # one copy per distinct lane: shared columns stage once
             order = list(rows.values()) + [3] + ([4] if vals is not None else [])
             staged = stager.stage(block, [block[r] for r in order])
+            staged_slot = stager.last_slot
             by_row = dict(zip(order, staged))
             hh_d = by_row[rows[self.hh_col]]
             distinct_d = by_row[rows[self.distinct_col]]
@@ -880,17 +1032,31 @@ class TpuSketchInstance(OperatorInstance):
             v_d = by_row.get(4) if vals is not None else None
         t1 = time.perf_counter()
         with self._span("tpusketch/update", events=n), device_annotation("ig:tpusketch_update"):
-            with self._bundle_mu:
-                _, tok = bundle_ingest_step(self.bundle, hh_d, distinct_d, dist_d, w_d,
-                                            float(max(new_drops, 0)), v_d)
-            if self._hist_on:
-                wcms_ingest_step(self._wcms, hh_d, w_d)
-                hll_ingest_step(self._win_hll, distinct_d, w_d)
-                self._accumulate_slices(batch, n, hh, distinct, dist)
-            if self._inv_classes:
+            if self._shard_on:
+                # the window and class planes stay on the instance's
+                # device: the lane's staged arrays are copied there
+                if self._hist_on:
+                    wcms_ingest_step(self._wcms, hh_d.to(self.device), w_d.to(self.device))
+                    hll_ingest_step(self._win_hll, distinct_d.to(self.device), w_d.to(self.device))
+                    self._accumulate_slices(batch, n, hh, distinct, dist)
                 with self._bundle_mu:
-                    self._inv_class_absorb(hh_d, self._padded_mntns(batch, n, len(hh)), w)
-            self._fence(stager, tok)
+                    if self._inv_classes:
+                        self._inv_class_absorb(hh_d.to(self.device),
+                                               self._padded_mntns(batch, n, len(hh)), w)
+                    self._shard_absorb_locked(hh_d, distinct_d, dist_d, w_d,
+                                              float(max(new_drops, 0)), staged_slot, v_d)
+            else:
+                with self._bundle_mu:
+                    _, tok = bundle_ingest_step(self.bundle, hh_d, distinct_d, dist_d, w_d,
+                                                float(max(new_drops, 0)), v_d)
+                if self._hist_on:
+                    wcms_ingest_step(self._wcms, hh_d, w_d)
+                    hll_ingest_step(self._win_hll, distinct_d, w_d)
+                    self._accumulate_slices(batch, n, hh, distinct, dist)
+                if self._inv_classes:
+                    with self._bundle_mu:
+                        self._inv_class_absorb(hh_d, self._padded_mntns(batch, n, len(hh)), w)
+                self._fence(stager, tok)
         t2 = time.perf_counter()
         self._m_h2d.observe(t1 - t0)
         self._m_update.observe(t2 - t1)
@@ -907,7 +1073,7 @@ class TpuSketchInstance(OperatorInstance):
             tmin = float(batch.cols["ts"][:n].min())
             if tmin > 0.0:
                 oldest = tmin / 1e9
-        self._note_watermarks(batch.pop_ts, oldest)
+        self._note_watermarks(batch.pop_ts, oldest, lane)
         self._shadow_feed(hh[:n])
         self._label_sample(batch, hh, n)
         if self.anomaly_on:
@@ -924,9 +1090,11 @@ class TpuSketchInstance(OperatorInstance):
         if not self.enabled or fb.count == 0:
             return
         n = fb.count
+        lane = self._next_lane if self._shard_on else 0
         t0 = time.perf_counter()
         with self._span("tpusketch/h2d", events=n, pad=fb.capacity):
-            _pool, stager = self._staging_for(fb.capacity)
+            _pool, stager = (self._lane_staging(fb.capacity) if self._shard_on
+                             else self._staging_for(fb.capacity))
             block = fb.block if fb.block is not None else torch.from_numpy(fb.lanes)
             fvals = fb.values if self._qt_on else None
             if n < fb.capacity:
@@ -940,20 +1108,32 @@ class TpuSketchInstance(OperatorInstance):
                 k_d, w_d, v_d = stager.stage(block, (block[0], block[1], block[3]))
             else:
                 (k_d, w_d), v_d = stager.stage(block, (block[0], block[1])), None
+            staged_slot = stager.last_slot
         t1 = time.perf_counter()
         with self._span("tpusketch/update", events=n), device_annotation("ig:tpusketch_update"):
-            with self._bundle_mu:
-                # without a value lane the step zero-fills: every event lands
-                # in the zero bucket and totals stay honest
-                _, tok = bundle_ingest_step(self.bundle, k_d, k_d, k_d, w_d,
-                                            float(max(new_drops, 0)), v_d)
-            if self._hist_on:
-                wcms_ingest_step(self._wcms, k_d, w_d)
-                hll_ingest_step(self._win_hll, k_d, w_d)
-            if self._inv_classes:
+            if self._shard_on:
+                if self._hist_on:
+                    k_i, w_i = k_d.to(self.device), w_d.to(self.device)
+                    wcms_ingest_step(self._wcms, k_i, w_i)
+                    hll_ingest_step(self._win_hll, k_i, w_i)
                 with self._bundle_mu:
-                    self._inv_class_absorb(k_d, fb.mntns, fb.weights)
-            self._fence(stager, tok)
+                    if self._inv_classes:
+                        self._inv_class_absorb(k_d.to(self.device), fb.mntns, fb.weights)
+                    self._shard_absorb_locked(k_d, k_d, k_d, w_d, float(max(new_drops, 0)),
+                                              staged_slot, v_d)
+            else:
+                with self._bundle_mu:
+                    # without a value lane the step zero-fills: every event
+                    # lands in the zero bucket and totals stay honest
+                    _, tok = bundle_ingest_step(self.bundle, k_d, k_d, k_d, w_d,
+                                                float(max(new_drops, 0)), v_d)
+                if self._hist_on:
+                    wcms_ingest_step(self._wcms, k_d, w_d)
+                    hll_ingest_step(self._win_hll, k_d, w_d)
+                if self._inv_classes:
+                    with self._bundle_mu:
+                        self._inv_class_absorb(k_d, fb.mntns, fb.weights)
+                self._fence(stager, tok)
         t2 = time.perf_counter()
         self._m_h2d.observe(t1 - t0)
         self._m_update.observe(t2 - t1)
@@ -965,7 +1145,7 @@ class TpuSketchInstance(OperatorInstance):
         self._stats.steps += 1
         self._stats.events += n
         self._stats.drops = fb.drops
-        self._note_watermarks(fb.pop_ts, fb.oldest_ts)
+        self._note_watermarks(fb.pop_ts, fb.oldest_ts, lane)
         # folded batches carry real integer weights: the shadow honours them
         self._shadow_feed(fb.keys[:n], fb.weights[:n])
         self._after_batch()
@@ -973,8 +1153,10 @@ class TpuSketchInstance(OperatorInstance):
     def folded_block(self) -> torch.Tensor:
         """A pinned (4+, pad) staging block for ``pop_folded``: rows 0-2
         are the keys, weights and mntns lanes; row 3 is the value lane when
-        popped with ``with_values=True``."""
-        pool, _ = self._staging_for(self._pad)
+        popped with ``with_values=True``. Under shard-ingest it comes from
+        the pool of the lane the next `ingest_folded` lands on."""
+        pool, _ = (self._lane_staging(self._pad) if self._shard_on
+                   else self._staging_for(self._pad))
         return pool.get()
 
     # -- late enrichment (off the ingest path) --------------------------------
@@ -1112,7 +1294,7 @@ class TpuSketchInstance(OperatorInstance):
         t0 = time.perf_counter()
         end = self._hist_clock()
         with self._bundle_mu:
-            b = self.bundle
+            b = self._merged_locked()
             events = float(b.events)
             drops = float(b.drops)
             ent_now = self._ent_host(b)
@@ -1240,12 +1422,13 @@ class TpuSketchInstance(OperatorInstance):
         # the loop's time too
         inv_dev = qt_now = None
         with self._bundle_mu:
-            digest = bundle_digest(self.bundle)
-            if self._inv_on and self.bundle.inv is not None:
+            merged = self._merged_locked()
+            digest = bundle_digest(merged)
+            if self._inv_on and merged.inv is not None:
                 cap = min(4096, inv_capacity(self._inv_rows, self._inv_lb))
-                inv_dev = inv_decode_device(self.bundle.inv, sweeps=2, cap=cap)
-            if self._qt_on and self.bundle.quantiles is not None:
-                qt_now = self._qt_host(self.bundle)
+                inv_dev = inv_decode_device(merged.inv, sweeps=2, cap=cap)
+            if self._qt_on and merged.quantiles is not None:
+                qt_now = self._qt_host(merged)
             if self._inv_classes:
                 cls_snap = [(c, (s.count.cpu().numpy().astype(np.int64, copy=True),
                                  _lane_np(s.keysum), _lane_np(s.fpsum)))
@@ -1367,6 +1550,14 @@ class TpuSketchInstance(OperatorInstance):
                     _log.warning("teardown compaction failed: %r", e)
         if self._stager is not None:
             self._stager.drain()
+        if self._lane_stagers:
+            # the open round landed in the final harvest's merge above;
+            # flush again for a caller that skipped it, then release every
+            # lane's in-flight blocks
+            with self._bundle_mu:
+                self._dispatch_round_locked()
+            for st in self._lane_stagers:
+                st.drain()
         if self._sq_engine is not None:
             queries_engine.unregister(self.ctx.run_id)
         self._stats.unregister()
@@ -1442,7 +1633,7 @@ class TpuSketchInstance(OperatorInstance):
         with self._span("tpusketch/checkpoint", key=self._ckpt_key), \
                 device_annotation("ig:tpusketch_checkpoint"):
             with self._bundle_mu:
-                bundle_host = bundle_to_numpy(self.bundle)
+                bundle_host = bundle_to_numpy(self._merged_locked())
                 scorer_host = scorer_leaves(self.scorer) if self.scorer is not None else None
                 classes_host = ([x for _, s in self._inv_classes for x in self._inv_leaves(s)]
                                 if self._inv_classes else None)
@@ -1457,7 +1648,7 @@ class TpuSketchInstance(OperatorInstance):
     def heavy_hitter_rows(self, resolve: Callable[[int], str] | None = None,
                           k: int = 20) -> list[HeavyHitterRow]:
         with self._bundle_mu:
-            b = self.bundle
+            b = self._merged_locked()
             total = max(float(b.events), 1.0)
             keys = _lane_np(b.topk.keys)
             counts = b.topk.counts.cpu().numpy().copy()

@@ -8,11 +8,13 @@ reference donates its buffers instead) and return it.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Sequence
 
 import torch
 
 from ..device import resolve_device
 from .hashing import row_hashes, sum_wrap32
+from .lanes import psum
 
 
 @dataclass
@@ -62,3 +64,14 @@ def cms_query(state: CountMin, keys: torch.Tensor) -> torch.Tensor:
 def cms_merge(a: CountMin, b: CountMin) -> CountMin:
     return CountMin(table=a.table + b.table, total=a.total + b.total,
                     log2_width=a.log2_width)
+
+
+def cms_psum(lanes: Sequence[CountMin], group=None) -> CountMin:
+    """Cluster-wide merge (the reference's psum over the node axis,
+    ``ops/countmin.py:75``): the lanes' tables and totals summed in lane
+    order onto lane 0's device, then across `group`'s ranks. The int32
+    table wraps as the reference's; `total` is float32 (exact below
+    2**24)."""
+    return CountMin(table=psum([s.table for s in lanes], group),
+                    total=psum([s.total for s in lanes], group),
+                    log2_width=lanes[0].log2_width)

@@ -15,6 +15,7 @@ turn, whenever a bucket's running count stays below 2**24 (PERF.md §1).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -22,6 +23,7 @@ import torch
 from ..device import resolve_device
 from .hashing import _row_multiplier, row_salt
 from .kernels import histogram
+from .lanes import psum
 from .quantiles import fma_f32, xla_logf, xla_sum_f32
 
 _INV_LN2 = float(np.float32(1.0) / np.float32(np.log(np.float32(2.0))))  # XLA folds /log(2)
@@ -72,3 +74,11 @@ def entropy_estimate(state: EntropySketch) -> torch.Tensor:
 
 def entropy_merge(a: EntropySketch, b: EntropySketch) -> EntropySketch:
     return EntropySketch(counts=a.counts + b.counts, log2_width=a.log2_width)
+
+
+def entropy_psum(lanes: Sequence[EntropySketch], group=None) -> EntropySketch:
+    """Cluster-wide merge (reference ``ops/entropy.py:63``): the float32
+    counts summed in lane order, then across `group`. Exact while each
+    bucket's sum stays below 2**24."""
+    return EntropySketch(counts=psum([s.counts for s in lanes], group),
+                         log2_width=lanes[0].log2_width)

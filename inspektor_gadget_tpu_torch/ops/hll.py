@@ -15,12 +15,14 @@ sums them in XLA's order (`xla_sum_f32`) and takes linear counting's
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Sequence
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from .hashing import MASK32, fmix32
+from .lanes import psum
 from .quantiles import xla_log1pf, xla_logf, xla_sum_f32
 
 # XLA's CPU float32 exp2(-r) for r = 0..64 (every rank a register holds),
@@ -104,3 +106,9 @@ def hll_estimate(state: HLL) -> torch.Tensor:
 
 def hll_merge(a: HLL, b: HLL) -> HLL:
     return HLL(registers=torch.maximum(a.registers, b.registers), p=a.p)
+
+
+def hll_pmax(lanes: Sequence[HLL], group=None) -> HLL:
+    """Cluster-wide merge (reference ``ops/hll.py:73``): the registers'
+    elementwise max over the lanes, then across `group`."""
+    return HLL(registers=psum([s.registers for s in lanes], group, op="max"), p=lanes[0].p)

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -31,6 +32,7 @@ import torch
 from ..device import resolve_device
 from .hashing import (MASK32, _row_multiplier, fmix32, fmix32_np, hashed_bucket, mul32,
                       row_salt, u32)
+from .lanes import psum
 
 # hash rows disjoint from the count-min rows, fixed so state built
 # anywhere merges coherently
@@ -125,6 +127,17 @@ def inv_merge(a: InvSketch, b: InvSketch) -> InvSketch:
                      keysum=(a.keysum + b.keysum) & MASK32,
                      fpsum=(a.fpsum + b.fpsum) & MASK32,
                      log2_buckets=a.log2_buckets)
+
+
+def inv_psum(lanes: Sequence[InvSketch], group=None) -> InvSketch:
+    """Cluster-wide merge (reference ``ops/invertible.py:166``): each lane
+    summed in lane order, then across `group`. The count wraps as int32;
+    the key and fingerprint sums, uint32 lanes kept as int64, are masked
+    after the sum."""
+    return InvSketch(count=psum([s.count for s in lanes], group),
+                     keysum=psum([s.keysum for s in lanes], group).bitwise_and_(MASK32),
+                     fpsum=psum([s.fpsum for s in lanes], group).bitwise_and_(MASK32),
+                     log2_buckets=lanes[0].log2_buckets)
 
 
 # -- decode: the device loop ----------------------------------------------------

@@ -18,12 +18,14 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Sequence
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from .hashing import u32
+from .lanes import psum
 
 # Cephes logf constants exactly as float32 (XLA's CPU lowering of log)
 _LOG_MIN_NORMAL = float.fromhex("0x1p-126")
@@ -229,6 +231,16 @@ def dd_quantile(state: DDSketch, q) -> torch.Tensor:
 def dd_merge(a: DDSketch, b: DDSketch) -> DDSketch:
     return DDSketch(counts=a.counts + b.counts, zeros=a.zeros + b.zeros,
                     total=a.total + b.total, alpha=a.alpha, min_value=a.min_value)
+
+
+def dd_psum(lanes: Sequence[DDSketch], group=None) -> DDSketch:
+    """Cluster-wide quantiles (reference ``ops/quantiles.py:119``): the
+    int32 counts, zeros and total summed in lane order, then across
+    `group`."""
+    return DDSketch(counts=psum([s.counts for s in lanes], group),
+                    zeros=psum([s.zeros for s in lanes], group),
+                    total=psum([s.total for s in lanes], group),
+                    alpha=lanes[0].alpha, min_value=lanes[0].min_value)
 
 
 # -- host twins (numpy, float64) --------------------------------------------

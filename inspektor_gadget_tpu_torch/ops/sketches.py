@@ -17,11 +17,14 @@ reference does; `events` adds the batch's exact weight sum rounded to
 float32 once, where the reference sums in float32 in XLA's order (equal
 whenever a batch's weight sum is below 2**24); the entropy delta is
 exact (see `entropy.py`). Updates change the bundle in place, where the
-reference donates it, and return it.
+reference donates it, and return it. The sharded ingest keeps one bundle
+a device lane and merges them only at harvest (below).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -193,6 +196,103 @@ def bundle_merge(a: SketchBundle, b: SketchBundle) -> SketchBundle:
         events=a.events + b.events, drops=a.drops + b.drops,
         inv=_merge_optional(a.inv, b.inv, inv_merge),
         quantiles=_merge_optional(a.quantiles, b.quantiles, dd_merge))
+
+
+def bundle_map(fn, b: SketchBundle) -> SketchBundle:
+    """A new bundle of `fn(t)` for every tensor leaf of `b`, its geometry
+    kept (a copy, a move to another device, zeros like it)."""
+    rep = dataclasses.replace
+    return SketchBundle(
+        cms=rep(b.cms, table=fn(b.cms.table), total=fn(b.cms.total)),
+        hll=rep(b.hll, registers=fn(b.hll.registers)),
+        entropy=rep(b.entropy, counts=fn(b.entropy.counts)),
+        topk=rep(b.topk, keys=fn(b.topk.keys), counts=fn(b.topk.counts),
+                 overflow=fn(b.topk.overflow)),
+        events=fn(b.events), drops=fn(b.drops),
+        inv=(rep(b.inv, count=fn(b.inv.count), keysum=fn(b.inv.keysum), fpsum=fn(b.inv.fpsum))
+             if b.inv is not None else None),
+        quantiles=(rep(b.quantiles, counts=fn(b.quantiles.counts), zeros=fn(b.quantiles.zeros),
+                       total=fn(b.quantiles.total))
+                   if b.quantiles is not None else None))
+
+
+# -- sharded ingest: one bundle a lane, merged only at harvest -----------------
+# A "mesh" is an ordered list of lane devices (parallel/mesh.py); lanes may
+# share a device when the caller lists one twice. Each lane holds its own
+# bundle on its own device and absorbs its own staged batch with the same
+# bundle_update_fused step the single-device path runs (one K2 a lane and
+# round, launched on the lane's device and its current stream). The
+# harvest is the only cross-lane work: parallel.cluster's cluster_merge
+# (sum the additive planes, max the HLL registers, gather every lane's
+# top-k candidates and re-rank them against the merged count-min), so the
+# harvested bundle is bit-identical to the single-lane fold of the same
+# stream (tests/test_torch_sharded_ingest.py). parallel.cluster imports
+# this module, so the makers import it when called.
+
+def bundle_stack_sharded(bundle: SketchBundle, mesh) -> list[SketchBundle]:
+    """One bundle a lane of `mesh`: lane 0 a copy of `bundle` (so a
+    resumed checkpoint's counts enter the harvest exactly once), the other
+    lanes empty, each on its lane's device (reference ``:304``)."""
+    return [bundle_map(lambda t, d=d, k=k: (t.to(d, copy=True) if k == 0
+                                            else torch.zeros_like(t, device=d)), bundle)
+            for k, d in enumerate(mesh)]
+
+
+def _lane_device(d: torch.device):
+    return torch.cuda.device(d) if d.type == "cuda" else contextlib.nullcontext()
+
+
+def make_bundle_ingest_sharded(mesh, like: SketchBundle):
+    """The sharded ingest step (reference ``:325``): ``step(lanes, hh,
+    distinct, dist, weights, drops, values=None) -> (lanes, token)``.
+
+    Each batch argument holds one entry a lane (a list of tensors, or a
+    (chips, batch) tensor on one device), lane k's on lane k's device;
+    `drops` one float or 0-d tensor a lane; `values` the DDSketch value
+    lanes, when `like` has the plane (absent: zeros, every event in the
+    zero bucket). Lane k's bundle absorbs lane k's batch through
+    `bundle_ingest_step` under its own device, so K2 launches once a lane
+    on the lane's device and current stream. The lanes update in place.
+    The token holds each lane's fence, as `bundle_ingest_step` gives it
+    (a CUDA event on the card, a copy of the lane's events on the CPU),
+    for that lane's stager."""
+    from ..parallel.mesh import lane_device
+    mesh = [lane_device(d) for d in mesh]
+    qt = like.quantiles is not None
+
+    def step(lanes, hh, distinct, dist, weights, drops, values=None):
+        if len(lanes) != len(mesh):
+            raise ValueError(f"{len(lanes)} lane bundles for a mesh of {len(mesh)}")
+        tokens = []
+        for k, (b, d) in enumerate(zip(lanes, mesh)):
+            for name, arr in (("hh", hh), ("distinct", distinct), ("dist", dist),
+                              ("weights", weights)):
+                if arr[k].device != d:
+                    raise ValueError(f"lane {k}: {name} lies on {arr[k].device}, "
+                                     f"not on the lane's device {d}")
+            with _lane_device(d):
+                _, tok = bundle_ingest_step(b, hh[k], distinct[k], dist[k], weights[k], drops[k],
+                                            values[k] if qt and values is not None else None)
+            tokens.append(tok)
+        return lanes, tokens
+
+    return step
+
+
+def make_bundle_harvest_sharded(mesh, like: SketchBundle):
+    """The collective harvest (reference ``:374``): ``harvest(lanes) ->``
+    ONE merged bundle on lane 0's device, `cluster_merge` itself, so lane
+    counts cannot fork the merge algebra. It reads the lanes and changes
+    none of them: ingest goes on updating them after a harvest."""
+    from ..parallel.cluster import cluster_merge
+    n = len(mesh)
+
+    def harvest(lanes: list[SketchBundle]) -> SketchBundle:
+        if len(lanes) != n:
+            raise ValueError(f"{len(lanes)} lane bundles for a mesh of {n}")
+        return cluster_merge(lanes)
+
+    return harvest
 
 
 def bundle_digest(b: SketchBundle) -> torch.Tensor:

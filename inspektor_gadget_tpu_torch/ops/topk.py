@@ -12,12 +12,14 @@ reference.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Sequence
 
 import torch
 
 from ..device import resolve_device
 from .countmin import CountMin, cms_query
 from .hashing import u32
+from .lanes import group_gather, psum
 
 
 @dataclass
@@ -88,3 +90,19 @@ def topk_merge(a: TopK, b: TopK, cms: CountMin | None = None) -> TopK:
 
 def topk_values(state: TopK) -> tuple[torch.Tensor, torch.Tensor]:
     return state.keys, state.counts
+
+
+def topk_gather_merge(lanes: Sequence[TopK], cms_merged: CountMin, group=None) -> TopK:
+    """Cluster-wide merge (reference ``ops/topk.py:92``): every lane's
+    candidates in global lane order (this process's lanes in order, then
+    gathered across `group` in rank order), refreshed against the merged
+    count-min and re-ranked by ONE `_dedupe_topk`; `overflow` is the max
+    over the lanes. A pairwise `topk_merge` fold would not do: the stable
+    sorts break ties by position, so the candidates' order is part of the
+    answer."""
+    dev = cms_merged.table.device
+    keys = group_gather(torch.cat([s.keys.to(dev) for s in lanes]), group)
+    est = cms_query(cms_merged, keys).to(torch.int64)
+    counts = torch.where(keys == 0, torch.full_like(est, -1), est)
+    overflow = psum([s.overflow for s in lanes], group, op="max")
+    return _dedupe_topk(keys, counts, lanes[0].keys.shape[0], overflow)

@@ -15,8 +15,8 @@ The port's copy of ``inspektor_gadget_tpu/runtime/grpc_runtime.py``: the
 same params, verbs, per-node accounting and ``ig_runtime_*`` metrics (in
 the port's own registry), over the port's `AgentClient`, so it fans out
 to port agents and reference agents alike (both speak the same
-``ig.proto`` bytes). The aggregation tier that ``query_history(topology=
-...)`` routes through is ROADMAP item 11 and raises naming it.
+``ig.proto`` bytes). ``query_history(topology=...)`` routes the fold
+through the port's aggregation tier (`fleet.fold_tree`).
 """
 
 from __future__ import annotations
@@ -311,9 +311,14 @@ class GrpcRuntime(Runtime):
         in the answer, never fatal: a crashed node's peers still answer
         for their share.
 
-        With `topology` the fold would route through the aggregation
-        tier (ROADMAP item 11): it raises NotImplementedError naming
-        it."""
+        With `topology` (a fleet.Topology or a spec string — "auto",
+        "auto:<fan_in>", or the declared zone grammar), the fold routes
+        through the aggregation tier instead of one flat client loop:
+        per-node summaries fold zone-by-zone up the merge tree
+        (fleet.fold_tree), byte-identical to the flat fold by the merge
+        algebra's associativity, with per-leaf path accounting and a
+        flat re-fold of any subtree whose aggregator fails. The tree's
+        shape accounting lands in `answer.fleet`."""
         import grpc as _grpc
 
         from ..history import (answer_query, decode_frames,
@@ -390,11 +395,60 @@ class GrpcRuntime(Runtime):
 
     def _query_history_tree(self, topology, *, key: str | None, top: int,
                             pushdown: bool, **kw) -> "Any":
-        """query_history routed through the fleet aggregation tier: the
-        tier (`fleet.fold_tree`, the topology grammar) is ROADMAP item 11."""
-        raise NotImplementedError(
-            "query_history(topology=...): the fleet aggregation tier is not ported to "
-            "ig-tpu-torch yet (ROADMAP item 11)")
+        """query_history routed through the fleet aggregation tier."""
+        import grpc as _grpc
+
+        from ..fleet import flat_summary, fold_tree, parse_topology
+        from ..fleet.topology import Topology
+        from ..history import (answer_query, decode_frames,
+                               dedupe_compacted, level_counts)
+        if not isinstance(topology, Topology):
+            topology = parse_topology(str(topology), self.targets)
+        gadget = kw.get("gadget") or "fleet"
+
+        def fetch_leaf(node: str) -> dict:
+            """One leaf's share, reduced to the pushdown reply shape
+            (ONE merged window + accounting). Pre-pushdown agents fall
+            back to list+fetch and fold client-side to the same shape;
+            unreachable agents raise (fold_tree isolates them)."""
+            client = self._client(node)
+            if pushdown:
+                try:
+                    return client.query_windows(key=key, **kw)
+                except _grpc.RpcError as e:
+                    if e.code() != _grpc.StatusCode.UNIMPLEMENTED:
+                        raise RuntimeError(
+                            f"{e.code().name}: {e.details()}") from e
+                    # pre-pushdown agent: fall through to list+fetch
+            listing = client.list_windows(key=key, **kw)
+            if listing.get("windows"):
+                frames, losses = client.fetch_windows(key=key, **kw)
+            else:
+                frames, losses = [], listing.get("losses") or []
+            kept, notes = dedupe_compacted(decode_frames(frames))
+            return {"node": node,
+                    "window": flat_summary(kept, gadget=gadget, node=node),
+                    "folded": True, "levels": level_counts(kept),
+                    "torn": 0, "dropped": notes, "losses": losses}
+
+        tf = fold_tree(topology, fetch_leaf, gadget=gadget)
+        ans = answer_query(
+            [tf.window] if tf.window is not None else [],
+            key=key, top=top, dropped=tf.dropped, errors=tf.errors,
+            levels=tf.levels, paths=tf.paths)
+        # the root window answers as node "fleet"; report the leaves
+        # that actually contributed, like the flat fold does
+        ans.nodes = [n for n in sorted(tf.paths)
+                     if tf.paths.get(n) != "unreachable"]
+        ans.fleet = {
+            "depth": tf.depth,
+            "fan_in": topology.fan_in(),
+            "aggregators": len(topology.aggregators()),
+            "subtree_folds": tf.subtree_folds,
+            "fallback": list(tf.fallback),
+            "aggregate": tf.aggregate,
+        }
+        return ans
 
     # -- shared-run plane (subscribe-aware fan-out) --------------------------
 

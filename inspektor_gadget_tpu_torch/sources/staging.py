@@ -150,9 +150,19 @@ class H2DStager:
                                       lane=self._lane_i)
         return devs
 
+    @property
+    def last_slot(self) -> int:
+        """The ring index of the most recently staged slot."""
+        return (self._i - 1) % self.depth
+
     def fence(self, token: Any) -> None:
         """Tie the most recently staged slot's release to `token`."""
-        j = (self._i - 1) % self.depth
+        self.fence_slot(self.last_slot, token)
+
+    def fence_slot(self, j: int, token: Any) -> None:
+        """Tie slot `j`'s release to `token`: a slot staged earlier whose
+        consumer ran later (the sharded ingest dispatches a lane's batch
+        when its round is full)."""
         slot = self._slots[j]
         if slot is not None:
             self._slots[j] = (slot[0], token)

@@ -2,7 +2,7 @@
 one agent on the CPU — the eight cases of ``tests/test_shared_runs_e2e.py``
 with the fleet taken out (the fleet half, with the port's fan-out
 runtime and chaos proxy, is ``tests/test_torch_shared_fleet.py``; the
-`fleet runs` CLI is ROADMAP item 11): the owner is an AgentClient
+`fleet runs` CLI runs in ``tests/test_torch_cli_routes.py``): the owner is an AgentClient
 run request with ``share=True``, the other subscribers attach to it.
 
 - K subscribers ride ONE gadget (run registry and active-runs gauge

@@ -219,7 +219,13 @@ def test_port_imports_no_jax():
             "inspektor_gadget_tpu_torch.fleet", "inspektor_gadget_tpu_torch.fleet.aggregator",
             "inspektor_gadget_tpu_torch.agent.dialer", "inspektor_gadget_tpu_torch.cli.deploy",
             "inspektor_gadget_tpu_torch.cli.apply",
-            "inspektor_gadget_tpu_torch.testing.chaos"} \
+            "inspektor_gadget_tpu_torch.testing.chaos",
+            "inspektor_gadget_tpu_torch.ops.lanes", "inspektor_gadget_tpu_torch.parallel.mesh",
+            "inspektor_gadget_tpu_torch.parallel.distributed",
+            "inspektor_gadget_tpu_torch.parallel.cluster",
+            "inspektor_gadget_tpu_torch.fleet.collective",
+            "inspektor_gadget_tpu_torch.fleet.topology", "inspektor_gadget_tpu_torch.fleet.sim",
+            "inspektor_gadget_tpu_torch.cli.fleet"} \
         <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -198,8 +198,8 @@ def test_lingering_run_visible_then_self_cancels(chaos_agents):
     assert row, "detached run not visible in DumpState"
     assert row["resumable"] and row["detached_for"] >= 0.0
 
-    # …and `debug state` shows it to a user (`fleet health`, which
-    # renders it as "awaiting resume", is ROADMAP item 11)
+    # …and `debug state` shows it to a user, and the fleet health CLI
+    # renders it as awaiting resume
     from inspektor_gadget_tpu_torch.cli.main import main as cli_main
     import io
     import contextlib
@@ -210,6 +210,11 @@ def test_lingering_run_visible_then_self_cancels(chaos_agents):
     shown = json.loads(buf.getvalue().split("\n", 1)[1])
     assert any(r["run_id"] == "linger-unit" and not r["attached"] and r["resumable"]
                for r in shown["runs"])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["fleet", "health", "--remote", f"cnode-1={target}"])
+    assert rc == 0
+    assert "awaiting resume: linger-unit" in buf.getvalue()
 
     # past the linger window the run cancels itself and the stream
     # state retires — no zombie gadget, no registry growth

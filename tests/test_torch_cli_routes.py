@@ -11,7 +11,8 @@ start|stop|list --remote``, ``record stop --fetch``, ``record
 fetch``, ``replay`` of a fetched bundle, ``deploy --render|--apply``
 (against `FakeClusterApplier`), ``undeploy --render|--apply``, ``traces``,
 and ``debug``, ``debug trace export`` and ``alerts list`` without
-``--remote``. ``deploy --local`` spawns agents: it runs in
+``--remote``; so do ``query --remote --topology`` and every ``fleet``
+verb (item 11). ``deploy --local`` spawns agents: it runs in
 ``tests/test_torch_deploy.py``.
 """
 
@@ -132,6 +133,41 @@ def route_query_remote(fleet, capsys, tmp_path, recorded):
     ans = json.loads(capsys.readouterr().out)
     assert ans["paths"] == {"n0": "pushdown", "n1": "pushdown"}
     assert sorted(ans["nodes"]) == ["n0", "n1"] and ans["events"] > 0
+
+
+def route_query_topology(fleet, capsys, tmp_path, recorded):
+    """--topology folds the same windows through the aggregation tier:
+    the answer is the flat query's."""
+    base = ["query", "--remote", fleet["remote"], "--gadget", "trace/exec", "-o", "json"]
+    assert cli.main(base) == 0
+    flat = json.loads(capsys.readouterr().out)
+    assert cli.main([*base, "--topology", "auto:2"]) == 0
+    tree = json.loads(capsys.readouterr().out)
+    for k in ("events", "distinct", "entropy_bits", "heavy_hitters", "windows", "inv"):
+        assert tree[k] == flat[k], k
+    assert tree["paths"] == {"n0": "tree", "n1": "tree"}
+    assert tree["fleet"]["depth"] == 1 and tree["fleet"]["aggregators"] == 1
+    assert cli.main([*base[:-2], "--topology", "za=n0"]) == 2
+    assert "not placed in any zone" in capsys.readouterr().err
+
+
+def route_fleet_health(fleet, capsys, tmp_path):
+    assert cli.main(["fleet", "health", "--remote", fleet["remote"], "-o", "json"]) == 0
+    rows = json.loads(capsys.readouterr().out)["agents"]
+    assert {r["node"]: r["state"] for r in rows} == {"n0": "healthy", "n1": "healthy"}
+    # no --remote: the local fleet's state file names the same agents
+    assert cli.main(["fleet", "health"]) == 0
+    assert "healthy" in capsys.readouterr().out
+
+
+def route_fleet_verbs(fleet, capsys, tmp_path):
+    for verb in ("runs", "queries", "lag", "accuracy"):
+        assert cli.main(["fleet", verb, "--remote", fleet["remote"], "-o", "json"]) == 0, verb
+        doc = json.loads(capsys.readouterr().out)
+        assert [r["node"] for r in doc["agents"]] == ["n0", "n1"], verb
+        assert all(not r["error"] for r in doc["agents"]), verb
+    assert cli.main(["fleet", "topology", "--remote", fleet["remote"]]) == 0
+    assert "merge tree over 2 agent(s): depth 1" in capsys.readouterr().out
 
 
 def route_watch_remote(fleet, capsys, tmp_path):
@@ -297,10 +333,19 @@ def test_remote_routes_run_against_port_agents(route, fleet, capsys, tmp_path, r
     fn(fleet, capsys, tmp_path, **kwargs)
 
 
-@pytest.mark.parametrize("argv,item", [(["fleet", "health"], "11"), (["bench", "run"], "20"),
-                                       (["doctor"], "19"),
-                                       (["query", "--topology", "auto"], "11")],
-                         ids=["fleet", "bench", "doctor", "query-topology"])
-def test_unported_routes_still_exit_2_naming_their_item(argv, item, capsys):
+@pytest.mark.parametrize("argv,said", [
+    (["fleet", "health"], "no agents (use deploy --local N or --remote)"),
+    (["bench", "run"], "(ROADMAP item 20)"),
+    (["doctor"], "(ROADMAP item 19)"),
+    (["query", "--topology", "auto"], "--topology needs --remote")],
+    ids=["fleet", "bench", "doctor", "query-topology"])
+def test_unported_routes_still_exit_2_naming_their_item(argv, said, capsys, monkeypatch,
+                                                         tmp_path):
+    """`bench` and `doctor` exit 2 naming their ROADMAP items. `fleet` and
+    `query --topology` are ported: without an agent to ask (no local
+    fleet, no --remote) they exit 2 saying so, as the reference's do."""
+    monkeypatch.setenv(STATE_FILE_ENV, str(tmp_path / "no-agents.json"))
     assert cli.main(argv) == 2
-    assert f"(ROADMAP item {item})" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert said in err
+    assert "ROADMAP item 11" not in err

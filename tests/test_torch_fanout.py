@@ -12,7 +12,9 @@ the CPU, over real gRPC on unix sockets under pytest temp directories:
   alike: events, distinct and entropy bit for bit, heavy hitters and the
   invertible plane equal;
 - mixed fleets: port agent n0 beside reference agent n1, driven by each
-  package's `GrpcRuntime` to the same answer as the pure fleets.
+  package's `GrpcRuntime` to the same answer as the pure fleets;
+- the aggregation tier: `query_history(topology="auto:2")` answers as
+  the flat fold and as the reference's tree.
 """
 
 from __future__ import annotations
@@ -357,10 +359,35 @@ def test_mixed_fleet_answers_alike_through_either_runtime(folded):
         _same_summary(sub_port[node], pure[node])
 
 
-def test_query_history_topology_raises_naming_item_11(agents):
-    rt = GrpcRuntime(dict(agents))
+def test_query_history_topology_raises_naming_item_11(folded):
+    """`query_history(topology=...)` routes through the aggregation tier
+    (item 11, once a NotImplementedError naming it): over the port fleet
+    it answers as the flat fold does, and as the reference's tree over
+    the reference fleet; a spec that omits an agent raises TopologyError."""
+    from inspektor_gadget_tpu_torch.fleet import TopologyError
+
+    def tree(runtime_cls, targets):
+        rt = runtime_cls(targets)
+        try:
+            d = rt.query_history(gadget="trace/exec", top=20, topology="auto:2").to_dict()
+        finally:
+            rt.close()
+        for k in ("start_ts", "end_ts"):
+            d.pop(k)
+        return d
+
+    port_targets = _fleet_targets(folded, "port")
+    got = tree(GrpcRuntime, port_targets)
+    flat = _answer(GrpcRuntime, port_targets)
+    want = tree(RefRuntime, _fleet_targets(folded, "reference"))
+    for k in ("events", "distinct", "entropy_bits", "heavy_hitters", "inv", "windows",
+              "nodes", "levels"):
+        assert got[k] == flat[k], k
+    assert got["paths"] == {"n0": "tree", "n1": "tree"}
+    assert got == want
+    rt = GrpcRuntime(port_targets)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            rt.query_history(topology="auto")
+        with pytest.raises(TopologyError, match="not placed in any zone"):
+            rt.query_history(gadget="trace/exec", topology="za=n0")
     finally:
         rt.close()

@@ -485,8 +485,8 @@ def test_cross_param_errors_match_the_reference(kw, match, tmp_path, monkeypatch
     (dict(quantile_alpha=0.5), "quantile-alpha must be in"),
     (dict(anomaly_model="lstm"), "not in \\['ae', 'vae', 'seq'\\]"),
     (dict(chips="x"), "not an integer or 'auto'"),
-    (dict(shard_ingest=True), "ROADMAP item 11"),
-    (dict(chips=4), "ROADMAP item 11"),
+    (dict(shard_ingest=True), "this host exposes 1 device"),
+    (dict(chips=4), "exceeds the 1 local device"),
     (dict(standing_queries='[{"id": "q", "stats": ["topk"], "range": "1m"}]'),
      "needs 'history true'"),
     (dict(history=True, standing_queries="[]"), "no queries defined"),

@@ -194,10 +194,26 @@ def test_fleet_aggregate_fields_match_wire_contract():
         set(wire.FLEET_AGGREGATE_FIELDS)
 
 
+def test_fleet_aggregate_header_matches_proto_fields():
+    """A real aggregator publish of the port's tier: its accounting keys
+    are the proto's FleetAggregate fields, as in the reference's case."""
+    from inspektor_gadget_tpu_torch.agent import wire
+    from inspektor_gadget_tpu_torch.fleet import AggregatorNode
+    from inspektor_gadget_tpu_torch.fleet.sim import make_window
+
+    agg = AggregatorNode("zone-a", ["n0", "n1"], gadget="t/p")
+    agg.observe("n0", make_window("n0", 1, gadget="t/p"))
+    sealed, acct = agg.publish()
+    assert sealed is not None
+    assert set(acct) == _message_fields(_proto_source(), "FleetAggregate")
+    assert acct["schema"] == wire.FLEET_AGGREGATE_SCHEMA
+    assert acct["missing"] == ["n1"]
+    assert acct["digest"] == sealed.digest
+
+
 def test_proto_and_stubs_are_the_reference_s_byte_for_byte():
     """The wire contract is one file: the port's ig.proto and ig_pb2.py
-    are the reference's copies, unchanged (the fleet aggregator that the
-    reference's header case builds is ROADMAP item 11)."""
+    are the reference's copies, unchanged."""
     import pathlib
     root = pathlib.Path(__file__).parent.parent
     for name in ("ig.proto", "ig_pb2.py"):

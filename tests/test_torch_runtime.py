@@ -263,8 +263,8 @@ def test_top_sketch_reads_the_live_instance(sketch_runs):
 
 
 @pytest.mark.parametrize("sketch, item", [
-    ({"chips": "2"}, "ROADMAP item 11"),
-    ({"shard-ingest": "true"}, "ROADMAP item 11"),
+    ({"chips": "2"}, "exceeds the 1 local device(s)"),
+    ({"shard-ingest": "true"}, "needs >= 2 local devices"),
     ({"standing-queries": '[{"id": "q", "stats": ["topk"], "range": "1m"}]'},
      "needs 'history true'"),
     ({"history": "true", "standing-queries": "[]"}, "no queries defined"),
