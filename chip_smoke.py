@@ -235,6 +235,42 @@ on the CPU. (d) In 5k(b), beside its CLI run and at the same time:
 --topology auto:2`` over the windows the warm-up runs sealed, each exit
 0, the topology answer the flat one's.
 
+The doctor, its CUDA probe and the stress harnesses (phase 5m, ROADMAP
+19, 21): ``ig-tpu-torch doctor`` and ``doctor -o json`` as subprocesses
+at once, exit 1 if and only if a gadget is unavailable (1 is expected on
+the card's host, which lacks most kernel windows); the windows
+host_facts() probes through the capture library agree with the doctor's
+rows, the gadget rows are the catalog's 30, the toolchain row names nvcc
+building sm_90a, and the topology row (this process, CUDA initialised)
+names the card; `platform_probe.acquire_platform("cuda")` names torch's
+card with compute capability 9.0; ring_stress and source_stress, built
+by g++ with the kernels in phase 2 (plain, and under ThreadSanitizer
+where g++ takes it; source_stress as root), run at once, each to exit
+0. Phase 5j(b) checks the agent's probe line and start-up report.
+
+Training-side parallelism (phase 5n, ROADMAP 13), at the reference's
+widths on lanes of cuda:0 (a check of the lane algebra, not a
+deployment), each comparison repeated on CPU lanes in the same call:
+`make_ep_moe` over 2 and 4 lanes (8192 tokens, d 128, 8 experts of
+d_ff 256) against the one-lane MoE routed with each shard's capacity
+(2e-2), routing compared card vs CPU; `make_ep_train_step(attn="flash")`
+over 2 and 4 lanes (the seq defaults with 8 experts, 16 windows of 256)
+against the one-lane step with per-shard capacity, K3 once a lane a
+layer, the memory allocated unchanged from step 3 to 8;
+`make_sp_train_step` (ring, ulysses) over 4 lanes against
+`seq_train_step`; each train step's losses within 1e-3 relative at every
+step, and its first step held to the other run's from the same weights:
+the gradient (Adam's first moment) within 5e-2 of its leaf's largest,
+the update within 5% of lr wherever the gradient is clearly non-zero
+(`_update_agrees`); `ring_attention` at [16, 4096, 4, 32] f32 against
+`blockwise_attention` (2e-5; the CPU takes 4 of the 16 rows); the
+pipeline's forward and SGD step over 4 stages (d 128, d_ff 256) against
+the sequential blocks (1e-5 of the output's magnitude); and
+`cluster_sketch_step(use_tp=True)` on a 2 x 2 mesh (production sketch
+geometry, the AE at 4096 -> 512 -> 128 bf16) against the DP step:
+bundles bit-equal, the losses and the first step as the train steps
+above, K1 once a node lane a step.
+
 The launch counts are set to 0 just before each card run of a path and
 read just after it.
 
@@ -249,6 +285,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -1929,6 +1966,8 @@ REAL_KINDS = {"open": {3}, "mount": {10}, "signal": {9}, "oomkill": {11}, "capab
               "bind": {8}, "fsslower": {13}, "tcp": {4, 5, 6}, "tcpconnect": {4}, "dns": {7},
               "sni": {16}, "network": {17}}
 TRACE_SECONDS = 3.0  # each real-window run's timeout
+TCP_DELAY = 1.5  # trace tcp's trigger waits this much longer (its set-up against the scanner)
+TCP_BLACK_BOX_S = 90.0  # the black box's workload connects until its row streams, at most this
 BIND_PORTS = (48712, 48713)  # tests/test_real_capture.py's TCP and UDP listeners
 DNS_QNAME = "chip-smoke.example.com"
 
@@ -1988,10 +2027,10 @@ def trace_family(device: str, batch: int, exec_ev_per_s: float) -> dict:
 
 def real_run(device: str, gadget: str, flags: dict, trigger=None,
              timeout: float = TRACE_SECONDS, category: str = "trace",
-             output: str = "columns") -> dict:
+             output: str = "columns", delay: float = 0.6) -> dict:
     """<category>/<gadget> (a trace gadget by default) with ``--source
     native --tpusketch-enable true`` and `timeout` through `LocalRuntime`,
-    `trigger` run 0.6 s after the start; the last summary's events must
+    `trigger` run `delay` s after the start; the last summary's events must
     equal the events the gadget handed on (and a trace gadget's rows
     those events), and K2 must have run once a non-empty batch. A trace
     or audit gadget's rows come back decoded; a result gadget's result
@@ -2026,7 +2065,7 @@ def real_run(device: str, gadget: str, flags: dict, trigger=None,
     th = threading.Thread(target=run)
     th.start()
     try:
-        time.sleep(0.6)
+        time.sleep(delay)
         if trigger is not None:
             trigger()
     finally:
@@ -2130,7 +2169,11 @@ def real_windows(device: str, facts: dict) -> dict:
                     c.close()
                     conn.close()
                     time.sleep(0.2)
-        r = real_run(device, "tcp", {}, connect)
+        # the /proc/net/tcp scanner calls a socket an accept when it first
+        # sees it listening: the listener must open after the scanner's
+        # first pass, which a slow host's run set-up can push past 0.6 s
+        r = real_run(device, "tcp", {}, connect, timeout=TRACE_SECONDS + TCP_DELAY,
+                     delay=0.6 + TCP_DELAY)
         ops = {e.operation for e in r["rows"] if box["port"] in (e.dport, e.sport)}
         require({"connect", "accept", "close"} <= ops,
                 f"trace tcp ({window}): the listener's port {box['port']} in rows of "
@@ -2191,20 +2234,28 @@ def trace_tcp_black_box() -> dict:
     """``ig-tpu-torch trace tcp --source native -o json`` through the
     port's step framework, as tests/test_torch_steps.py runs it: a
     start-and-stop `Command` beside a workload that connects to a local
-    listener for 14 s (the CLI's start is inside that), each connection
-    held 0.2 s, the connect row held by `expect_entries_to_match`."""
+    listener, each connection held 0.2 s, until the command has streamed
+    a connect row for the listener's port and made two more (the CLI's
+    start takes 7-24 s on the card's hosts), or for TCP_BLACK_BOX_S; the
+    connect row held by `expect_entries_to_match`."""
     from inspektor_gadget_tpu_torch.testing import (Command, FuncStep, build_common_data,
                                                     expect_entries_to_match, run_test_steps)
     from inspektor_gadget_tpu_torch.testing.steps import ig_cli
-    box: dict = {"connects": 0}
+    box: dict = {"connects": 0, "seen_s": None}
+
+    def streamed_connect() -> bool:
+        rows = [json.loads(ln) for ln in cmd.output().splitlines() if ln.startswith("{")]
+        return any(r.get("operation") == "connect" and r.get("dport") == box["port"]
+                   for r in rows)
 
     def workload() -> None:
         ls = socket.socket()
         ls.bind(("127.0.0.1", 0))
         ls.listen(8)
         box["port"] = ls.getsockname()[1]
-        deadline = time.monotonic() + 14.0
-        while time.monotonic() < deadline:
+        t_start = time.monotonic()
+        more = None
+        while time.monotonic() < t_start + TCP_BLACK_BOX_S and more != 0:
             c = socket.create_connection(("127.0.0.1", box["port"]), timeout=2.0)
             conn, _ = ls.accept()
             time.sleep(0.2)  # past a /proc/net/tcp poll, where that is the window
@@ -2212,6 +2263,10 @@ def trace_tcp_black_box() -> dict:
             conn.close()
             box["connects"] += 1
             time.sleep(0.2)
+            if more is None and streamed_connect():
+                box["seen_s"], more = round(time.monotonic() - t_start, 1), 2
+            elif more:
+                more -= 1
         ls.close()
 
     def normalize(e: dict) -> None:
@@ -2237,8 +2292,10 @@ def trace_tcp_black_box() -> dict:
     secs = time.perf_counter() - t0
     log(f"[trace] (5h b) black box: ig-tpu-torch trace tcp --source native -o json through "
         f"the step framework: {box['rows']} rows, the connect to port {box['port']} matched "
-        f"({box['connects']} connects), exit {cmd.returncode}, {secs:.1f} s")
-    return {"ran": True, "rows": box["rows"], "connects": box["connects"], "seconds": secs}
+        f"({box['connects']} connects; streamed {box['seen_s']} s into the workload), "
+        f"exit {cmd.returncode}, {secs:.1f} s")
+    return {"ran": True, "rows": box["rows"], "connects": box["connects"],
+            "streamed_s": box["seen_s"], "seconds": secs}
 
 
 
@@ -2981,6 +3038,15 @@ def agent_cli(device: str, batch: int, root: Path) -> dict:
         port = re.search(r"metrics on http://127\.0\.0\.1:(\d+)/metrics", text)
         require(m is not None and port is not None and f"device: {device}" in text,
                 f"agent (5j b): start-up lines missing: {text[-1000:]}")
+        # the bounded CUDA probe before the first CUDA use, then the
+        # doctor's start-up report (ROADMAP 19)
+        probe = re.search(rf"^device platform: {device} \((.*); probe ([\d.]+)s\)$", text, re.M)
+        require(probe is not None and "CAPTURE WINDOWS" in text and "\nGADGETS\n" in text
+                and f"PLATFORM {device} (" in text and "\nSUMMARY " in text,
+                f"agent (5j b): no probe line or start-up report: {text[:2000]}")
+        log(f"[agent] (5j b) the agent's probe: {probe[1]} in {float(probe[2]):.2f} s; its "
+            f"start-up report: {text.count(chr(10) + '  ')} rows, "
+            f"{text[text.index(chr(10) + 'SUMMARY '):].splitlines()[1]}")
         metrics = f"http://127.0.0.1:{port[1]}/metrics"
 
         def scrape(name: str) -> float:
@@ -3046,6 +3112,7 @@ def agent_cli(device: str, batch: int, root: Path) -> dict:
         require(record.get("facts", {}).get("node") == "n1",
                 f"agent (5j b): flight record facts {record.get('facts')}")
         res = {"liveness_s": live_s, "liveness_polls": polls, "torch_import_s": float(m[1]),
+               "probe_s": float(probe[2]), "probe_detail": probe[1],
                "run_s": run_s, "first_batch_s": first_s, "events": summaries[-1]["events"],
                "steps": steps,
                "debug_state_s": dbg_s,
@@ -3758,6 +3825,613 @@ def finish_nccl_merge(started: tuple, timeout: float = 240.0) -> dict:
 
 
 
+# phase 5m: the doctor, the bounded CUDA probe and the stress harnesses
+# (ROADMAP 19, 21); phase 5n: training-side parallelism over lanes of
+# cuda:0 (ROADMAP 13)
+DOCTOR_WINDOWS = {"fanotify_supported": "fanotify", "audit_supported": "audit",
+                  "captrace_supported": "captrace", "fstrace_supported": "fstrace",
+                  "sockstate_supported": "sockstate", "sigtrace_supported": "sigtrace",
+                  "tcpinfo_supported": "tcpinfo", "blktrace_supported": "blktrace",
+                  "perf_supported": "perf"}
+STRESS = (("ring_stress", False), ("ring_stress", True), ("source_stress", False),
+          ("source_stress", True))
+
+
+def stress_harnesses() -> dict:
+    """The stress harnesses this host can build: plain, and under
+    ThreadSanitizer where g++ takes it; source_stress only as root (it
+    opens the kernel windows)."""
+    from inspektor_gadget_tpu_torch import native
+    cxx = native.cxx_path()
+    tsan = bool(cxx) and native.tsan_supported(cxx)
+    return {(n, t): native.StressHarness(n, t) for n, t in STRESS
+            if (tsan or not t) and (n != "source_stress" or os.geteuid() == 0)}
+
+
+def doctor_phase(facts: dict, stress: dict) -> dict:
+    """Phase 5m. (a) ``ig-tpu-torch doctor`` and ``doctor -o json`` as
+    subprocesses at once: the same exit code, 1 if and only if a gadget
+    is unavailable (the card's host lacks most kernel windows, so 1 is
+    expected and is no failure); every window host_facts() also probes
+    through the capture library agrees with the doctor's row; the
+    gadget rows are the catalog's 30 gadgets; the toolchain row names
+    nvcc with sm_90a; in this process (CUDA initialised) the topology row
+    names the card. (b) `platform_probe.acquire_platform("cuda")` names
+    torch's card with compute capability 9.0. (c) The stress harnesses,
+    each g++ started at once, plain and under ThreadSanitizer, run to
+    exit 0; a TSAN build this host's g++ rejects is logged as absent and
+    must be what the doctor's toolchain row says, and source_stress,
+    which opens the kernel windows, needs root. `stress` holds the
+    harnesses phase 2 built (`stress_harnesses`)."""
+    from inspektor_gadget_tpu_torch import doctor as PD
+    from inspektor_gadget_tpu_torch.runtime.runtime import build_catalog
+    from inspektor_gadget_tpu_torch.utils import platform_probe
+    out: dict = {}
+    cli = [sys.executable, "-m", "inspektor_gadget_tpu_torch.cli.main", "doctor"]
+    t0 = time.perf_counter()
+    runs = run_at_once({"table": cli, "json": cli + ["-o", "json"]}, timeout=300)
+    for name, (proc, secs) in runs.items():
+        require(proc is not None and proc.returncode in (0, 1),
+                f"doctor (5m a) {name}: {'timed out' if proc is None else proc.returncode} "
+                f"{'' if proc is None else proc.stderr[-2000:]}")
+        out[f"{name}_s"] = secs
+    doc = json.loads(runs["json"][0].stdout)
+    table = runs["table"][0].stdout
+    unavailable = [f"{g['category']}/{g['name']}" for g in doc["gadgets"]
+                   if g["status"] == "unavailable"]
+    rc = runs["json"][0].returncode
+    require(rc == runs["table"][0].returncode == (1 if unavailable else 0),
+            f"doctor (5m a): exit {rc} / {runs['table'][0].returncode} with "
+            f"{len(unavailable)} unavailable gadget(s)")
+    require(all(h in table for h in ("CAPTURE WINDOWS", "GADGETS", "PLATFORM", "SUMMARY")),
+            f"doctor (5m a): the table lacks a section: {table[-1500:]}")
+    disagree = {probe: (facts[probe], doc["windows"][w]["ok"])
+                for probe, w in DOCTOR_WINDOWS.items() if facts[probe] != doc["windows"][w]["ok"]}
+    require(not disagree, f"doctor (5m a): windows disagree with host_facts: {disagree}")
+    rows = [(g["category"], g["name"]) for g in doc["gadgets"]]
+    catalog = [(g["category"], g["name"]) for g in build_catalog()["gadgets"]]
+    require(rows == catalog and len(rows) == 30,
+            f"doctor (5m a): gadget rows {len(rows)} against the catalog's {len(catalog)}")
+    tool = doc["windows"]["native_toolchain"]
+    require("nvcc present with sm_90a" in tool["detail"],
+            f"doctor (5m a): toolchain row {tool}")
+    topo = PD._probe_device_topology()
+    require(topo.ok and topo.detail.startswith(f"{torch.cuda.device_count()} local cuda device(s)")
+            and "cc 9.0" in topo.detail, f"doctor (5m a): topology row {topo}")
+    counts: dict = {}
+    for g in doc["gadgets"]:
+        counts[g["status"]] = counts.get(g["status"], 0) + 1
+    down = sorted(w for w, v in doc["windows"].items() if not v["ok"])
+    out.update(rc=rc, unavailable=unavailable, counts=counts, windows_down=down,
+               toolchain=tool["detail"], topology=topo.detail,
+               host_facts_vs_doctor={w: facts[p] for p, w in DOCTOR_WINDOWS.items()},
+               kmsg={"host_facts": facts["kmsg_readable"], "doctor": doc["windows"]["kmsg"]},
+               ptrace={"host_facts": facts["ptrace"], "doctor": doc["windows"]["ptrace"]})
+    log(f"[doctor] (5m a) doctor and doctor -o json as subprocesses: exit {rc} "
+        f"({runs['table'][1]:.2f} s, {runs['json'][1]:.2f} s of process); gadgets {counts}; "
+        f"unavailable: {', '.join(unavailable) or 'none'}; windows down: {', '.join(down)}; "
+        f"the {len(DOCTOR_WINDOWS)} windows host_facts() probes agree; kmsg host_facts "
+        f"{facts['kmsg_readable']} / doctor {doc['windows']['kmsg']['ok']}, ptrace "
+        f"{facts['ptrace']} / {doc['windows']['ptrace']['ok']}")
+    log(f"[doctor] (5m a) toolchain: {tool['detail']}; topology (this process): {topo.detail}")
+    # (b) the bounded probe, in this process
+    acq = platform_probe.acquire_platform("cuda")
+    dev0 = acq["devices"][0]
+    require(acq["ok"] and dev0["name"] == torch.cuda.get_device_name(0) and dev0["cc"] == "9.0"
+            and len(acq["devices"]) == torch.cuda.device_count(),
+            f"doctor (5m b): the probe found {acq['devices']}")
+    out["probe"] = {"detail": acq["detail"], "elapsed_s": acq["elapsed"]}
+    log(f"[doctor] (5m b) acquire_platform('cuda'): {acq['detail']} ({acq['elapsed']:.2f} s "
+        f"with the child's start; no torch in it)")
+    # (c) the stress harnesses, built with the kernels (phase 2), run at once
+    if not any(t for _, t in stress):
+        require("no -fsanitize=thread" in tool["detail"],
+                f"stress (5m c): no TSAN build, but the toolchain row says {tool}")
+        log("[stress] (5m c) this host's g++ rejects -fsanitize=thread: the TSAN builds are "
+            f"absent (the doctor's toolchain row: {tool['detail']})")
+    if not any(n == "source_stress" for n, _ in stress):
+        log("[stress] (5m c) not root: source_stress cannot open the kernel windows, not run")
+    labels = {f"{n}{' (tsan)' if t else ''}": h for (n, t), h in stress.items()}
+    runs = run_at_once({label: [str(h.build())] for label, h in labels.items()}, timeout=600)
+    out["stress"] = {}
+    for label, h in labels.items():
+        r, run_s = runs[label]
+        name = label.split()[0]
+        require(r is not None and r.returncode == 0 and f"{name.replace('_', ' ')} OK" in r.stdout,
+                f"stress (5m c) {label}: "
+                f"{'timed out' if r is None else f'exit {r.returncode}'}\n"
+                f"{'' if r is None else (r.stdout + r.stderr)[-3000:]}")
+        last = r.stdout.strip().splitlines()[-2:]
+        out["stress"][label] = {"build_s": h.build_seconds, "run_s": run_s, "last": last}
+        log(f"[stress] (5m c) {label}: g++ {h.build_seconds:.1f} s (phase 2), run {run_s:.2f} s "
+            f"beside the others, exit 0: {' | '.join(last)}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+PAR_ROWS = 16            # seq windows a train step (4 a lane over 4 lanes)
+PAR_STEPS = 3            # train steps a comparison
+PAR_MEMORY_STEPS = 8     # the EP step over 4 lanes: memory read after step 2 and this one
+PAR_TOKENS = 8192        # make_ep_moe's tokens
+PAR_RING = (16, 4096, 4, 32)
+PAR_RING_CPU_B = 4       # the CPU's ring check keeps T, H, D and takes 4 of the 16 rows
+PAR_PP = (4, 8, 256)     # stages, microbatches, rows a microbatch (d_model 128, d_ff 256)
+PAR_AE_ROWS = 128        # count rows a node lane, a step
+PAR_TOL = 2e-2           # bf16 matmuls: card against the one-lane path and the CPU
+PAR_LOSS_TOL = 1e-3      # a train step's loss, every step, against the run it is held to
+PAR_GRAD_TOL = 5e-2      # the first step's gradient, of its leaf's largest (bf16 gradients)
+PAR_ZERO = 1e-4          # a gradient this share of its leaf's largest is zero up to rounding
+PAR_UPDATE_TOL = 0.05    # the first step's update: within this share of lr ...
+PAR_FLIP_SHARE = 1e-2    # ... but for this share of a leaf's elements (bf16 sign rounding),
+PAR_FLIP_FLOOR = 4       # or this many in a small leaf
+
+
+def _flat(tree) -> dict[str, np.ndarray]:
+    from inspektor_gadget_tpu_torch.models.params import _flatten
+    return {k: np.array(v, dtype=np.float32) for k, v in _flatten(tree).items()}
+
+
+def _first_moment(scorer) -> dict[str, np.ndarray]:
+    """Adam's first moment of every weight by name, (1 - beta1) g after
+    one step: the gradient of that step, up to the factor."""
+    from inspektor_gadget_tpu_torch.models import autoencoder as AE
+    if isinstance(scorer, AE.TPScorer):
+        return _flat(AE.ae_gather_tp(scorer, "exp_avg"))
+    return {name: scorer.opt.state[p]["exp_avg"].detach().float().cpu().numpy()
+            for name, p in scorer.model.named_parameters()}
+
+
+def _zero_by_construction(name: str, shape: tuple) -> np.ndarray:
+    """The elements whose gradient is zero in exact arithmetic: the
+    attention's key bias (a softmax row is the same when one constant is
+    added to all its scores), the middle third of a ``qkv.b``."""
+    mask = np.zeros(shape, dtype=bool)
+    if name.endswith("qkv.b"):
+        mask[shape[0] // 3:2 * shape[0] // 3] = True
+    return mask
+
+
+def _update_agrees(before: dict, got: dict, want: dict, got_m: dict, want_m: dict,
+                   lr: float, what: str) -> dict:
+    """The first train step of a card run, held against the run it is
+    compared with, both from the weights `before`. The gradient: each
+    run's Adam first moment after the step (`got_m`, `want_m`) agrees
+    within PAR_GRAD_TOL of its leaf's largest. The update ``after -
+    before``: Adam's first step moves an element by lr g / (|g| + eps),
+    about lr times the sign of its gradient whatever the gradient's
+    size, so the two agree to rounding wherever the gradient is clearly
+    non-zero. Every element whose gradient is 0, or above PAR_ZERO of its
+    leaf's largest in magnitude, and not zero by construction, agrees
+    within PAR_UPDATE_TOL * lr, but for at most PAR_FLIP_SHARE of a
+    leaf's such elements or PAR_FLIP_FLOOR of them, whichever is more (a
+    bf16 gradient that rounds to the other sign); every element within
+    Adam's bound 2 lr. A skipped
+    or reversed update moves every such element by lr or 2 lr. Returns
+    the largest gradient difference (of its leaf's largest), the largest
+    such update difference, the largest share of them beyond the
+    tolerance in one leaf, and the share of all elements left to the
+    bound, with the leaf that leaves most."""
+    grad_gap, worst, beyond, loose, total = 0.0, 0.0, 0.0, 0, 0
+    loosest = ("", 0.0)
+    for name, m in want_m.items():
+        scale = float(np.abs(m).max())
+        gap = float(np.abs(got_m[name] - m).max()) / scale if scale else 0.0
+        require(gap <= PAR_GRAD_TOL, f"{what}: {name}'s gradient differs by {gap:.3g} of its "
+                                     f"largest")
+        diff = np.abs((got[name] - before[name]) - (want[name] - before[name]))
+        require(float(diff.max()) <= 2.02 * lr,
+                f"{what}: {name}'s update differs by {diff.max()}, beyond Adam's bound 2 lr")
+        clear = ((np.abs(m) > PAR_ZERO * scale) | (m == 0)) & ~_zero_by_construction(name,
+                                                                                     m.shape)
+        kept = diff[clear]
+        if kept.size:
+            n_beyond = int((kept > PAR_UPDATE_TOL * lr).sum())
+            share = n_beyond / kept.size
+            require(n_beyond <= max(PAR_FLIP_SHARE * kept.size, PAR_FLIP_FLOOR),
+                    f"{what}: {name}'s update differs beyond {PAR_UPDATE_TOL} lr on "
+                    f"{share:.2%} of its elements (largest {kept.max()})")
+            worst, beyond = max(worst, float(kept.max())), max(beyond, share)
+        grad_gap = max(grad_gap, gap)
+        loose += int((~clear).sum())
+        total += m.size
+        loosest = max(loosest, (name, float((~clear).mean())), key=lambda t: t[1])
+    return {"grad_gap": grad_gap, "max_abs_diff": worst, "beyond_share": beyond,
+            "loose_share": loose / total, "loosest_leaf": loosest}
+
+
+def _update_line(vs_one: dict, vs_cpu: dict, lr: float, one: str = "one lane") -> str:
+    return (f"the first step vs {one} and vs CPU: gradients within {vs_one['grad_gap']:.2g} and "
+            f"{vs_cpu['grad_gap']:.2g} of a leaf's largest (tolerance {PAR_GRAD_TOL}); updates "
+            f"within {vs_one['max_abs_diff']:.3g} and {vs_cpu['max_abs_diff']:.3g} (lr {lr:g}), "
+            f"beyond {PAR_UPDATE_TOL} lr on at most {vs_one['beyond_share']:.2g} and "
+            f"{vs_cpu['beyond_share']:.2g} of a leaf (tolerance {PAR_FLIP_SHARE}), "
+            f"{vs_one['loose_share']:.2g} and {vs_cpu['loose_share']:.2g} of the weights left to "
+            f"Adam's bound")
+
+
+def _losses_agree(got: list[float], want: list[float], what: str) -> float:
+    gap = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    require(gap <= PAR_LOSS_TOL, f"{what}: losses {got} against {want}")
+    return gap
+
+
+def parallel_phase(seed: int, batch: int, prod: dict) -> dict:
+    """Phase 5n (ROADMAP 13), on lanes of cuda:0 (a check of the lane
+    algebra, not a deployment), each comparison repeated on CPU lanes in
+    this call: (1) `make_ep_moe` over 2 and 4 lanes against the one-lane
+    MoE routed with each shard's capacity; (2) `make_ep_train_step(attn=
+    "flash")` over 2 and 4 lanes against the one-lane step with per-shard
+    capacity, the MoE model's `seq_score`, and the memory allocated after
+    steps 3 and 8; (3) `make_sp_train_step` (ring, ulysses) over 4 lanes
+    against `seq_train_step`; (4) `ring_attention` at [16, 4096, 4, 32]
+    against `blockwise_attention`; (5) the pipeline's forward and train
+    step over 4 stages against the sequential blocks; (6)
+    `cluster_sketch_step(use_tp=True)` on a 2 x 2 mesh against the DP
+    step. Returns the K1 and K3 launches of the card's runs."""
+    from inspektor_gadget_tpu_torch.models import autoencoder as AE
+    from inspektor_gadget_tpu_torch.models import params_to_numpy
+    from inspektor_gadget_tpu_torch.models import seqmodel as SM
+    from inspektor_gadget_tpu_torch.ops import bundle_to_numpy
+    from inspektor_gadget_tpu_torch.parallel import cluster as C
+    from inspektor_gadget_tpu_torch.parallel import mesh as MESH
+    from inspektor_gadget_tpu_torch.parallel import moe as MOE
+    from inspektor_gadget_tpu_torch.parallel import pipeline as PPL
+    from inspektor_gadget_tpu_torch.parallel import ring_attention as RA
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, cpu = torch.device("cuda", 0), torch.device("cpu")
+    rng = np.random.default_rng(seed)
+    out: dict = {"launches": {"K1": 0, "K2": 0, "K3": 0}}
+    t_phase = time.perf_counter()
+
+    def counted(fn):
+        """`fn()` on the card with the launch counts set to 0 just before
+        and read just after: (its result, its seconds ending in a
+        synchronize, its launches), the launches added to the phase's."""
+        reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = read_launches()
+        for k, v in launched.items():
+            out["launches"][k] += v
+        return res, secs, launched
+
+    # (1) make_ep_moe over 2 and 4 lanes against the one-lane MoE with
+    # each shard's capacity, and against the same on CPU lanes
+    moe = MOE.moe_init(seed, 8, 128, 256)
+    x = torch.from_numpy(rng.normal(size=(PAR_TOKENS, 128)).astype(np.float32))
+    with torch.no_grad():
+        for n in (2, 4):
+            shard = PAR_TOKENS // n
+            cap = max(1, int(shard / 8 * 2.0))
+            res = {}
+            for where, d in (("card", dev), ("cpu", cpu)):
+                m, xx = copy.deepcopy(moe).to(d), x.to(d)
+                fn = MOE.make_ep_moe([d] * n, 8)
+                fn(m, xx)  # warm: the timed call below is the second
+                if where == "card":
+                    (y, (bal, drop)), secs, _ = counted(lambda: fn(m, xx))
+                else:
+                    t0 = time.perf_counter()
+                    y, (bal, drop) = fn(m, xx)
+                    secs = time.perf_counter() - t0
+                one = torch.cat([MOE.moe_apply(m, xx[i * shard:(i + 1) * shard])[0]
+                                 for i in range(n)])
+                err = float((y - one).abs().max())
+                require(torch.allclose(y, one, rtol=PAR_TOL, atol=PAR_TOL),
+                        f"EP MoE ({where}, {n} lanes) against one lane: max abs diff {err}")
+                routes = [MOE._route(xx[i * shard:(i + 1) * shard], m.gate, cap)
+                          for i in range(n)]
+                res[where] = (y.detach().cpu(), routes, float(bal), float(drop), err, secs)
+            (yc, rc_, balc, dropc, errc, secc), (yp, rp, balp, dropp, errp, secp) = \
+                res["card"], res["cpu"]
+            ec = torch.cat([r.expert for r in rc_]).cpu()
+            kc = torch.cat([r.keep for r in rc_]).cpu()
+            ep = torch.cat([r.expert for r in rp])
+            kp = torch.cat([r.keep for r in rp])
+            same = (ec == ep) & (kc == kp)
+            moved = int((~same).sum())
+            require(moved <= PAR_TOKENS // 1000,
+                    f"EP MoE {n} lanes: {moved} tokens routed otherwise on the card than the CPU")
+            vs_cpu = float((yc - yp)[same].abs().max())
+            require(torch.allclose(yc[same], yp[same], rtol=PAR_TOL, atol=PAR_TOL),
+                    f"EP MoE {n} lanes, card vs CPU: max abs diff {vs_cpu}")
+            out[f"ep_moe_{n}"] = {"vs_one_lane": errc, "cpu_vs_one_lane": errp,
+                                  "vs_cpu": vs_cpu,
+                                  "routing_moved": moved, "balance": balc, "dropped": dropc,
+                                  "ms": secc * 1e3, "cpu_ms": secp * 1e3}
+            log(f"[parallel] (5n) make_ep_moe over {n} lanes, {PAR_TOKENS} tokens, d 128, 8 "
+                f"experts of d_ff 256: {secc * 1e3:.2f} ms on the card ({secp * 1e3:.1f} on the "
+                f"CPU); "
+                f"against one lane with per-shard capacity {cap}: max abs diff {errc:.3g} (CPU "
+                f"{errp:.3g}); card vs CPU {vs_cpu:.3g} (tolerance {PAR_TOL}); routing (expert, "
+                f"kept) differs on {moved} of {PAR_TOKENS} tokens; balance {balc:.4f}, dropped "
+                f"{dropc:.4f} (each time the second call)")
+
+    # (2) make_ep_train_step(attn="flash") over 2 and 4 lanes at the seq
+    # defaults with 8 experts, window 256
+    cfg = SM.SeqConfig(n_experts=8)
+    toks = (rng.zipf(1.3, (PAR_ROWS, SEQ_WINDOW)) % cfg.vocab).astype(np.int64)
+    toks[-1, SEQ_WINDOW // 2:] = -1
+    for n in (2, 4):
+        card = SM.seq_init(cfg, seed=seed, device=dev)
+        w0 = _flat(params_to_numpy(card))
+        step = SM.make_ep_train_step([dev] * n, cfg, card, attn="flash")
+        steps = PAR_STEPS
+        step_s: list[float] = []
+
+        def timed_steps(k: int) -> list[float]:
+            out_l = []
+            for _ in range(k):
+                t_s = time.perf_counter()
+                out_l.append(float(step(toks)))  # .item() waits for the step
+                step_s.append(time.perf_counter() - t_s)
+            return out_l
+
+        # one lane: the same model, each row shard routed with its own capacity
+        one = SM.seq_init(cfg, seed=seed, device=dev)
+        cpu_sc = SM.seq_init(cfg, seed=seed, device="cpu")
+        cpu_step = SM.make_ep_train_step([cpu] * n, cfg, cpu_sc, attn="flash")
+        t_toks = torch.from_numpy(toks).to(dev)
+
+        def one_lane_step() -> float:
+            one.opt.zero_grad(set_to_none=True)
+            terms = [SM._next_token_terms(one.model, part, cfg, "flash")
+                     for part in t_toks.chunk(n)]
+            loss = (sum(s.sum() for s, _, _ in terms) / sum(c.sum() for _, c, _ in terms)
+                    + cfg.balance_coef * torch.stack([b for _, _, b in terms]).mean())
+            loss.backward()
+            one.opt.step()
+            return float(loss.detach())
+
+        losses, one_losses, cpu_losses = [], [], []
+        secs, launched = 0.0, {"K1": 0, "K2": 0, "K3": 0}
+        for i in range(steps):
+            got, secs_i, launched_i = counted(lambda: timed_steps(1))
+            losses += got
+            secs += secs_i
+            launched = {k: launched[k] + launched_i[k] for k in launched}
+            one_losses.append(one_lane_step())
+            cpu_losses.append(float(cpu_step(toks)))
+            if i == 0:  # the first update, from the same weights
+                after = _flat(params_to_numpy(card))
+                m_card = _first_moment(card)
+                u_one = _update_agrees(w0, after, _flat(params_to_numpy(one)), m_card,
+                                       _first_moment(one), cfg.lr, f"EP step {n} lanes vs one lane")
+                u_cpu = _update_agrees(w0, after, _flat(params_to_numpy(cpu_sc)), m_card,
+                                       _first_moment(cpu_sc), cfg.lr, f"EP step {n} lanes vs CPU")
+        want_k3 = steps * n * cfg.n_layers  # each lane's forward, a layer (the backward recomputes)
+        require(launched["K3"] == want_k3 and launched["K2"] == 0,
+                f"EP step {n} lanes launched {launched}, expected K3 {want_k3}")
+        gap_one = _losses_agree(losses, one_losses, f"EP step {n} lanes vs one lane")
+        gap_cpu = _losses_agree(losses, cpu_losses, f"EP step {n} lanes vs CPU")
+        scores, _, launched = counted(lambda: SM.seq_score(card, toks, "flash"))
+        require(launched["K3"] == cfg.n_layers, f"MoE seq_score launched {launched}")
+        cpu_scores = SM.seq_score(cpu_sc, toks, "flash")
+        s_gap = float((scores.cpu() - cpu_scores).abs().max())
+        require(s_gap <= 0.05, f"MoE seq scores, card vs CPU: max abs diff {s_gap}")
+        entry = {"losses": losses, "one_lane_losses": one_losses, "cpu_losses": cpu_losses,
+                 "loss_gap_vs_one_lane": gap_one, "loss_gap_vs_cpu": gap_cpu,
+                 "update_vs_one_lane": u_one, "update_vs_cpu": u_cpu,
+                 "step_ms": secs / steps * 1e3,
+                 "scores_vs_cpu": s_gap, "k3_step_launches": want_k3}
+        if n == 4:  # lane copies must not outlive their step: memory after steps 3 and 8
+            mem = {steps: torch.cuda.memory_allocated(dev)}
+            more, _, _ = counted(lambda: timed_steps(PAR_MEMORY_STEPS - steps))
+            mem[PAR_MEMORY_STEPS] = torch.cuda.memory_allocated(dev)
+            growth = mem[PAR_MEMORY_STEPS] - mem[steps]
+            require(growth <= 1 << 20 and all(np.isfinite(more)),
+                    f"EP step: memory grew {growth} bytes from step {steps} to "
+                    f"{PAR_MEMORY_STEPS}: {mem}")
+            entry.update(memory_growth_bytes=growth, memory_allocated=mem, later_losses=more)
+        entry["warm_step_ms"] = statistics.median(step_s[1:]) * 1e3
+        out[f"ep_train_{n}"] = entry
+        log(f"[parallel] (5n) make_ep_train_step(attn='flash') over {n} lanes, {PAR_ROWS} x "
+            f"{SEQ_WINDOW} tokens, seq defaults with 8 experts: {steps} steps, "
+            f"{secs / steps * 1e3:.1f} ms a step (median after the first "
+            f"{entry['warm_step_ms']:.1f} over {len(step_s) - 1}), losses {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}; "
+            f"one lane {one_losses[-1]:.4f}, CPU {cpu_losses[-1]:.4f} (every step within "
+            f"{gap_one:.2g} and {gap_cpu:.2g} relative, tolerance {PAR_LOSS_TOL}); "
+            f"{_update_line(u_one, u_cpu, cfg.lr)}; K3 {want_k3} in the steps (by count); MoE "
+            f"seq_score card vs CPU {s_gap:.3g} nats (tolerance 0.05)"
+            + (f"; memory {entry['memory_growth_bytes']} bytes grown from step {steps} to "
+               f"{PAR_MEMORY_STEPS}" if n == 4 else ""))
+        del card, step, one, cpu_sc, cpu_step
+
+    # (3) make_sp_train_step, ring and Ulysses over 4 lanes, at the seq
+    # defaults (dense) against the one-lane step
+    dense = SM.SeqConfig()
+    for attn in ("ring", "ulysses"):
+        card = SM.seq_init(dense, seed=seed, device=dev)
+        w0 = _flat(params_to_numpy(card))
+        step = SM.make_sp_train_step([dev] * 4, dense, card, attn=attn)
+        one = SM.seq_init(dense, seed=seed, device=dev)
+        cpu_sc = SM.seq_init(dense, seed=seed, device="cpu")
+        cpu_step = SM.make_sp_train_step([cpu] * 4, dense, cpu_sc, attn=attn)
+        losses, one_losses, cpu_losses, secs = [], [], [], 0.0
+        for i in range(PAR_STEPS):
+            got, secs_i, _ = counted(lambda: float(step(toks)))
+            losses.append(got)
+            secs += secs_i
+            one_losses.append(float(SM.seq_train_step(one, toks, "full")[1]))
+            cpu_losses.append(float(cpu_step(toks)))
+            if i == 0:  # the first update, from the same weights
+                after = _flat(params_to_numpy(card))
+                m_card = _first_moment(card)
+                u_one = _update_agrees(w0, after, _flat(params_to_numpy(one)), m_card,
+                                       _first_moment(one), dense.lr, f"SP {attn} vs one lane")
+                u_cpu = _update_agrees(w0, after, _flat(params_to_numpy(cpu_sc)), m_card,
+                                       _first_moment(cpu_sc), dense.lr, f"SP {attn} vs CPU")
+        gap_one = _losses_agree(losses, one_losses, f"SP {attn} vs one lane")
+        gap_cpu = _losses_agree(losses, cpu_losses, f"SP {attn} vs CPU")
+        out[f"sp_{attn}"] = {"losses": losses, "one_lane_losses": one_losses,
+                             "cpu_losses": cpu_losses, "loss_gap_vs_one_lane": gap_one,
+                             "loss_gap_vs_cpu": gap_cpu, "update_vs_one_lane": u_one,
+                             "update_vs_cpu": u_cpu, "step_ms": secs / PAR_STEPS * 1e3}
+        log(f"[parallel] (5n) make_sp_train_step({attn!r}) over 4 lanes, {PAR_ROWS} x "
+            f"{SEQ_WINDOW} tokens, seq defaults: {secs / PAR_STEPS * 1e3:.1f} ms a step, losses "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}; one lane (attn 'full') "
+            f"{one_losses[-1]:.4f}, CPU {cpu_losses[-1]:.4f} (every step within {gap_one:.2g} "
+            f"and {gap_cpu:.2g} relative, tolerance {PAR_LOSS_TOL}); "
+            f"{_update_line(u_one, u_cpu, dense.lr)}")
+        del card, step, one, cpu_sc, cpu_step
+
+    # (4) ring attention at [16, 4096, 4, 32] over 4 lanes against blockwise
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(PAR_RING, generator=gen) for _ in range(3))
+    ring = RA.make_ring_attention([dev] * 4, causal=True)
+    qc, kc, vc = q.to(dev), k.to(dev), v.to(dev)
+    ring(qc, kc, vc)  # warm: the timed call below is the second
+    got, secs, _ = counted(lambda: ring(qc, kc, vc))
+    want = RA.blockwise_attention(qc, kc, vc, causal=True, chunk=128)
+    err = float((got - want).abs().max())
+    require(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
+            f"ring attention {PAR_RING} vs blockwise on the card: max abs diff {err}")
+    b = PAR_RING_CPU_B
+    cpu_ring = RA.make_ring_attention([cpu] * 4, causal=True)(q[:b], k[:b], v[:b])
+    cpu_err = float((cpu_ring - RA.blockwise_attention(q[:b], k[:b], v[:b], chunk=128)).abs().max())
+    vs_cpu = float((got[:b].cpu() - cpu_ring).abs().max())
+    require(cpu_err <= 2e-5 and vs_cpu <= 2e-5,
+            f"ring attention on the CPU: vs blockwise {cpu_err}, card vs CPU {vs_cpu}")
+    out["ring_attention"] = {"shape": PAR_RING, "vs_blockwise": err, "cpu_vs_blockwise": cpu_err,
+                             "vs_cpu": vs_cpu, "ms": secs * 1e3}
+    log(f"[parallel] (5n) ring_attention {PAR_RING} f32 causal over 4 lanes: {secs * 1e3:.1f} ms "
+        f"(host clock, the second call); vs blockwise_attention max abs diff {err:.3g}, on the CPU "
+        f"(4 of the 16 rows) {cpu_err:.3g}, card vs CPU {vs_cpu:.3g} (tolerance 2e-5)")
+    del q, k, v, qc, kc, vc, got, want
+
+    # (5) the pipeline over 4 stages, forward and train step
+    stages, micro, mb = PAR_PP
+    params = PPL.pp_block_init(seed, stages, 128, 256)
+    x = torch.from_numpy(rng.normal(size=(micro, mb, 128)).astype(np.float32))
+    y = torch.from_numpy(rng.normal(size=(micro, mb, 8)).astype(np.float32))
+    head = torch.from_numpy((rng.normal(size=(128, 8)) * 0.1).astype(np.float32))
+    pc = {kk: vv.to(dev) for kk, vv in params.items()}
+    PPL.make_pp_forward([dev] * stages)(pc, x.to(dev))  # warm
+    fwd, secs, _ = counted(lambda: PPL.make_pp_forward([dev] * stages)(pc, x.to(dev)))
+    seq = torch.stack([PPL.pp_reference(pc, x[i].to(dev)) for i in range(micro)])
+    scale = float(seq.abs().max())
+    err = float((fwd - seq).abs().max())
+    require(err <= 1e-5 * scale, f"pipeline forward vs pp_reference on the card: {err}")
+    cpu_fwd = PPL.make_pp_forward([cpu] * stages)(params, x)
+    vs_cpu = float((fwd.cpu() - cpu_fwd).abs().max())
+    require(vs_cpu <= PAR_TOL * scale, f"pipeline forward, card vs CPU: {vs_cpu} of {scale}")
+
+    def sgd_reference(p, h, lr=1e-2):
+        leaves = {kk: vv.detach().requires_grad_() for kk, vv in p.items()}
+        hh = h.detach().requires_grad_()
+        out_ = torch.stack([PPL.pp_reference(leaves, x[i].to(hh.device)) for i in range(micro)])
+        loss = torch.mean((out_ @ hh - y.to(hh.device)) ** 2)
+        grads = torch.autograd.grad(loss, [*leaves.values(), hh])
+        with torch.no_grad():
+            return ({kk: vv - lr * g for (kk, vv), g in zip(leaves.items(), grads)},
+                    hh - lr * grads[-1], float(loss.detach()))
+
+    pstep = PPL.make_pp_train_step([dev] * stages, lr=1e-2)
+    cpu_pstep = PPL.make_pp_train_step([cpu] * stages, lr=1e-2)
+    p, h, rp, rh, cp_, ch = pc, head.to(dev), pc, head.to(dev), params, head
+    pp_losses, ref_losses, cpu_losses, t_train = [], [], [], 0.0
+    for _ in range(PAR_STEPS):
+        (p, h, loss), secs_s, _ = counted(lambda: pstep(p, h, x.to(dev), y.to(dev)))
+        t_train += secs_s
+        rp, rh, rloss = sgd_reference(rp, rh)
+        cp_, ch, closs = cpu_pstep(cp_, ch, x, y)
+        pp_losses.append(float(loss))
+        ref_losses.append(rloss)
+        cpu_losses.append(float(closs))
+    w_ref = max(float((p[kk] - rp[kk]).abs().max()) for kk in p)
+    w_cpu = max(float((p[kk].cpu() - cp_[kk]).abs().max() / cp_[kk].abs().max()) for kk in p)
+    require(all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(pp_losses, ref_losses))
+            and w_ref <= 1e-5 * max(float(rp[kk].abs().max()) for kk in rp),
+            f"pipeline train step vs the sequential SGD on the card: losses {pp_losses} "
+            f"{ref_losses}, weights {w_ref}")
+    require(all(abs(a - b) <= PAR_TOL * abs(b) for a, b in zip(pp_losses, cpu_losses))
+            and w_cpu <= PAR_TOL, f"pipeline train step card vs CPU: {pp_losses} {cpu_losses}")
+    out["pipeline"] = {"forward_vs_reference": err, "forward_vs_cpu": vs_cpu, "scale": scale,
+                       "forward_ms": secs * 1e3, "losses": pp_losses, "cpu_losses": cpu_losses,
+                       "weights_vs_reference": w_ref, "weights_vs_cpu_rel": w_cpu,
+                       "step_ms": t_train / PAR_STEPS * 1e3}
+    log(f"[parallel] (5n) make_pp_forward over {stages} stages, {micro} microbatches of {mb} x "
+        f"128: {secs * 1e3:.2f} ms; vs pp_reference max abs diff {err:.3g} (tolerance 1e-5 of "
+        f"{scale:.3g}), card vs CPU {vs_cpu:.3g} (tolerance {PAR_TOL} of it); train step "
+        f"{t_train / PAR_STEPS * 1e3:.2f} ms, losses {pp_losses[0]:.5f} -> {pp_losses[-1]:.5f} "
+        f"(sequential SGD {ref_losses[-1]:.5f}, CPU {cpu_losses[-1]:.5f}); weights vs the "
+        f"sequential SGD {w_ref:.3g}, vs CPU {w_cpu:.3g} relative")
+
+    # (6) cluster_sketch_step(use_tp=True) on a 2 x 2 mesh against the DP step
+    ae_cfg = AE.AEConfig()
+    keys = rng.zipf(1.2, (PAR_STEPS, 2, batch)).clip(1, 2**32 - 1).astype(np.uint32)
+    counts = rng.poisson(2.0, (PAR_STEPS, 2, PAR_AE_ROWS, ae_cfg.input_dim)).astype(np.float32)
+    runs = {}
+    for name, where, n_model in (("tp", dev, 2), ("dp", dev, 1), ("tp_cpu", cpu, 2)):
+        mesh = MESH.make_mesh(n_nodes=2, n_model=n_model, devices=[where] * (2 * n_model))
+        state = C.cluster_init(mesh, AE.ae_init(ae_cfg, seed=seed, device=where), **prod)
+        stepf, merge = C.make_cluster_step(mesh, state)
+        losses, secs_all = [], 0.0
+
+        def weights():
+            return _flat(AE.ae_gather_tp(state.scorer) if n_model > 1
+                         else params_to_numpy(state.scorer))
+
+        runs[name] = {"w0": weights()}
+        for s_ in range(PAR_STEPS):
+            ks = [torch.from_numpy(r.view(np.int32).copy()).to(where) for r in keys[s_]]
+            mask = [torch.ones(batch, dtype=torch.bool, device=where)] * 2
+            cs = [torch.from_numpy(c).to(where) for c in counts[s_]]
+            if name == "tp":
+                (state, loss), secs_s, launched = counted(
+                    lambda: stepf(state, ks, ks, ks, mask, cs))
+                require(launched == {"K1": 2, "K2": 0, "K3": 0},
+                        f"TP cluster step launched {launched}: K1 once a node lane")
+                secs_all += secs_s
+            else:
+                state, loss = stepf(state, ks, ks, ks, mask, cs)
+            losses.append(float(loss))
+            if s_ == 0:  # the first update, and the replicated step's gradient
+                runs[name]["first"] = weights()
+                runs[name]["moment"] = _first_moment(state.scorer)
+        runs[name].update(lanes=[bundle_to_numpy(b) for b in state.lanes],
+                          merged=bundle_to_numpy(merge(state.lanes)),
+                          losses=losses, ms=secs_all / PAR_STEPS * 1e3)
+    for other in ("dp", "tp_cpu"):
+        for i, (a, b_) in enumerate(zip(runs["tp"]["merged"], runs[other]["merged"])):
+            require(a.dtype == b_.dtype and np.array_equal(a, b_),
+                    f"TP cluster step: merged leaf {i} differs from the {other} run's")
+        for lane, (la, lb) in enumerate(zip(runs["tp"]["lanes"], runs[other]["lanes"])):
+            require(all(np.array_equal(a, b_) for a, b_ in zip(la, lb)),
+                    f"TP cluster step: lane {lane}'s bundle differs from the {other} run's")
+        require(all(np.array_equal(runs["tp"]["w0"][kk], runs[other]["w0"][kk])
+                    for kk in runs["tp"]["w0"]), f"TP cluster step: {other} starts elsewhere")
+        runs[other]["loss_gap"] = _losses_agree(runs["tp"]["losses"], runs[other]["losses"],
+                                                f"TP cluster step vs {other}")
+        runs[other]["update"] = _update_agrees(runs["tp"]["w0"], runs["tp"]["first"],
+                                               runs[other]["first"], runs["tp"]["moment"],
+                                               runs[other]["moment"], ae_cfg.learning_rate,
+                                               f"TP cluster step vs {other}")
+    out["cluster_tp"] = {"losses": runs["tp"]["losses"], "dp_losses": runs["dp"]["losses"],
+                         "cpu_losses": runs["tp_cpu"]["losses"], "step_ms": runs["tp"]["ms"],
+                         "loss_gap_vs_dp": runs["dp"]["loss_gap"],
+                         "loss_gap_vs_cpu": runs["tp_cpu"]["loss_gap"],
+                         "update_vs_dp": runs["dp"]["update"],
+                         "update_vs_cpu": runs["tp_cpu"]["update"]}
+    tp_update = _update_line(runs["dp"]["update"], runs["tp_cpu"]["update"],
+                             ae_cfg.learning_rate, "the replicated DP scorer")
+    log(f"[parallel] (5n) cluster_sketch_step(use_tp=True) on a 2 x 2 mesh of cuda:0, "
+        f"{batch}-event batches at the production geometry, AE 4096 -> 512 -> 128 bf16 on "
+        f"{PAR_AE_ROWS} rows a node: {runs['tp']['ms']:.1f} ms a step; every bundle leaf and "
+        f"the merge equal the DP step's and the CPU's; losses {runs['tp']['losses'][0]:.3g} -> "
+        f"{runs['tp']['losses'][-1]:.3g} (DP {runs['dp']['losses'][-1]:.3g}, CPU "
+        f"{runs['tp_cpu']['losses'][-1]:.3g}; every step within {runs['dp']['loss_gap']:.2g} "
+        f"and {runs['tp_cpu']['loss_gap']:.2g} relative, tolerance {PAR_LOSS_TOL}); "
+        f"{tp_update}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[parallel] phase 5n took {out['seconds']:.1f} s; launches on the card's runs "
+        f"{out['launches']}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -3791,7 +4465,8 @@ def main() -> int:
 
     # -- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    build_all([K.LIBRARY, FA.LIBRARY, bridge.LIBRARY])
+    harnesses = stress_harnesses()
+    build_all([K.LIBRARY, FA.LIBRARY, bridge.LIBRARY, *harnesses.values()])
     build_s = time.perf_counter() - t0
     for lib in (K.LIBRARY, FA.LIBRARY):
         log(f"[build] {lib.path.name} (nvcc {lib.build_seconds:.1f} s)")
@@ -3799,7 +4474,9 @@ def main() -> int:
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"[build] {line.strip()}")
     log(f"[build] {bridge.LIBRARY.path.name} (g++ {bridge.LIBRARY.build_seconds:.1f} s)")
-    log(f"[build] all three in {build_s:.1f} s")
+    log("[build] " + ", ".join(f"{h.binary_path().name} (g++ {h.build_seconds:.1f} s)"
+                               for h in harnesses.values()))
+    log(f"[build] all {3 + len(harnesses)} in {build_s:.1f} s")
     report["build_s"] = build_s
     hmma = hmma_count(FA.LIBRARY.path)
     log(f"[build] {FA.LIBRARY.path.name}: {hmma} HMMA instructions in its SASS")
@@ -4448,6 +5125,16 @@ def main() -> int:
     log(f"[shard] phase 5l took {shard['seconds']:.1f} s (and 5l(d) ran inside 5k(b))")
     report["shard"] = shard
 
+    # -- 5m. the doctor, the bounded CUDA probe, the stress harnesses (ROADMAP 19, 21)
+    doctor = doctor_phase(facts, harnesses)
+    log(f"[doctor] phase 5m took {doctor['seconds']:.1f} s")
+    report["doctor"] = doctor
+
+    # -- 5n. training-side parallelism over lanes of cuda:0 (ROADMAP 13) ------------
+    par = parallel_phase(args.seed + 13, batch, prod)
+    launches["K1"] += par["launches"]["K1"]
+    report["parallel"] = par
+
     # -- 6. K3 against its plain version ----------------------------------------
     # the plain versions' float32 matmuls run in full f32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4554,7 +5241,7 @@ def main() -> int:
             f"{entry['tick_ms_median']:.3f}, first {secs[0] * 1e3:.2f}; CPU "
             f"{sum(cpu_secs[1:]) / (TICKS - 1) * 1e3:.1f} ms); launches {launched}")
         ticks[fam] = entry
-    launches["K3"] = ticks["seq"]["launches"]["K3"]
+    launches["K3"] = ticks["seq"]["launches"]["K3"] + par["launches"]["K3"]
     report["anomaly_ticks"] = ticks
 
     # -- per-kernel times at the main path's shapes -----------------------------

@@ -12,14 +12,15 @@ Usage:
   python -m inspektor_gadget_tpu_torch.agent.main dump   # debug state (DumpState)
 
 The port's copy of ``inspektor_gadget_tpu/agent/main.py``, with the
-reference's subcommands and flags but for two departures in `serve`:
-
-- ``--platform auto|tpu|cpu`` and ``--probe-timeout`` are replaced by
-  ``--device {cuda,cpu}`` (default ``cuda``). There is no probe and no
-  degrade: ``cuda`` without a card exits 1 with `resolve_device`'s
-  message, before anything listens.
-- The doctor's start-up report (ROADMAP item 19) is not ported: `serve`
-  prints one line saying so, which ``--no-doctor`` suppresses.
+reference's subcommands and flags but for one departure in `serve`:
+``--platform auto|tpu|cpu`` is replaced by ``--device {cuda,cpu}``
+(default ``cuda``). Before anything touches the card, ``cuda`` runs the
+bounded CUDA probe (`utils.platform_probe`, ``--probe-timeout``) and
+prints ``device platform: cuda (...)``; a failed or timed-out probe, or
+a card torch cannot reach, exits 1 with the detail before anything
+listens: there is no degrade to the CPU. ``cpu`` skips the probe. Then,
+unless ``--no-doctor``, `serve` prints the doctor's report, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -80,6 +81,10 @@ def main(argv=None) -> int:
     sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="device of every run's operator state (no "
                          "fallback: cuda without a card exits 1)")
+    sp.add_argument("--probe-timeout", type=float, default=None,
+                    help="seconds to wait for the CUDA probe "
+                         "(default $IG_PLATFORM_PROBE_TIMEOUT or 20); a "
+                         "timeout exits 1")
     sp.add_argument("--flight-record-path", default="",
                     help="dump the flight recorder (recent spans/logs/"
                          "errors) here on SIGTERM/crash; default "
@@ -90,8 +95,7 @@ def main(argv=None) -> int:
                          "gadget-container main.go:262-299)")
     sp.add_argument("--trace-namespace", default="ig-tpu")
     sp.add_argument("--no-doctor", action="store_true",
-                    help="skip the start-up line about the doctor's "
-                         "report (not ported yet: ROADMAP item 19)")
+                    help="skip the capture-window probe at startup")
     sp.add_argument("--install-hooks", action="store_true",
                     help="install runtime hooks on the host before "
                          "serving, remove them on shutdown "
@@ -165,8 +169,20 @@ def main(argv=None) -> int:
     if args.cmd == "serve":
         if args.watch_traces and not args.kube_api:
             ap.error("--watch-traces requires --kube-api")
-        # the device is resolved BEFORE anything starts: cuda without a
-        # card is an error, never a silent CPU agent
+        # bounded device acquisition BEFORE the first CUDA use: a wedged
+        # libcuda or a missing card stops the agent with the probe's
+        # detail, never a silent CPU agent
+        from ..utils.platform_probe import (DEFAULT_PROBE_TIMEOUT, PlatformError,
+                                            acquire_platform)
+        try:
+            acq = acquire_platform(args.device, timeout=(
+                args.probe_timeout if args.probe_timeout is not None
+                else DEFAULT_PROBE_TIMEOUT))
+        except PlatformError as e:
+            print(f"error: device probe failed: {e}", file=sys.stderr)
+            return 1
+        print(f"device platform: {acq['platform']} ({acq['detail']}; probe "
+              f"{acq['elapsed']:.2f}s)", flush=True)
         from ..device import resolve_device
         try:
             dev = resolve_device(args.device)
@@ -174,9 +190,13 @@ def main(argv=None) -> int:
             print(f"error: {e}", file=sys.stderr)
             return 1
         print(f"device: {dev}", flush=True)
+        # entrypoint-analogue environment probe (ref: entrypoint.sh:21-120
+        # detects OS/kernel/runtime before starting the daemon): report
+        # which capture windows work on this host so degraded gadgets are
+        # known up front, not discovered mid-run
         if not args.no_doctor:
-            print("doctor: the start-up report is not ported yet "
-                  "(ROADMAP item 19)", flush=True)
+            from ..doctor import render_report
+            print(render_report(), flush=True)
         return _serve_loop(args)
 
     from .client import AgentClient

@@ -37,9 +37,12 @@ retention_bytes/retention_segments. The active segment is never GC'd.
 
 The port's copy of ``inspektor_gadget_tpu/capture/journal.py``: the same
 bytes on disk, so either package reads, appends to and recovers the
-other's journals. The manifest's ``platform`` is the torch device type of
-the run that opened the writer (``cuda`` or ``cpu``), never degraded: a
-run that asks for the card and finds none raises instead.
+other's journals. The manifest's ``platform`` is the process's acquired
+platform (`utils.platform_probe.last_acquire()`), as the reference takes
+it; where the process never probed, the torch device type of the run
+that opened the writer (``cuda`` or ``cpu``), else ``unprobed``. It is
+never degraded: a run that asks for the card and finds none raises
+instead.
 """
 
 from __future__ import annotations
@@ -124,10 +127,15 @@ def build_manifest(*, journal_id: str = "", node: str = "", gadget: str = "",
                    run_id: str = "", params: dict[str, str] | None = None,
                    platform: str = "unprobed", extra: dict | None = None) -> dict:
     """Provenance block every journal carries: git sha, node id, gadget
-    id, resolved params, and the torch device type the run's state lives
-    on (`platform`) — a journal read months later still answers 'what
-    produced this' without trusting surrounding prose."""
+    id, resolved params, and the platform the process acquired (or, where
+    it never probed, `platform`: the torch device type the run's state
+    lives on) — a journal read months later still answers 'what produced
+    this' without trusting surrounding prose."""
     from ..perf.provenance import git_provenance, host_fingerprint
+    from ..utils.platform_probe import last_acquire
+    acq = last_acquire()
+    if acq is not None and acq["ok"]:
+        platform = acq["platform"]
     sha, dirty = git_provenance()
     return {
         "schema": JOURNAL_SCHEMA,

@@ -12,12 +12,12 @@ The port's copy of ``inspektor_gadget_tpu/cli/main.py``: ``list``,
 with ``--remote``, fanned out to agents, ``query``, ``watch``,
 ``history``, ``record``, ``replay`` and ``alerts`` on this process or the
 agents, ``agent`` (the per-node daemon, `agent.main serve`), ``debug``,
-``deploy``, ``undeploy``, ``traces`` and ``fleet``, with one more flag, ``--device
+``deploy``, ``undeploy``, ``traces``, ``fleet`` and ``doctor``, with one more flag, ``--device
 {cuda,cpu}`` (default ``cuda``): the device the run's operators (and
 ``profile block-io --quantiles true``) put their state on, and for
 ``deploy --local`` the device of the agents it starts. The commands
-whose modules are not ported (``bench``, ``doctor``) exit 2
-naming their ROADMAP item.
+whose modules are not ported (``bench``) exit 2 naming their ROADMAP
+item.
 
     python -m inspektor_gadget_tpu_torch.cli.main trace exec --device cpu \\
         --source pysynthetic --timeout 3 --tpusketch-enable true
@@ -71,7 +71,6 @@ __version__ = "0.1.0"
 # exits 2 naming the ROADMAP item that ports it
 UNPORTED_COMMANDS = {
     "bench": ("benchmark runs and the perf ledger", "20"),
-    "doctor": ("probe capture windows per gadget", "19"),
 }
 
 def build_parser() -> argparse.ArgumentParser:
@@ -83,6 +82,11 @@ def build_parser() -> argparse.ArgumentParser:
 
     lp = sub.add_parser("list", help="list gadgets")
     lp.set_defaults(func=cmd_list)
+
+    dr = sub.add_parser("doctor", help="probe capture windows, report "
+                        "per-gadget real/degraded/unavailable status")
+    dr.add_argument("-o", "--output", default="table", choices=["table", "json"])
+    dr.set_defaults(func=cmd_doctor)
 
     cp = sub.add_parser("catalog", help="print the full catalog as JSON")
     cp.set_defaults(func=cmd_catalog)
@@ -258,6 +262,31 @@ def cmd_list(args) -> int:
     for desc in gadget_registry.get_all():
         print(f"{desc.category:10s} {desc.name:18s} {desc.description}")
     return 0
+
+
+def cmd_doctor(args) -> int:
+    """ref: gadget-container/entrypoint.sh:21-120 environment detection,
+    reshaped as an on-demand capability probe (see doctor.py). Exit 1 if
+    and only if some gadget is unavailable on this host."""
+    import dataclasses as dc
+
+    from ..doctor import gadget_report, probe_windows, render_report
+    from ..telemetry import snapshot
+    from ..utils.platform_probe import last_acquire
+    windows = probe_windows()
+    gadgets = gadget_report(windows)
+    if args.output == "json":
+        print(json.dumps({
+            "windows": {k: dc.asdict(w) for k, w in windows.items()},
+            "gadgets": [dc.asdict(g) for g in gadgets],
+            # device-plane acquisition outcome (agents probe at startup)
+            "platform": last_acquire() or {"platform": "unprobed"},
+            # the probed facts double as registry gauges
+            "telemetry": snapshot(),
+        }, indent=2))
+    else:
+        print(render_report(windows, gadgets))
+    return 1 if any(g.status == "unavailable" for g in gadgets) else 0
 
 
 def cmd_catalog(args) -> int:

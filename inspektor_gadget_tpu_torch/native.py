@@ -19,6 +19,15 @@ directory from the toolchain's ``<asm/unistd.h>``. A missing compiler,
 a failed build or a failed load raises; nothing is built or written
 outside ``build/``.
 
+The capture layer's stress harnesses (``native/ring_stress.cc``, the
+ring's producer/consumer conservation; ``native/source_stress.cc``,
+concurrent create/start/pop/filter/stats/stop across the kernel-window
+sources, which needs root) build the same way into ``build/native/``
+(`StressHarness`): a plain ``-O2`` build, and a ThreadSanitizer build
+where g++ takes ``-fsanitize=thread`` (`tsan_supported`), the
+counterparts of the reference Makefile's ``stress``, ``tsan`` and
+``tsan-sources`` targets.
+
 Also here: the checks every kernel wrapper shares (which device its
 tensors are on, the CUDA error a launch returns, the current stream).
 """
@@ -26,6 +35,7 @@ tensors are on, the CUDA error a launch returns, the current stream).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -77,8 +87,8 @@ class CudaLibrary:
         if out.exists():
             self.build_log = log.read_text() if log.exists() else ""
             return out
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not os.path.exists(nvcc):
+        nvcc = nvcc_path()
+        if nvcc is None:
             raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
@@ -126,6 +136,32 @@ def syscall_names(cxx: str) -> bytes:
     return "".join(rows).encode()
 
 
+def _gxx(cxx: str | None, flags: tuple[str, ...], source: Path, source_dir: Path,
+         build_dir: Path, out: Path) -> float:
+    """Compile `source` with g++ (`cxx`, default $CXX, else g++) and
+    `flags` into `out`, with ``syscall_names.inc`` generated into
+    `build_dir` and both directories on the include path; a missing
+    compiler or a failed build raises and leaves no output. Returns the
+    build's seconds."""
+    compiler = cxx_path(cxx)
+    if compiler is None:
+        raise RuntimeError(f"C++ compiler {cxx or os.environ.get('CXX') or 'g++'!r} not found: "
+                           f"{source.name} cannot be built")
+    build_dir.mkdir(parents=True, exist_ok=True)
+    _write_atomically(build_dir / "syscall_names.inc", syscall_names(compiler))
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([compiler, *flags, "-I", str(source_dir), "-I", str(build_dir),
+                           "-o", str(tmp), str(source)], capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{compiler} failed on {source.name} ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return seconds
+
+
 class HostLibrary:
     """The capture layer's C++ sources built by g++ into one library
     (``api.cc`` includes the rest), loaded once per process. `bind` sets
@@ -154,33 +190,13 @@ class HostLibrary:
             h.update(p.name.encode() + b"\0" + p.read_bytes())
         return self.build_dir / f"libigcapture-{h.hexdigest()[:16]}.so"
 
-    def _compiler(self) -> str:
-        cxx = self.cxx or os.environ.get("CXX") or shutil.which("g++")
-        if not cxx or shutil.which(cxx) is None:
-            raise RuntimeError(f"C++ compiler {cxx or 'g++'!r} not found: the native "
-                               f"capture library cannot be built")
-        return cxx
-
     def build(self) -> Path:
         """Compile the sources (once per source and flag set) and return
         the library's path."""
         out = self.library_path()
-        if out.exists():
-            return out
-        cxx = self._compiler()
-        self.build_dir.mkdir(parents=True, exist_ok=True)
-        _write_atomically(self.build_dir / "syscall_names.inc", syscall_names(cxx))
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([cxx, *HOST_FLAGS, "-I", str(self.build_dir), "-o", str(tmp),
-                               str(self.source_dir / "api.cc")],
-                              capture_output=True, text=True)
-        self.build_seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"{cxx} failed on api.cc ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
+        if not out.exists():
+            self.build_seconds = _gxx(self.cxx, HOST_FLAGS, self.source_dir / "api.cc",
+                                      self.source_dir, self.build_dir, out)
         return out
 
     def get(self) -> ctypes.CDLL:
@@ -203,13 +219,111 @@ class HostLibrary:
             return self._lib
 
 
-def build_all(libs: Iterable[CudaLibrary | HostLibrary]) -> None:
-    """Build and load every library in `libs`, one compiler each, all
-    started together; raises the first build's error after all have
-    ended."""
+def cxx_path(cxx: str | None = None) -> str | None:
+    """The C++ compiler the capture layer builds with ($CXX, else g++),
+    or None where it is missing."""
+    return shutil.which(cxx or os.environ.get("CXX") or "g++")
+
+
+def nvcc_path() -> str | None:
+    """nvcc on the PATH or under /usr/local/cuda, or None."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    return nvcc if os.path.exists(nvcc) else None
+
+
+@functools.lru_cache(maxsize=None)
+def nvcc_has_sm90a(nvcc: str) -> bool:
+    """Whether `nvcc` compiles an empty kernel for ``sm_90a`` (tried once
+    per process, in a temporary directory): what the kernels' build
+    asks of it."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="ig-sm90a-") as d:
+        src = Path(d) / "k.cu"
+        src.write_text("__global__ void k() {}\n")
+        try:
+            proc = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-cubin",
+                                   "-o", str(Path(d) / "k.cubin"), str(src)],
+                                  capture_output=True, text=True, timeout=120)
+        except (OSError, subprocess.TimeoutExpired):
+            return False
+        return proc.returncode == 0
+
+
+@functools.lru_cache(maxsize=None)
+def tsan_supported(cxx: str) -> bool:
+    """Whether `cxx` compiles and links a program with
+    ``-fsanitize=thread`` (tried once per process, in a temporary
+    directory)."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="ig-tsan-") as d:
+        src = Path(d) / "t.cc"
+        src.write_text("int main() { return 0; }\n")
+        try:
+            proc = subprocess.run([cxx, "-fsanitize=thread", "-o", str(Path(d) / "t"), str(src)],
+                                  capture_output=True, text=True, timeout=120)
+        except (OSError, subprocess.TimeoutExpired):
+            return False
+        return proc.returncode == 0
+
+
+STRESS_FLAGS = {False: ("-O2", "-std=c++17", "-pthread"),
+                True: ("-O1", "-g", "-std=c++17", "-fsanitize=thread", "-pthread")}
+
+
+class StressHarness:
+    """One of the capture layer's stress programs (``ring_stress`` or
+    ``source_stress``), built by g++ into `build_dir` (plain, or under
+    ThreadSanitizer with `tsan`) and run."""
+
+    def __init__(self, name: str, tsan: bool = False, *, source_dir: Path = NATIVE_DIR,
+                 build_dir: Path = HOST_BUILD_DIR, cxx: str | None = None) -> None:
+        self.name, self.tsan = name, tsan
+        self.source_dir, self.build_dir = Path(source_dir), Path(build_dir)
+        self.cxx = cxx
+        self.flags = STRESS_FLAGS[tsan]
+        self.build_seconds = 0.0
+
+    def binary_path(self) -> Path:
+        h = hashlib.sha256(" ".join(self.flags).encode())
+        for p in sorted(self.source_dir.iterdir()):
+            if p.suffix in (".cc", ".h") and p.is_file():
+                h.update(p.name.encode() + b"\0" + p.read_bytes())
+        suffix = "_tsan" if self.tsan else ""
+        return self.build_dir / f"{self.name}{suffix}-{h.hexdigest()[:16]}"
+
+    def build(self) -> Path:
+        """Compile (once per source and flag set) and return the binary;
+        a missing compiler, or `tsan` where g++ rejects it, raises."""
+        out = self.binary_path()
+        if not out.exists():
+            cxx = cxx_path(self.cxx)
+            if self.tsan and cxx and not tsan_supported(cxx):
+                raise RuntimeError(f"{cxx} rejects -fsanitize=thread: no TSAN build of "
+                                   f"{self.name}")
+            self.build_seconds = _gxx(self.cxx, self.flags,
+                                      self.source_dir / f"{self.name}.cc", self.source_dir,
+                                      self.build_dir, out)
+        return out
+
+    def get(self) -> Path:
+        """`build`: so `build_all` builds harnesses beside libraries."""
+        return self.build()
+
+    def run(self, timeout: float = 600.0) -> subprocess.CompletedProcess:
+        """Build if needed, run, and return the finished process (its
+        exit code is the harness's verdict; ThreadSanitizer exits 66 on a
+        race)."""
+        return subprocess.run([str(self.build())], capture_output=True, text=True,
+                              timeout=timeout)
+
+
+def build_all(libs: Iterable[CudaLibrary | HostLibrary | StressHarness]) -> None:
+    """Build (and load) every library or harness in `libs`, one compiler
+    each, all started together; raises the first build's error after all
+    have ended."""
     errors: list[BaseException] = []
 
-    def one(lib: CudaLibrary | HostLibrary) -> None:
+    def one(lib: CudaLibrary | HostLibrary | StressHarness) -> None:
         try:
             lib.get()
         except Exception as e:  # re-raised below, after every build ended

@@ -18,8 +18,13 @@ its own lanes and the group reduces once (NCCL on the card, gloo on the
 CPU). The merged view is computed per harvest, never per batch, so the
 ingest path has no collective.
 
-Tensor parallelism (the reference's `use_tp`, `scorer_pspecs`,
-`ae_train_step_tp`) is ROADMAP item 13 and raises naming it.
+On a (node, model) mesh (a list of node rows of model lanes,
+`parallel.mesh`) the scorer is tensor-parallel, as the reference's is on
+its 2-D mesh: `cluster_init` splits it over the model lanes
+(`models.autoencoder.ae_shard_tp`, the Megatron split), node row i's
+bundle lives on its first lane, and the step runs each row's rows
+through its own model lanes, averages the gradients over the rows and
+steps each shard's Adam (`ae_train_step_tp`).
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ from typing import Sequence
 
 import torch
 
-from ..models.autoencoder import AnomalyScorer, ae_loss, normalize_counts
+from ..models.autoencoder import (AnomalyScorer, TPScorer, ae_loss, ae_param_pspecs,
+                                  ae_shard_tp, ae_train_step_tp, normalize_counts)
 from ..ops.countmin import cms_psum
 from ..ops.entropy import entropy_psum
 from ..ops.hll import hll_pmax
@@ -38,29 +44,45 @@ from ..ops.lanes import group_reduce_, psum
 from ..ops.quantiles import dd_psum
 from ..ops.sketches import SketchBundle, bundle_init, bundle_update
 from ..ops.topk import topk_gather_merge
-
-_ITEM_13 = "tensor parallelism is not ported to ig-tpu-torch yet (ROADMAP item 13)"
+from .mesh import MODEL_AXIS, mesh_shape
 
 
 @dataclasses.dataclass
 class ClusterState:
-    """One bundle a lane (lane k on the mesh's k-th device) and the
-    replicated scorer."""
+    """One bundle a node lane (lane k on the mesh's k-th device, or on
+    the first lane of row k of a (node, model) mesh) and the scorer:
+    replicated, or split over the model lanes (`TPScorer`, with `rows`
+    the mesh's rows)."""
 
     lanes: list[SketchBundle]
-    scorer: AnomalyScorer
+    scorer: AnomalyScorer | TPScorer
+    rows: list[list[torch.device]] | None = None
 
 
-def scorer_pspecs(scorer: AnomalyScorer, model_axis: str = "model"):
-    """The reference's Megatron sharding of the scorer: ROADMAP item 13."""
-    raise NotImplementedError(f"scorer_pspecs: {_ITEM_13}")
+def scorer_pspecs(scorer: AnomalyScorer | TPScorer,
+                  model_axis: str = MODEL_AXIS) -> dict[str, dict[str, tuple]]:
+    """Where the tensor-parallel scorer's leaves live, by dotted name, as
+    the reference's PartitionSpec tree: ``params`` by the Megatron split
+    (`ae_param_pspecs`), and Adam's ``mu`` and ``nu`` sharded like the
+    weight each belongs to."""
+    pp = ae_param_pspecs(model_axis)
+    params = {f"{layer}.{leaf}": spec for layer, d in pp.items() for leaf, spec in d.items()}
+    return {"params": params, "mu": dict(params), "nu": dict(params)}
 
 
-def cluster_init(mesh: Sequence[torch.device], scorer: AnomalyScorer,
-                 **bundle_kw) -> ClusterState:
-    """An empty bundle on every lane of `mesh`; the scorer stays where it
-    is (one replica in this process)."""
-    return ClusterState(lanes=[bundle_init(**bundle_kw, device=d) for d in mesh], scorer=scorer)
+def cluster_init(mesh: Sequence, scorer: AnomalyScorer, **bundle_kw) -> ClusterState:
+    """An empty bundle on every node lane of `mesh`. On a flat mesh the
+    scorer stays where it is (one replica in this process); on a (node,
+    model) mesh with more than one model lane it is split over row 0's
+    model lanes (its own copy: `scorer` is not changed)."""
+    shape = mesh_shape(list(mesh))
+    if shape[MODEL_AXIS] == 1:
+        flat = [row[0] if isinstance(row, (list, tuple)) else row for row in mesh]
+        return ClusterState(lanes=[bundle_init(**bundle_kw, device=d) for d in flat],
+                            scorer=scorer)
+    rows = [[torch.device(d) for d in row] for row in mesh]
+    return ClusterState(lanes=[bundle_init(**bundle_kw, device=row[0]) for row in rows],
+                        scorer=ae_shard_tp(scorer, rows[0]), rows=rows)
 
 
 def cluster_sketch_step(state: ClusterState, hh_keys, distinct_keys, dist_keys, mask,
@@ -70,11 +92,22 @@ def cluster_sketch_step(state: ClusterState, hh_keys, distinct_keys, dist_keys, 
     one data-parallel Adam step of the autoencoder. Each batch argument
     holds one entry a lane on the lane's device; `ae_batch[k]` is lane
     k's (rows, input_dim) count matrix. Returns the state and the mean
-    loss over the lanes (and the group's ranks)."""
-    if use_tp:
-        raise NotImplementedError(f"cluster_sketch_step(use_tp=True): {_ITEM_13}")
+    loss over the lanes (and the group's ranks). With `use_tp` the
+    scorer is the state's `TPScorer` (`cluster_init` on a (node, model)
+    mesh), each node row's rows run through that row's model lanes
+    (`ae_train_step_tp`); a process group does not apply."""
     for k, b in enumerate(state.lanes):
         bundle_update(b, hh_keys[k], distinct_keys[k], dist_keys[k], mask[k])
+    if use_tp:
+        if not isinstance(state.scorer, TPScorer):
+            raise ValueError("use_tp needs a tensor-parallel scorer: cluster_init on a "
+                             "(node, model) mesh with n_model > 1")
+        if group is not None:
+            raise ValueError("the tensor-parallel step runs on this process's lanes only")
+        xs = [normalize_counts(torch.as_tensor(a).to(row[0]))
+              for a, row in zip(ae_batch, state.rows)]
+        _, loss = ae_train_step_tp(state.scorer, xs, state.rows)
+        return state, loss
     scorer = state.scorer
     params = [p for p in scorer.model.parameters()]
     grads = [torch.zeros_like(p) for p in params]
@@ -120,15 +153,18 @@ def cluster_merge(lanes: Sequence[SketchBundle], group=None) -> SketchBundle:
                    if first.quantiles is not None else None))
 
 
-def make_cluster_step(mesh: Sequence[torch.device], state: ClusterState, group=None):
+def make_cluster_step(mesh: Sequence, state: ClusterState, group=None):
     """The pair (step, merge): ``step(state, hh, distinct, dist, mask,
-    ae_batch) -> (state, loss)`` (no collective but the gradients' mean)
-    and ``merge(lanes) ->`` the cluster bundle, the harvest's collective."""
+    ae_batch) -> (state, loss)`` (no collective but the gradients' mean;
+    tensor-parallel when the mesh has more than one model lane) and
+    ``merge(lanes) ->`` the cluster bundle, the harvest's collective."""
     if len(state.lanes) != len(mesh):
         raise ValueError(f"{len(state.lanes)} lane bundles for a mesh of {len(mesh)}")
+    use_tp = mesh_shape(list(mesh))[MODEL_AXIS] > 1
 
     def step(st, hh, distinct, dist, mask, ae_batch):
-        return cluster_sketch_step(st, hh, distinct, dist, mask, ae_batch, group=group)
+        return cluster_sketch_step(st, hh, distinct, dist, mask, ae_batch, use_tp=use_tp,
+                                   group=group)
 
     def merge(lanes):
         return cluster_merge(lanes, group)

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
-from .mesh import _as_devices
+from .mesh import _as_devices, grid
 
 
 def backend_for(device: str | torch.device = "cuda") -> str:
@@ -52,23 +52,19 @@ def init_distributed(coordinator_address: str | None = None,
                             timeout=datetime.timedelta(seconds=timeout_s))
 
 
-def make_multihost_mesh(n_model: int = 1, devices=None) -> list[torch.device]:
+def make_multihost_mesh(n_model: int = 1, devices=None) -> list:
     """This process's lanes of the global mesh (default: its cards; pass
-    ``["cpu"]`` lanes on a gloo group). Every rank must hold as many
-    lanes: the top-k gather takes equal shares. A model axis is ROADMAP
-    item 13."""
+    ``["cpu"]`` lanes on a gloo group): a list of node lanes, or with
+    ``n_model > 1`` rows of `n_model` model lanes (`mesh.grid`). Every
+    rank must hold as many lanes: the top-k gather takes equal shares."""
     import torch.distributed as dist
-    if n_model > 1:
-        raise NotImplementedError(
-            "make_multihost_mesh(n_model > 1): tensor parallelism is not ported to "
-            "ig-tpu-torch yet (ROADMAP item 13)")
     lanes = _as_devices(devices)
     if dist.is_initialized():
         counts = [None] * dist.get_world_size()
         dist.all_gather_object(counts, len(lanes))
         if len(set(counts)) != 1:
             raise ValueError(f"ranks hold unequal lane counts {counts}")
-    return lanes
+    return grid(lanes, n_model)
 
 
 def local_node_index() -> int:

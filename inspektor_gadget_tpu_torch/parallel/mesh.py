@@ -9,7 +9,9 @@ device more than once: lanes sharing a device are a check of the lane
 algebra (on the CPU in the tests, on a one-card host in ``chip_smoke.py``),
 never a deployment, since they only take turns on the device.
 
-The model axis (tensor parallelism) is ROADMAP item 13.
+A two-dimensional (node, model) mesh, for tensor parallelism, is a list
+of node rows, each a list of ``n_model`` lane devices: the reference's
+device grid with its axes in the same order.
 """
 
 from __future__ import annotations
@@ -46,19 +48,32 @@ def _as_devices(devices) -> list[torch.device]:
     return [lane_device(d) for d in (devices if devices is not None else local_devices())]
 
 
-def make_mesh(n_nodes: int | None = None, n_model: int = 1,
-              devices=None) -> list[torch.device]:
-    """The first `n_nodes` of `devices` (default: every local card) as
-    node lanes. A model axis (``n_model > 1``) is ROADMAP item 13."""
-    if n_model > 1:
-        raise NotImplementedError(
-            "make_mesh(n_model > 1): tensor parallelism over a model axis is not ported "
-            "to ig-tpu-torch yet (ROADMAP item 13)")
-    devs = _as_devices(devices)
-    n = len(devs) if n_nodes is None else n_nodes
-    if not 1 <= n <= len(devs):
-        raise ValueError(f"n_nodes={n} for {len(devs)} device(s)")
-    return devs[:n]
+def grid(devs: list[torch.device], n_model: int, n_nodes: int | None = None) -> list:
+    """`devs` as a mesh: the first `n_nodes` node lanes when ``n_model``
+    is 1, else `n_nodes` rows of `n_model` lanes, row-major as the
+    reference reshapes its devices (default: as many rows as fit)."""
+    if n_model < 1:
+        raise ValueError(f"n_model must be >= 1, got {n_model}")
+    n = len(devs) // n_model if n_nodes is None else n_nodes
+    if not 1 <= n * n_model <= len(devs):
+        raise ValueError(f"n_nodes={n} x n_model={n_model} for {len(devs)} device(s)")
+    if n_model == 1:
+        return devs[:n]
+    return [devs[i * n_model:(i + 1) * n_model] for i in range(n)]
+
+
+def make_mesh(n_nodes: int | None = None, n_model: int = 1, devices=None) -> list:
+    """The node lanes of `devices` (default: every local card): a list of
+    the first `n_nodes`, or with ``n_model > 1`` a (node, model) grid of
+    `n_nodes` rows of `n_model` lanes."""
+    return grid(_as_devices(devices), n_model, n_nodes)
+
+
+def mesh_shape(mesh: list) -> dict[str, int]:
+    """{"node": rows, "model": lanes a row} of a flat or (node, model) mesh."""
+    if mesh and isinstance(mesh[0], (list, tuple)):
+        return {NODE_AXIS: len(mesh), MODEL_AXIS: len(mesh[0])}
+    return {NODE_AXIS: len(mesh), MODEL_AXIS: 1}
 
 
 def ingest_mesh(chips: int, devices=None) -> list[torch.device]:
@@ -74,5 +89,9 @@ def ingest_mesh(chips: int, devices=None) -> list[torch.device]:
     return devs[:chips]
 
 
-__all__ = ["MODEL_AXIS", "NODE_AXIS", "MeshSpec", "ingest_mesh", "lane_device",
-           "local_devices", "make_mesh"]
+def node_axis() -> str:
+    return NODE_AXIS
+
+
+__all__ = ["MODEL_AXIS", "NODE_AXIS", "MeshSpec", "grid", "ingest_mesh", "lane_device",
+           "local_devices", "make_mesh", "mesh_shape", "node_axis"]

@@ -116,6 +116,10 @@ class Command:
         self._err_reader = threading.Thread(target=drain_err, daemon=True)
         self._err_reader.start()
 
+    def output(self) -> str:
+        """What a started command has written to stdout so far."""
+        return self._out_buf.getvalue()
+
     def stop(self) -> None:
         if self._proc is None:
             raise StepError(f"step {self.name!r} was never started")

@@ -30,6 +30,8 @@ from inspektor_gadget_tpu_torch.agent.client import AgentClient
 from inspektor_gadget_tpu_torch.agent.service import serve
 from inspektor_gadget_tpu_torch.history import HISTORY
 
+from _torch_registry import own_gadgets_only
+
 torch.set_num_threads(2)
 
 NODE = "pn0"  # both agents' node name: the window RPCs serve only their node's windows
@@ -48,11 +50,12 @@ PARAMS = {"gadget.source": "pysynthetic", "gadget.seed": "7",
 def agents(tmp_path_factory):
     d = tmp_path_factory.mktemp("parity")
     port_target, ref_target = f"unix://{d}/port.sock", f"unix://{d}/ref.sock"
-    port_server, _ = serve(port_target, node_name=NODE, device="cpu")
-    ref_server, _ = ref_serve(ref_target, node_name=NODE)
-    yield {"port": port_target, "reference": ref_target}
-    port_server.stop(grace=0.5).wait(10.0)
-    ref_server.stop(grace=0.5).wait(10.0)
+    with own_gadgets_only():
+        port_server, _ = serve(port_target, node_name=NODE, device="cpu")
+        ref_server, _ = ref_serve(ref_target, node_name=NODE)
+        yield {"port": port_target, "reference": ref_target}
+        port_server.stop(grace=0.5).wait(10.0)
+        ref_server.stop(grace=0.5).wait(10.0)
 
 
 def _run(client, params: dict, n: int = BATCHES) -> tuple[dict, list, list]:

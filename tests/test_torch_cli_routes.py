@@ -336,16 +336,56 @@ def test_remote_routes_run_against_port_agents(route, fleet, capsys, tmp_path, r
 @pytest.mark.parametrize("argv,said", [
     (["fleet", "health"], "no agents (use deploy --local N or --remote)"),
     (["bench", "run"], "(ROADMAP item 20)"),
-    (["doctor"], "(ROADMAP item 19)"),
     (["query", "--topology", "auto"], "--topology needs --remote")],
-    ids=["fleet", "bench", "doctor", "query-topology"])
+    ids=["fleet", "bench", "query-topology"])
 def test_unported_routes_still_exit_2_naming_their_item(argv, said, capsys, monkeypatch,
                                                          tmp_path):
-    """`bench` and `doctor` exit 2 naming their ROADMAP items. `fleet` and
-    `query --topology` are ported: without an agent to ask (no local
-    fleet, no --remote) they exit 2 saying so, as the reference's do."""
+    """`bench` exits 2 naming its ROADMAP item. `fleet` and `query
+    --topology` are ported: without an agent to ask (no local fleet, no
+    --remote) they exit 2 saying so, as the reference's do."""
     monkeypatch.setenv(STATE_FILE_ENV, str(tmp_path / "no-agents.json"))
     assert cli.main(argv) == 2
     err = capsys.readouterr().err
     assert said in err
     assert "ROADMAP item 11" not in err
+
+
+@pytest.mark.parametrize("output", ["json", "table"])
+def test_doctor_route_matches_the_reference(output, capsys, monkeypatch, tmp_path):
+    """`doctor` (ROADMAP item 19) and the reference's `ig-tpu doctor` on
+    this host, with no local fleet: the same exit code (1 if and only if
+    a gadget is unavailable), the same windows and their verdicts (but
+    ``native_toolchain``, whose compilers differ: the port's needs nvcc
+    too), and the same gadget rows."""
+    import inspektor_gadget_tpu.cli.deploy as ref_deploy
+    from inspektor_gadget_tpu.cli.main import main as ref_main
+
+    from _torch_registry import own_gadgets_only
+    monkeypatch.setenv(STATE_FILE_ENV, str(tmp_path / "no-agents.json"))
+    monkeypatch.setattr(ref_deploy, "STATE_FILE", str(tmp_path / "no-ref-agents.json"))
+    monkeypatch.setenv("IG_HISTORY_DIR", str(tmp_path / "history"))
+    monkeypatch.setenv("IG_CAPTURE_DIR", str(tmp_path / "capture"))
+    capsys.readouterr()
+    with own_gadgets_only():
+        rc = cli.main(["doctor", "-o", output])
+        got = capsys.readouterr().out
+        ref_rc = ref_main(["doctor", "-o", output])
+        want = capsys.readouterr().out
+    assert rc == ref_rc
+    if output == "table":
+        for head in ("CAPTURE WINDOWS", "GADGETS", "PLATFORM", "SUMMARY"):
+            assert head in got
+        assert got.split("SUMMARY")[1] == want.split("SUMMARY")[1]
+        return
+    got, want = json.loads(got), json.loads(want)
+    assert rc == (1 if any(g["status"] == "unavailable" for g in got["gadgets"]) else 0)
+    assert set(got["windows"]) == set(want["windows"])
+    for name, w in got["windows"].items():
+        if name not in ("native_toolchain", "device_topology"):
+            assert w["ok"] == want["windows"][name]["ok"], (name, w, want["windows"][name])
+    rows = [(g["category"], g["name"], g["status"], g["window"]) for g in got["gadgets"]]
+    assert rows == [(g["category"], g["name"], g["status"], g["window"])
+                    for g in want["gadgets"]]
+    assert len(rows) == 30
+    assert got["platform"]["platform"] in ("unprobed", "cpu", "cuda")
+    assert "ig_doctor_window_ok" in json.dumps(got["telemetry"])

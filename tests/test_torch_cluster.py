@@ -27,11 +27,13 @@ from inspektor_gadget_tpu.parallel import cluster_init as ref_cluster_init
 from inspektor_gadget_tpu.parallel import make_cluster_step as ref_make_cluster_step
 from inspektor_gadget_tpu.parallel import make_mesh as ref_make_mesh
 from inspektor_gadget_tpu_torch.models import AEConfig, ae_init, params_from_numpy
-from inspektor_gadget_tpu_torch.models.params import params_to_numpy
+from inspektor_gadget_tpu_torch.models.params import _flatten, params_to_numpy
 from inspektor_gadget_tpu_torch.ops import bundle_init, bundle_to_numpy, bundle_update, hll_estimate
 from inspektor_gadget_tpu_torch.parallel import cluster as C
 from inspektor_gadget_tpu_torch.parallel import distributed as D
 from inspektor_gadget_tpu_torch.parallel import mesh as M
+
+from _torch_update import assert_same_update
 
 torch.set_num_threads(2)
 
@@ -78,8 +80,15 @@ def test_mesh_axes_and_the_model_axis():
     assert M.make_mesh(devices=["cpu"] * NODES) == [CPU] * NODES
     assert M.make_mesh(n_nodes=4, devices=["cpu"] * NODES) == [CPU] * 4
     assert M.MeshSpec(4).n_model == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        M.make_mesh(n_nodes=4, n_model=2, devices=["cpu"] * NODES)
+    # the model axis: rows of n_model lanes, row-major as the reference's grid
+    devs = ["cpu"] * NODES
+    mesh2 = M.make_mesh(n_nodes=4, n_model=2, devices=devs)
+    assert M.mesh_shape(mesh2) == ref_make_mesh(n_nodes=4, n_model=2).shape == \
+        {"node": 4, "model": 2}
+    assert mesh2 == [[CPU, CPU]] * 4
+    assert M.mesh_shape(M.make_mesh(n_model=4, devices=devs)) == {"node": 2, "model": 4}
+    with pytest.raises(ValueError, match="n_model=2"):
+        M.make_mesh(n_nodes=5, n_model=2, devices=devs)
 
 
 def test_ingest_mesh_shape_and_validation():
@@ -218,17 +227,58 @@ def test_reference_merge_of_stacked_rows_matches_the_port(tmp_path):
         assert g.dtype == w.dtype and np.array_equal(g, w), f"leaf {i}"
 
 
-def test_tensor_parallel_raises_naming_item_13():
-    _, rstate = _ref_state()
-    mesh, state = _port_state(rstate.scorer)
-    one = _keys32(np.ones((NODES, 4), np.uint32))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        C.cluster_sketch_step(state, one, one, one, _rows(np.ones((NODES, 4), bool)),
-                              _rows(np.ones((NODES, 2, DIM), np.float32)), use_tp=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        C.scorer_pspecs(state.scorer)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        D.make_multihost_mesh(n_model=2)
+def test_tensor_parallel_step_matches_the_reference():
+    """The (node, model) mesh's step, float32: bundles equal the
+    reference's TP step leaf by leaf; the loss and the update of the
+    tensor-parallel scorer (gathered from its model shards) equal the
+    reference's replicated step on the same node rows (1e-5; 1e-6, a
+    thousandth of lr, but where the gradient is zero up to rounding), as
+    `tests/test_torch_tensor_parallel.py` holds them and says why the
+    reference's own TP step is not that step."""
+    from inspektor_gadget_tpu.models import ae_loss as ref_ae_loss
+    from inspektor_gadget_tpu.models.autoencoder import normalize_counts as ref_normalize_counts
+    from inspektor_gadget_tpu_torch.models import ae_gather_tp
+
+    def cfg(dtype):
+        return dict(input_dim=DIM, hidden_dim=128, latent_dim=32, compute_dtype=dtype)
+
+    rmesh = ref_make_mesh(n_nodes=4, n_model=2)
+    ref = ref_ae_init(RefAEConfig(**cfg(jnp.float32)))
+    rstate = ref_cluster_init(rmesh, ref, **BUNDLE_KW)
+    rstep, rmerge = ref_make_cluster_step(rmesh, rstate)
+    rdp_mesh = ref_make_mesh(n_nodes=4)
+    rdp_state = ref_cluster_init(rdp_mesh, ref_ae_init(RefAEConfig(**cfg(jnp.float32))),
+                                 **BUNDLE_KW)
+    rdp_step, _ = ref_make_cluster_step(rdp_mesh, rdp_state)
+    mesh = M.make_mesh(n_nodes=4, n_model=2, devices=["cpu"] * NODES)
+    scorer = ae_init(AEConfig(**cfg(torch.float32)), device="cpu")
+    params_from_numpy(scorer, jax.tree.map(np.array, rstate.scorer.params))
+    w0 = _flatten(params_to_numpy(scorer))
+    state = C.cluster_init(mesh, scorer, **BUNDLE_KW)
+    step, merge = C.make_cluster_step(mesh, state)
+    rng = np.random.default_rng(9)
+    keys = rng.integers(1, 2**32, (4, BATCH), dtype=np.uint32)
+    mask = np.ones((4, BATCH), bool)
+    ae_batch = rng.poisson(3.0, (4, 8, DIM)).astype(np.float32)
+    grad = _flatten(jax.tree.map(np.array, jax.grad(lambda p: sum(
+        ref_ae_loss(p, ref_normalize_counts(jnp.asarray(b)), ref.config) for b in ae_batch)
+        / len(ae_batch))(rdp_state.scorer.params)))
+    ref_args = (*(jnp.asarray(keys),) * 3, jnp.asarray(mask), jnp.asarray(ae_batch))
+    rstate, rloss = rstep(rstate, *ref_args)
+    rdp_state, rdp_loss = rdp_step(rdp_state, *ref_args)
+    state, loss = step(state, *(_keys32(keys),) * 3, _rows(mask), _rows(ae_batch))
+    assert float(loss) == pytest.approx(float(rdp_loss), rel=1e-5)
+    assert float(loss) == pytest.approx(float(rloss), rel=1e-5)
+    merged, rmerged = merge(state.lanes), rmerge(rstate.bundle)
+    for i, (g, w) in enumerate(zip(bundle_to_numpy(merged), jax.tree.leaves(rmerged))):
+        assert np.array_equal(g, np.asarray(w)), f"merged leaf {i}"
+    assert float(merged.events) == 4 * BATCH
+    got = _flatten({k: {kk: t.numpy() for kk, t in v.items()}
+                    for k, v in ae_gather_tp(state.scorer).items()})
+    assert_same_update(w0, got, w0, _flatten(jax.tree.map(np.array, rdp_state.scorer.params)),
+                       grad, state.scorer.config.learning_rate, 1e-6,
+                       what="vs the reference's replicated step")
+    assert state.scorer.steps == 1
 
 
 def test_distributed_without_a_group():
@@ -241,3 +291,4 @@ def test_distributed_without_a_group():
     assert (D.world_size(), D.local_node_index()) == (1, 0)
     assert D.backend_for("cpu") == "gloo"
     assert D.make_multihost_mesh(devices=["cpu", "cpu"]) == [CPU, CPU]
+    assert D.make_multihost_mesh(n_model=2, devices=["cpu"] * 4) == [[CPU, CPU]] * 2

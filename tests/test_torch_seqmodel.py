@@ -169,14 +169,32 @@ def test_seq_window_matrix_is_the_operators():
     assert seq_window_matrix([[1, 2]], window=256) is None
 
 
-def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        P.seq_init(P.SeqConfig(n_experts=4), device="cpu")
-    for fn in (P.make_sp_train_step, P.make_ep_train_step, P.seq_param_pspecs):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            fn()
-    q = torch.zeros(1, 4, 1, 16)
-    with pytest.raises(NotImplementedError, match="items 11"):
-        P._attend(q, q, q, "ring")
+def test_moe_weights_carry_round_trip_from_jax():
+    """The MoE configuration (ROADMAP item 13) builds the reference's
+    parameter tree: its weights carry in and back out unchanged, and the
+    scores of both packages agree (tests/test_torch_moe_pipeline.py
+    holds its steps, the EP and SP steps)."""
+    small = dict(SMALL, n_experts=4)
+    ref = R.seq_init(R.SeqConfig(**small, dtype=jnp.float32), seed=5)
+    port = P.seq_init(P.SeqConfig(**small, dtype=torch.float32), seed=5, device="cpu")
+    params_from_numpy(port, _numpy_tree(ref.params))
+    back = params_to_numpy(port)
+    assert jax.tree.structure(back) == jax.tree.structure(_numpy_tree(ref.params))
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(_numpy_tree(ref.params))):
+        assert np.array_equal(a, b)
+    toks = _tokens(5)
+    np.testing.assert_allclose(P.seq_score(port, toks, "full").numpy(),
+                               np.asarray(R.seq_score(ref, jnp.asarray(toks), attn="full")),
+                               rtol=1e-3, atol=1e-3)
+
+
+def test_lane_backends_and_unknown_backends():
+    """``ring`` and ``ulysses`` on one lane attend over the whole window;
+    an unknown backend raises."""
+    q = torch.from_numpy(np.random.default_rng(0).normal(size=(1, 8, 2, 16)).astype(np.float32))
+    want = P.full_attention(q, q, q, causal=True)
+    for attn in ("ring", "ulysses"):
+        (got,) = P._LANE_ATTN[attn]([q], [q], [q], causal=True)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-5, atol=2e-5)
     with pytest.raises(ValueError):
         P._attend(q, q, q, "nope")
