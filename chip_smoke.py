@@ -271,6 +271,29 @@ geometry, the AE at 4096 -> 512 -> 128 bf16) against the DP step:
 bundles bit-equal, the losses and the first step as the train steps
 above, K1 once a node lane a step.
 
+The perf plane (phase 5o, ROADMAP 20): (a) `run_harness("e2e-prod",
+device="cuda", seconds=1.5)` (the config's window is 3 s) in this
+process, five times: fused; fused with the
+invertible and quantile planes; classic; sharded over two lanes of
+cuda:0; fused replaying 5f(a)'s journal. Each record validates, says
+platform gpu with a probe trail naming the card, counts steps x batch
+less its drops in events (the journal's batch counts, cycled, for the
+replay) and positive seconds in every stage; K2 launches once a step
+(the warm-up's 2 besides) on the fused arms and no K1, K1 once a step on
+the classic arm and no K2, K2 once a lane a step on the sharded arm (the
+harness checks each of its loops' counts itself on the card). (b) The
+seven bench modules' `publish` on the card into the same ledger, at the
+reference's default sizes but fanout's message count (5000 of 20000);
+their deterministic outputs equal a CPU call's: the merged DDSketch (its
+quantiles within 1e-6), the observed count-min error, the decoded keys,
+the standing, history, fleet and fan-out counts. (c) ``ig-tpu-torch bench
+run --config e2e --device cuda --ledger T -o summary`` as a subprocess
+started with (b) (its torch import beside (b)'s benches, its window
+beside (b)'s CPU calls; its rate is not a measurement), exit 0,
+its two records in the ledger; then `bench compare` and `bench report`
+in this process, their exit code and text those of `compare_ledger` and
+`render_report` over the ledger.
+
 The launch counts are set to 0 just before each card run of a path and
 read just after it.
 
@@ -1478,6 +1501,7 @@ def capture_route(device: str, batches: int, batch: int, root: Path) -> dict:
             "raw_npz_bytes_per_batch": raw / batches, "records": stats["by_type"],
             "transitions": len(rec["alerts"]), "harvests": len(card1["summaries"]),
             "windows": len(rec["windows"]), "k2_launches": k2, "ae_rel_gap": gap,
+            "journal": jpath,
             "replays": [{"device": d, "seconds": rp["seconds"], "ev_per_s": rp["ev_per_s"],
                          "k2_launches": rp["k2_launches"],
                          "digests_match": rp["result"].digests_match,
@@ -4432,6 +4456,238 @@ def parallel_phase(seed: int, batch: int, prod: dict) -> dict:
     return out
 
 
+PERF_CONFIG = "e2e-prod"     # the harness config of 5o(a): bench.py's production geometry
+PERF_SECONDS = 1.5           # 5o(a)'s windows: the config's is 3 s
+PERF_CLI_CONFIG = "e2e"      # 5o(c)'s subprocess
+PERF_FANOUT_MESSAGES = 5000  # 5o(b)'s fan-out: the reference's default is 20000
+PERF_JOURNAL = "chip_smoke_perf_journal"  # 5f(a)'s recording, kept for 5o(a)'s replay
+
+
+def _quiet(fn, *args, **kw):
+    """fn's return value and what it printed (a CLI verb in process)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args, **kw)
+    return rc, buf.getvalue()
+
+
+def perf_phase(device: str, rep: dict, root: Path, journal: str,
+               config: str = PERF_CONFIG) -> dict:
+    """Phase 5o (ROADMAP 20): the harness's arms at `config` on `device`,
+    the seven bench modules' `publish` on `device` with their
+    deterministic outputs held to a CPU call's, and the `bench` CLI. Every
+    record goes to one ledger under `root`. Returns the runs, the bench
+    records' values, the CLI's process time and the K1 and K2 launches.
+    Runs on the CPU too (`device="cpu"`, a small `config`), where no
+    kernel launches."""
+    from inspektor_gadget_tpu_torch.capture import ReplaySource
+    from inspektor_gadget_tpu_torch.cli.bench import main as bench_main
+    from inspektor_gadget_tpu_torch.ops.quantiles import dd_merge, dd_quantile
+    from inspektor_gadget_tpu_torch.perf import (accuracy_bench, fanout, fleet_bench,
+                                                 history_bench, invertible_bench,
+                                                 quantile_bench, standing_bench)
+    from inspektor_gadget_tpu_torch.perf import harness as PH
+    from inspektor_gadget_tpu_torch.perf.compare import compare_ledger, render_compare
+    from inspektor_gadget_tpu_torch.perf.compare import render_report
+    from inspektor_gadget_tpu_torch.perf.ledger import append_record, read_ledger
+    from inspektor_gadget_tpu_torch.perf.schema import HOST_STAGES, validate_record
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    on_card = dev.type == "cuda"
+    platform = "gpu" if on_card else "cpu"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ledger, cpu_ledger = str(root / "PERF.jsonl"), str(root / "PERF-cpu.jsonl")
+    card = rep["kind"]
+    out: dict = {"runs": {}, "benches": {}, "launches": {"K1": 0, "K2": 0}}
+    log(f"[perf] (5o) {rep['nvidia_smi']}; ledger {ledger}")
+
+    def held(rec: dict, what: str, on: str = platform) -> None:
+        prov = rec["provenance"]
+        require(validate_record(rec) == [], f"{what}: invalid record {validate_record(rec)}")
+        require(prov["platform"] == on and prov["degraded"] is False,
+                f"{what}: platform {prov['platform']}, degraded {prov['degraded']}")
+        require(on != "gpu" or card in prov["probe"].get("detail", ""),
+                f"{what}: the probe trail does not name {card}: {prov['probe']}")
+
+    # (a) the harness's arms in this process
+    counts = [b.count for b in ReplaySource(journal).batches]
+    arms = {"fused": {}, "fused +inv +qt": dict(invertible=True, quantiles=True),
+            "classic": dict(pipeline="classic"),
+            "sharded x2": dict(pipeline="sharded", chips=2, lanes=[dev, dev]),
+            "fused --replay 5f(a)": dict(replay=journal)}
+    for name, kw in arms.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        rec = PH.run_harness(config, device=device, seconds=PERF_SECONDS, **kw)
+        wall = time.perf_counter() - t0
+        launched = read_launches()
+        append_record(rec, ledger)
+        held(rec, f"harness {name}")
+        ex = rec["extra"]
+        steps, pipeline = ex["steps"], kw.get("pipeline", "fused")
+        want = (sum(counts[i % len(counts)] for i in range(steps)) if "replay" in kw
+                else steps * ex["batch"] - ex.get("drops", 0))
+        require(ex["events"] == want, f"harness {name}: events {ex['events']}, expected {want}")
+        update = {"fused": "fused_update", "classic": "bundle_update",
+                  "sharded": "sharded_update"}[pipeline]
+        arm_stages = (*HOST_STAGES[pipeline], update, "harvest")
+        require(all(s in rec["stages"] for s in arm_stages)
+                and all(st["seconds"] > 0 for st in rec["stages"].values()),
+                f"harness {name}: stages {rec['stages']}")
+        if not on_card:
+            expect = {"K1": 0, "K2": 0, "K3": 0}
+        elif pipeline == "fused":
+            expect = {"K1": 0, "K2": PH.WARM_STEPS + steps, "K3": 0}
+        elif pipeline == "classic":
+            expect = {"K1": PH.WARM_STEPS + steps, "K2": 0, "K3": 0}
+        else:  # the harness checked each of its loops: K2 once a lane a step
+            expect = {"K1": 0, "K2": launched["K2"], "K3": 0}
+            require(launched["K2"] > ex["chips"] * (steps + 1),
+                    f"harness {name}: K2 {launched['K2']} over {steps} rounds")
+        require(launched == expect, f"harness {name}: launched {launched}, expected {expect}")
+        out["launches"]["K1"] += launched["K1"]
+        out["launches"]["K2"] += launched["K2"]
+        out["runs"][name] = {"value": rec["value"], "unit": rec["unit"], "steps": steps,
+                             "events": ex["events"], "wall_s": wall, "launches": launched,
+                             "stages": rec["stages"],
+                             **{k: ex[k] for k in ("host_plane_ev_per_s", "starved_fraction",
+                                                   "per_chip_ev_per_s",
+                                                   "device_plane_wall_ev_per_s",
+                                                   "e2e_wall_ev_per_s") if k in ex}}
+        log(f"[perf] (5o a) {name}: {rec['value']:.1f} {rec['unit']} over {steps} steps of "
+            f"{ex['batch']} ({ex['events']} events, {wall:.1f} s with warm-up and post-loop "
+            f"stages); launches {launched}; " + ", ".join(
+                f"{k} {ex[k]:.1f}" for k in ("host_plane_ev_per_s", "per_chip_ev_per_s",
+                                             "device_plane_wall_ev_per_s", "e2e_wall_ev_per_s")
+                if k in ex))
+        log(f"[perf] (5o a) {name} stages (s): " + ", ".join(
+            f"{s} {st['seconds']:.4f}" for s, st in rec["stages"].items()))
+
+    # (b) the seven bench modules on the card, then each deterministic
+    # output held to a CPU call's; (c)'s CLI run beside them
+    def publish(name: str, mod, **kw) -> list[dict]:
+        reset_launches()
+        t0 = time.perf_counter()
+        recs = mod.publish(device=device, ledger=ledger, **kw)
+        wall = time.perf_counter() - t0
+        launched = read_launches()
+        for r in recs:
+            held(r, f"{name} {r['config']}")
+        out["launches"]["K1"] += launched["K1"]
+        out["launches"]["K2"] += launched["K2"]
+        out["benches"][name] = {"wall_s": wall, "launches": launched,
+                                "records": {r["config"]: r["value"] for r in recs}}
+        log(f"[perf] (5o b) {name} ({wall:.1f} s, launches {launched}): " + "; ".join(
+            f"{r['config']} {r['value']:.6g} {r['unit']}" for r in recs))
+        return recs
+
+    host_benches = (  # host work: the CPU's records must carry the same counts
+        ("standing_bench", standing_bench, {},
+         ("range_small", "range_large", "range_windows", "folds_during_reads")),
+        ("history_bench", history_bench, {},
+         ("windows", "super_windows", "bytes_reclaimed", "pushdown_wire_bytes",
+          "fetch_wire_bytes", "wire_ratio")),
+        ("fleet_bench", fleet_bench, {},
+         ("agents", "fan_in", "depth", "digest", "wire_windows", "client_link_windows",
+          "client_link_bytes")),
+        ("fanout", fanout, {"messages": PERF_FANOUT_MESSAGES},
+         ("subscribers", "delivered", "drops")))
+    # (c) the CLI: one `bench run` as a user runs it, in a process of its
+    # own. It imports torch beside (b)'s benches (a core of the host's 8)
+    # and runs its window beside (b)'s CPU calls (checks, not
+    # measurements): its own rate is logged, not a measurement
+    cli_box: dict = {}
+    cli = threading.Thread(target=lambda: cli_box.update(run_at_once({"bench run": [
+        sys.executable, "-m", "inspektor_gadget_tpu_torch.cli.main", "bench", "run",
+        "--config", PERF_CLI_CONFIG, "--device", device, "--ledger", ledger, "-o", "summary"]},
+        timeout=300)), daemon=True)
+    cli.start()
+    publish("quantile_bench", quantile_bench)
+    acc_recs = publish("accuracy_bench", accuracy_bench)
+    acc = out["benches"]["accuracy_bench"]["launches"]
+    require(acc["K2"] == 0 and (acc["K1"] > 0) == on_card,
+            f"accuracy_bench: launched {acc}; bundle_update runs K1 on the card")
+    publish("invertible_bench", invertible_bench)
+    host_recs = {name: publish(name, mod, **kw) for name, mod, kw, _keys in host_benches}
+
+    merged = [dd_merge(*quantile_bench.merged_sketch(device=d)) for d in (dev, "cpu")]
+    require(all(torch.equal(getattr(merged[0], f).cpu(), getattr(merged[1], f))
+                for f in ("counts", "zeros", "total")), "quantile_bench: merged sketch differs")
+    qs = [0.5, 0.9, 0.99, 0.999]
+    qv = [dd_quantile(m, qs).cpu().numpy() for m in merged]
+    q_rel = float(np.max(np.abs(qv[0] - qv[1]) / np.abs(qv[1])))
+    require(q_rel <= 1e-6, f"quantile_bench: merged quantiles {qv[0]} vs CPU {qv[1]}")
+    log(f"[perf] (5o b) quantile_bench: the merged sketch equals the CPU's; quantiles "
+        f"{dict(zip(qs, qv[0].tolist()))}, {q_rel:.3g} from the CPU's")
+    cpu_err = accuracy_bench.measure_observed_err(device="cpu")
+    err = acc_recs[2]["extra"]
+    want = {k: round(cpu_err[k], 5) for k in ("observed_err_pct", "max_err_pct", "bound_pct")}
+    require({k: err[k] for k in want} == want and err["audited_keys"] == cpu_err["audited_keys"],
+            f"accuracy_bench: observed error {err} vs the CPU's {cpu_err}")
+    log(f"[perf] (5o b) accuracy_bench: observed error {err['observed_err_pct']}% (max "
+        f"{err['max_err_pct']}%, bound {err['bound_pct']}%) over {err['audited_keys']} keys, "
+        f"the CPU's")
+    decoded = [invertible_bench.measure_decode(reps=1, device=d)["decoded"] for d in (dev, "cpu")]
+    require(decoded[0] == decoded[1], "invertible_bench: the decoded keys differ from the CPU's")
+    log(f"[perf] (5o b) invertible_bench: {len(decoded[0])} keys decoded, complete, the CPU's")
+    for name, mod, kw, keys in host_benches:
+        recs = host_recs[name]
+        cpu_recs = mod.publish(device="cpu", ledger=cpu_ledger, **kw)
+        for g, w in zip(recs, cpu_recs, strict=True):
+            held(w, f"{w['config']} on the CPU", "cpu")
+            gx, wx = ({k: r["extra"][k] for k in keys if k in r["extra"]} for r in (g, w))
+            require(gx == wx and gx, f"{name} {g['config']}: card {gx} vs CPU {wx}")
+        log(f"[perf] (5o b) {name}: " + "; ".join(
+            f"{r['config']} " + ", ".join(f"{k} {r['extra'][k]}" for k in keys
+                                          if k in r["extra"] and k != "digest")
+            for r in recs) + ", the CPU's")
+    host = [r for recs in host_recs.values() for r in recs]
+    require(all(r["extra"]["folds_during_reads"] == 0 for r in host
+                if r["config"] == "standing-cache-hit"), "standing_bench: a cache read folded")
+    require(all(r["extra"]["delivered"] == PERF_FANOUT_MESSAGES * r["extra"]["subscribers"]
+                and r["extra"]["drops"] == 0 for r in host_recs["fanout"]),
+            "fanout: a message was lost")
+
+    cli.join(timeout=330)
+    proc, cli_wall = cli_box.get("bench run", (None, 0.0))
+    require(proc is not None and proc.returncode == 0,
+            "bench run: " + (f"exited {proc.returncode}: {proc.stderr[-2000:]}"
+                             if proc is not None else "no exit in 300 s"))
+    for line in proc.stdout.strip().splitlines():
+        log(f"[perf] (5o c) bench run: {line}")
+    read = read_ledger(ledger)
+    records = read.records
+    require(not read.skipped and all(r["provenance"]["platform"] == platform for r in records),
+            f"the ledger: {read.skipped}")
+    cli_configs = (f"harness.{PERF_CLI_CONFIG}", f"harness.{PERF_CLI_CONFIG}.pipeline-lag")
+    cli_recs = [r for r in records if r["config"] in cli_configs]
+    require([r["config"] for r in cli_recs] == list(cli_configs),
+            f"bench run appended {[r['config'] for r in cli_recs]}")
+    results = compare_ledger(records)
+    rc, text = _quiet(bench_main, ["compare", "--ledger", ledger])
+    want_rc = max(r.rc for r in results)
+    require(rc == want_rc != 3 and text.strip() == render_compare(results),
+            f"bench compare: exit {rc}, expected {want_rc}")
+    rc_report, report_text = _quiet(bench_main, ["report", "--ledger", ledger, "--last", "0"])
+    require(rc_report == 0 and report_text.strip() == render_report(records, last=0).strip(),
+            "bench report differs from render_report")
+    for line in text.strip().splitlines():
+        if not line.startswith("----"):  # series with a baseline
+            log(f"[perf] (5o c) bench compare: {line}")
+    log(f"[perf] (5o c) bench run --config {PERF_CLI_CONFIG}: exit 0 in {cli_wall:.1f} s of "
+        f"process, beside 5o(b) ({cli_recs[0]['value']:.1f} "
+        f"{cli_recs[0]['unit']}); bench compare exit {rc} ({len(results)} series), bench "
+        f"report {len(records)} records")
+    out.update(cli={"wall_s": cli_wall, "value": cli_recs[0]["value"],
+                    "stages": cli_recs[0]["stages"]},
+               compare_rc=rc, records=len(records), seconds=time.perf_counter() - t_phase)
+    log(f"[perf] phase 5o took {out['seconds']:.1f} s; launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -5059,6 +5315,9 @@ def main() -> int:
     report["capture"] = {**cap, "cli": cap_cli, "entropy": ent,
                          "seconds": time.perf_counter() - t_cap}
     log(f"[capture] phase 5f took {report['capture']['seconds']:.1f} s")
+    perf_journal = ckpt_root.parent / PERF_JOURNAL  # 5o replays 5f(a)'s recording
+    shutil.rmtree(perf_journal, ignore_errors=True)
+    shutil.move(cap["journal"], perf_journal)
     shutil.rmtree(cap_root, ignore_errors=True)  # hundreds of MB of journals
     report["kernel_times"]["after 5f"] = time_kernels()
     log_times("the kernels after phase 5f", report["kernel_times"]["after 5f"])
@@ -5134,6 +5393,13 @@ def main() -> int:
     par = parallel_phase(args.seed + 13, batch, prod)
     launches["K1"] += par["launches"]["K1"]
     report["parallel"] = par
+
+    # -- 5o. the perf plane: harness arms, bench modules, `bench` (ROADMAP 20) ------
+    perf = perf_phase("cuda", rep, ckpt_root.parent / "chip_smoke_perf", str(perf_journal))
+    launches["K1"] += perf["launches"]["K1"]
+    launches["K2"] += perf["launches"]["K2"]
+    shutil.rmtree(perf_journal, ignore_errors=True)
+    report["perf"] = perf
 
     # -- 6. K3 against its plain version ----------------------------------------
     # the plain versions' float32 matmuls run in full f32, not TF32

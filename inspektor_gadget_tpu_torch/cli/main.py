@@ -12,12 +12,13 @@ The port's copy of ``inspektor_gadget_tpu/cli/main.py``: ``list``,
 with ``--remote``, fanned out to agents, ``query``, ``watch``,
 ``history``, ``record``, ``replay`` and ``alerts`` on this process or the
 agents, ``agent`` (the per-node daemon, `agent.main serve`), ``debug``,
-``deploy``, ``undeploy``, ``traces``, ``fleet`` and ``doctor``, with one more flag, ``--device
+``deploy``, ``undeploy``, ``traces``, ``fleet``, ``doctor`` and ``bench``
+(the perf harness and its ledger), with one more flag, ``--device
 {cuda,cpu}`` (default ``cuda``): the device the run's operators (and
-``profile block-io --quantiles true``) put their state on, and for
-``deploy --local`` the device of the agents it starts. The commands
-whose modules are not ported (``bench``) exit 2 naming their ROADMAP
-item.
+``profile block-io --quantiles true``) put their state on, for ``deploy
+--local`` the device of the agents it starts, and for ``bench run`` the
+device it measures. Every top-level command of the reference's CLI is
+ported.
 
     python -m inspektor_gadget_tpu_torch.cli.main trace exec --device cpu \\
         --source pysynthetic --timeout 3 --tpusketch-enable true
@@ -57,8 +58,8 @@ from ..gadgets.interface import GadgetType  # noqa: E402
 from ..operators import operators as op_registry  # noqa: E402
 from ..params import Collection, ParamError  # noqa: E402
 from ..telemetry.tracing import RECORDER, TRACER, export_chrome, load_dump  # noqa: E402
-from . import unported  # noqa: E402
 from .alerts import add_alerts_parser  # noqa: E402
+from .bench import add_bench_parser  # noqa: E402
 from .fleet import add_fleet_parser  # noqa: E402
 from .history import add_history_parser  # noqa: E402
 from .query import add_query_parser  # noqa: E402
@@ -66,12 +67,6 @@ from .record import add_record_parser, add_replay_parser  # noqa: E402
 from .watch import add_watch_parser  # noqa: E402
 
 __version__ = "0.1.0"
-
-# the reference's subcommands whose modules the port has not yet: each
-# exits 2 naming the ROADMAP item that ports it
-UNPORTED_COMMANDS = {
-    "bench": ("benchmark runs and the perf ledger", "20"),
-}
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -124,6 +119,7 @@ def build_parser() -> argparse.ArgumentParser:
     add_alerts_parser(sub)
     add_record_parser(sub)
     add_replay_parser(sub)
+    add_bench_parser(sub)
 
     # help-listing stub only: main() intercepts `agent` before argparse and
     # forwards the raw argv to agent.main serve (REMAINDER can't pass
@@ -151,10 +147,6 @@ def build_parser() -> argparse.ArgumentParser:
             vparser.add_argument("-p", "--param", action="append", default=[],
                                  help="gadget parameter k=v (repeatable)")
         vparser.set_defaults(func=cmd_traces, verb=verb)
-
-    # help-listing stubs only: main() answers them before argparse
-    for name, (help_, item) in UNPORTED_COMMANDS.items():
-        sub.add_parser(name, help=f"{help_} (not ported yet: ROADMAP item {item})")
 
     categories = gadget_registry.categories()
     for category in sorted(categories):
@@ -766,8 +758,6 @@ def main(argv: list[str] | None = None) -> int:
     if argv and argv[0] == "agent":
         from ..agent.main import main as agent_main
         return agent_main(["serve", *argv[1:]])
-    if argv and argv[0] in UNPORTED_COMMANDS:
-        return unported(f"'{argv[0]}'", UNPORTED_COMMANDS[argv[0]][1])
     ap = build_parser()
     args = ap.parse_args(argv)
     if not hasattr(args, "func"):

@@ -20,7 +20,8 @@ end to end:
 
 The soak (`slow`, outside tier-1) repeats mixed faults over four nodes
 with subscriber churn against a shared run and checks the invariants;
-its scaling points are logged (the perf ledger is ROADMAP item 20).
+its scaling points land as PerfRecords in a ledger of its own
+(`perf.ledger.append_record`), as the reference's soak's do.
 In-process agents run on the CPU (``device="cpu"``); `AgentProcess`
 starts ``--device cpu`` agents.
 """
@@ -694,6 +695,9 @@ def test_soak_fleet_chaos_invariants_and_scaling(tmp_path_factory):
     from inspektor_gadget_tpu_torch.history import HISTORY, decode_frames, merge_windows
     from inspektor_gadget_tpu_torch.operators import operators as op_registry
     from inspektor_gadget_tpu_torch.params import Collection
+    from inspektor_gadget_tpu_torch.perf.ledger import append_record, read_ledger
+    from inspektor_gadget_tpu_torch.perf.provenance import build_provenance
+    from inspektor_gadget_tpu_torch.perf.schema import make_record
 
     n_nodes = 4
     hist_base = str(tmp_path_factory.mktemp("soak-history"))
@@ -808,8 +812,8 @@ def test_soak_fleet_chaos_invariants_and_scaling(tmp_path_factory):
             time.sleep(0.3)
         assert threading.active_count() <= baseline_threads + 24
 
-        # scaling points (the perf ledger that would keep them is
-        # ROADMAP item 20): fleet ingest rows/s and the merge's windows/s
+        # scaling points → schema-valid PerfRecords in a ledger: fleet
+        # ingest rows/s and the merge's windows/s
         frames_per_node, _errs = runtime.fetch_windows(gadget="trace/exec")
         windows = []
         for res in frames_per_node.values():
@@ -819,9 +823,33 @@ def test_soak_fleet_chaos_invariants_and_scaling(tmp_path_factory):
         merged = merge_windows(windows)
         merge_s = max(time.perf_counter() - m0, 1e-9)
         assert merged.events > 0
-        print(f"soak-fleet-{n_nodes}node: fleet_ingest {len(events) / duration:.1f} rows/s "
+        ledger = str(tmp_path_factory.mktemp("soak-ledger") / "PERF.jsonl")
+        prov = build_provenance("cpu", False)
+        ingest_rec = make_record(
+            config=f"soak-fleet-{n_nodes}node", metric="fleet_ingest",
+            unit="ev/s", value=len(events) / duration,
+            stages={"merge": {"seconds": merge_s,
+                              "events": float(merged.events)},
+                    "harvest": {"events": float(len(events)),
+                                "seconds": duration}},
+            provenance=prov,
+            extra={"nodes": n_nodes, "faults": faults["count"],
+                   "reconnects": total_reconnects,
+                   "windows": len(windows)})
+        merge_rec = make_record(
+            config=f"soak-fleet-{n_nodes}node", metric="fleet_merge",
+            unit="windows/s", value=len(windows) / merge_s,
+            stages={"merge": {"seconds": merge_s,
+                              "calls": float(len(windows))}},
+            provenance=prov,
+            extra={"nodes": n_nodes})
+        append_record(ingest_rec, path=ledger)
+        append_record(merge_rec, path=ledger)
+        read = read_ledger(path=ledger)
+        assert len(read.records) == 2 and not read.skipped
+        print(f"soak-fleet-{n_nodes}node: fleet_ingest {ingest_rec['value']:.1f} rows/s "
               f"over {duration:.1f} s ({faults['count']} faults, {total_reconnects} "
-              f"reconnects); fleet_merge {len(windows) / merge_s:.1f} windows/s "
+              f"reconnects); fleet_merge {merge_rec['value']:.1f} windows/s "
               f"({len(windows)} windows, {merged.events} events)")
     finally:
         if runtime is not None:

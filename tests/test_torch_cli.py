@@ -8,6 +8,7 @@ with ``--tpusketch-history true`` seals into a store that ``query``,
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import signal
@@ -18,6 +19,8 @@ import pytest
 import torch
 
 from inspektor_gadget_tpu_torch.cli import main as cli
+
+from _torch_registry import own_gadgets_only
 
 PORT = [sys.executable, "-m", "inspektor_gadget_tpu_torch.cli.main"]
 REF = [sys.executable, "-m", "inspektor_gadget_tpu.cli.main"]
@@ -99,14 +102,33 @@ def test_cuda_without_a_card_exits_1():
     assert "torch.cuda.is_available() is false; pass device='cpu'" in r.stderr
 
 
-# the reference's commands whose modules the port lacks; the routes of the
-# fan-out run in tests/test_torch_cli_routes.py
-@pytest.mark.parametrize("command", sorted(cli.UNPORTED_COMMANDS))
+# the commands the port lacked once (`bench`, ROADMAP item 20, the last of
+# them): each is ported now. The routes of the fan-out run in
+# tests/test_torch_cli_routes.py
+@pytest.mark.parametrize("command", ["bench"])
 def test_unported_commands_exit_2_naming_their_item(command, capsys):
-    assert cli.main([command, "--help"]) == 2
-    err = capsys.readouterr().err
-    assert f"'{command}' is not ported" in err
-    assert f"(ROADMAP item {cli.UNPORTED_COMMANDS[command][1]})" in err
+    """A command once unported answers --help with exit 0, lists its
+    verbs and names no ROADMAP item."""
+    with pytest.raises(SystemExit) as e:
+        cli.main([command, "--help"])
+    assert e.value.code == 0
+    out = capsys.readouterr()
+    assert all(verb in out.out for verb in ("run", "compare", "report", "import"))
+    assert "ROADMAP item" not in out.out + out.err
+
+
+def _top_level_commands(parser) -> set[str]:
+    (sub,) = [a for a in parser._actions if isinstance(a, argparse._SubParsersAction)]
+    return set(sub.choices)
+
+
+def test_top_level_commands_equal_the_references():
+    """Every top-level command of the reference's CLI is the port's."""
+    from inspektor_gadget_tpu.cli import main as ref_cli
+    with own_gadgets_only():
+        got, want = (_top_level_commands(m.build_parser()) for m in (cli, ref_cli))
+    assert got == want
+    assert {"bench", "doctor", "fleet", "query", "agent"} <= got
 
 
 # the gadgets of ROADMAP item 17b, each with the flags of a short CPU run

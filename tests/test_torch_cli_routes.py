@@ -333,21 +333,28 @@ def test_remote_routes_run_against_port_agents(route, fleet, capsys, tmp_path, r
     fn(fleet, capsys, tmp_path, **kwargs)
 
 
-@pytest.mark.parametrize("argv,said", [
-    (["fleet", "health"], "no agents (use deploy --local N or --remote)"),
-    (["bench", "run"], "(ROADMAP item 20)"),
-    (["query", "--topology", "auto"], "--topology needs --remote")],
+@pytest.mark.parametrize("argv,rc,said", [
+    (["fleet", "health"], 2, "no agents (use deploy --local N or --remote)"),
+    (["bench", "run"], 1, "torch.cuda.is_available() is false; pass device='cpu'"),
+    (["query", "--topology", "auto"], 2, "--topology needs --remote")],
     ids=["fleet", "bench", "query-topology"])
-def test_unported_routes_still_exit_2_naming_their_item(argv, said, capsys, monkeypatch,
+def test_unported_routes_still_exit_2_naming_their_item(argv, rc, said, capsys, monkeypatch,
                                                          tmp_path):
-    """`bench` exits 2 naming its ROADMAP item. `fleet` and `query
-    --topology` are ported: without an agent to ask (no local fleet, no
-    --remote) they exit 2 saying so, as the reference's do."""
+    """Once unported, now ported: no route names a ROADMAP item. `fleet`
+    and `query --topology` without an agent to ask (no local fleet, no
+    --remote) exit 2 saying so, as the reference's do; `bench run`
+    without a card asks for the card by default and exits 1 with
+    `resolve_device`'s message, writing no ledger."""
+    if argv[0] == "bench" and torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
     monkeypatch.setenv(STATE_FILE_ENV, str(tmp_path / "no-agents.json"))
-    assert cli.main(argv) == 2
+    ledger = tmp_path / "PERF.jsonl"
+    monkeypatch.setenv("IG_TPU_TORCH_PERF_LEDGER", str(ledger))
+    assert cli.main(argv) == rc
     err = capsys.readouterr().err
     assert said in err
-    assert "ROADMAP item 11" not in err
+    assert "ROADMAP item" not in err
+    assert not ledger.exists()
 
 
 @pytest.mark.parametrize("output", ["json", "table"])

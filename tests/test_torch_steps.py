@@ -167,7 +167,7 @@ def test_a_stream_that_exits_reports_its_stderr():
 def test_a_failing_command_fails_its_step_and_cleanup_still_runs():
     ran = []
     with pytest.raises(StepError, match="exited 2"):
-        run_test_steps([once("unported", ("bench", "run")),
+        run_test_steps([once("bad-flag", ("version", "--no-such-flag")),
                         FuncStep(name="cleanup", fn=lambda: ran.append(1), cleanup=True)])
     assert ran == [1]
 
