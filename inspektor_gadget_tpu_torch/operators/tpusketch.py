@@ -39,12 +39,21 @@ The reference donates its bundle to each step; the port updates it in
 place under ``_bundle_mu``, and every host snapshot that must outlive
 the next step is a copy (on the CPU a tensor's ``.numpy()`` is the
 live state). Spans are the reference's `TRACER` spans under the run
-span, each also a ``torch.profiler.record_function`` range.
+span (each a ``torch.profiler`` range while a profiler records), but
+that the gadget path's batch is tiled finer: ``tpusketch/h2d`` holds
+``tpusketch/fold`` and ``tpusketch/copy``, then come
+``tpusketch/update`` and ``tpusketch/post``; the harvest's parts are
+``tpusketch/harvest/{dispatch,wait,read,finish,anomaly}``. On the card
+each gadget-path batch's fence event is a timing event: once it has
+completed, its completion less the host's dispatch end, mapped onto the
+host clock by an anchor event taken when the instance is built and
+re-taken at every harvest, is the batch's device lag (the pipeline's
+``device`` stage).
 """
 
 from __future__ import annotations
 
-import contextlib
+import collections
 import dataclasses
 import os
 import threading
@@ -84,7 +93,7 @@ from ..sources.batch import BATCH_COLUMNS, EventBatch, FoldedBatch
 from ..sources.staging import H2DStager, PinnedBufferPool
 from ..telemetry import counter, histogram
 from ..telemetry.pipeline import PipelineStats
-from ..telemetry.tracing import TRACER, SpanContext, device_annotation
+from ..telemetry.tracing import TRACER, SpanContext
 from ..utils.logger import get_logger
 from .operators import Operator, OperatorInstance, register
 
@@ -104,7 +113,7 @@ _tm_h2d = histogram("ig_tpusketch_h2d_seconds",
                     "host→device batch staging (pad/fold + transfer "
                     "dispatch)", ("gadget",))
 _tm_update = histogram("ig_tpusketch_update_seconds",
-                       "bundle_update step dispatch", ("gadget",))
+                       "host dispatch of the step", ("gadget",))
 _tm_harvest_s = histogram("ig_tpusketch_harvest_seconds",
                           "digest D2H + decode + scoring per harvest tick",
                           ("gadget",))
@@ -126,6 +135,11 @@ _tm_qt_zero = counter(
     "ig_sketch_quantile_zero_total",
     "quantile-plane events whose value lane was zero (no magnitude — "
     "they land in the sketch's zero bucket, not a log bucket)")
+
+# the per-batch parts a harvest record sums over the batches since the
+# harvest before it (ms, but the count)
+_BATCH_PARTS = ("batches", "fold", "copy", "dispatch", "post", "device_lag")
+_STAMPS_MAX = 256  # parked completion stamps before a hot-path booking
 
 
 # -- the params layer: one copy of each rule, for both construction routes ----
@@ -687,9 +701,18 @@ class TpuSketchInstance(OperatorInstance):
         self._last_harvest = time.monotonic()
         self._epoch = 0
         self._names: dict[int, str] = {}
-        # host-clock split of the last harvest (ms): digest + device decode,
-        # host finisher, anomaly step, seal
+        # host-clock split of the last harvest (ms): the digest's dispatch,
+        # its copy's wait and its read (digest_decode, their sum), the host
+        # finisher, the anomaly step, the seal; and sums over the gadget-path
+        # batches since the harvest before it: their count, fold, copy,
+        # dispatch, post and (on the card) device lag
         self.last_harvest_ms: dict[str, float] = {}
+        self._acc = dict.fromkeys(_BATCH_PARTS, 0.0)
+        # device-completion stamps (the card's unsharded gadget path):
+        # (fence event, dispatch end) a batch, booked once the event has
+        # completed, against `_anchor`
+        self._stamps: collections.deque = collections.deque()
+        self._anchor: tuple[Any, float] | None = None
         # the device batch shape: the gadget's own batch size, rounded up
         pad = 8192
         if ctx.batch_size > 0:
@@ -766,18 +789,18 @@ class TpuSketchInstance(OperatorInstance):
             self._win_qt0 = self._qt_host(self.bundle)
         if self._sq_engine is not None:
             queries_engine.register(ctx.run_id, self._sq_engine)
+        if self.device.type == "cuda" and not self._shard_on:
+            # the completion stamps' first origin, off the batch path
+            self._take_anchor()
         with _live_mu:
             _live[ctx.run_id] = self
 
-    @contextlib.contextmanager
-    def _span(self, name: str, **attrs):
+    def _span(self, name: str, label: str | None = None, **attrs):
         """A device-plane span: under the enrich span when called from the
         operator chain (the ambient current), else under the run span;
-        the same name is a ``record_function`` range."""
-        cur = TRACER.current_context()
-        with TRACER.span(name, parent=cur if cur is not None else self.ctx.trace_parent,
-                         attrs=attrs) as span, device_annotation(name):
-            yield span
+        while a profiler records, a range named `label` or `name`."""
+        return TRACER.span(name, parent=TRACER.current_context() or self.ctx.trace_parent,
+                           attrs=attrs, label=label)
 
     def _note_watermarks(self, pop_ts: float, oldest_ts: float, lane: int = 0) -> None:
         """Batch-grain lag watermarks: host lag = pop − oldest event,
@@ -864,15 +887,48 @@ class TpuSketchInstance(OperatorInstance):
             if w_c.any():
                 inv_update(s, keys_d, _to_device(w_c, self.device))
 
-    def _fence(self, stager: H2DStager, token) -> None:
-        """Tie the staged block's release to every consumer of its arrays:
-        on the card one CUDA event after the bundle step, the window steps
-        and the class updates; on the CPU they have run when this is
-        called, and the bundle step's token stands for them."""
+    def _fence(self, stager: H2DStager, token):
+        """Tie the staged block's release to every consumer of its arrays
+        and return the fence: on the card one CUDA timing event after the
+        bundle step, the window steps and the class updates; on the CPU
+        they have run when this is called, and the bundle step's token
+        stands for them."""
         if self.device.type == "cuda":
-            token = torch.cuda.Event()
+            token = torch.cuda.Event(enable_timing=True)
             token.record(torch.cuda.current_stream(self.device))
         stager.fence(token)
+        return token
+
+    # -- device-completion stamps (the card only) ---------------------------------
+
+    def _take_anchor(self) -> None:
+        """An event completed now, and the host clock when it had: the
+        origin that maps event times onto the host clock."""
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        ev.synchronize()
+        self._anchor = (ev, time.perf_counter())
+
+    def _stamp(self, fence, t_dispatch: float) -> None:
+        """Park one batch's fence event with its dispatch end. A backlog
+        past `_STAMPS_MAX` (harvests far apart) books what has completed."""
+        self._stamps.append((fence, t_dispatch))
+        if len(self._stamps) > _STAMPS_MAX:
+            self._book_stamps()
+
+    def _book_stamps(self) -> None:
+        """Book every parked stamp whose event has completed (in order:
+        one stream): its completion on the host clock less its dispatch
+        end, into the pipeline's device stage and the harvest's sum."""
+        ev0, t0 = self._anchor
+        while self._stamps:
+            ev, t = self._stamps[0]
+            if not ev.query():
+                break
+            self._stamps.popleft()
+            lag = max(t0 + ev0.elapsed_time(ev) / 1e3 - t, 0.0)
+            self._pstats.note_completion_lag(lag)
+            self._acc["device_lag"] += lag * 1e3
 
     def _staging_for(self, pad: int) -> tuple[PinnedBufferPool, H2DStager]:
         """The pinned pool and stager for the pad shape: 4 lanes (up to
@@ -994,44 +1050,45 @@ class TpuSketchInstance(OperatorInstance):
         while pad < n:
             pad *= 2
         lane = self._next_lane if self._shard_on else 0
-        t0 = time.perf_counter()
-        with self._span("tpusketch/h2d", events=n, pad=pad):
-            pool, stager = (self._lane_staging(pad) if self._shard_on
-                            else self._staging_for(pad))
-            block = pool.get()
-            arr = block.numpy()
-            rows: dict[str, int] = {}
+        fence = None
+        with self._span("tpusketch/h2d", events=n, pad=pad) as h2d:
+            with self._span("tpusketch/fold") as fold:
+                pool, stager = (self._lane_staging(pad) if self._shard_on
+                                else self._staging_for(pad))
+                block = pool.get()
+                arr = block.numpy()
+                rows: dict[str, int] = {}
 
-            def keys_for(colname: str) -> np.ndarray:
-                r = rows.get(colname)
-                if r is None:
-                    r = rows[colname] = len(rows)
-                    lane, a = arr[r], batch.cols[colname][:n]
-                    lane[:n] = fold64_to_32(a) if a.dtype == np.uint64 else a
-                    lane[n:] = 0
-                return arr[r]
+                def keys_for(colname: str) -> np.ndarray:
+                    r = rows.get(colname)
+                    if r is None:
+                        r = rows[colname] = len(rows)
+                        lane, a = arr[r], batch.cols[colname][:n]
+                        lane[:n] = fold64_to_32(a) if a.dtype == np.uint64 else a
+                        lane[n:] = 0
+                    return arr[r]
 
-            hh = keys_for(self.hh_col)
-            distinct = keys_for(self.distinct_col)
-            dist = keys_for(self.dist_col)
-            w = arr[3]
-            w[:n] = 1
-            w[n:] = 0
-            vals = self._qt_value_lane(batch, arr, n) if self._qt_on else None
-            new_drops = batch.drops - self._drops_seen
-            self._drops_seen = batch.drops
-            # one copy per distinct lane: shared columns stage once
-            order = list(rows.values()) + [3] + ([4] if vals is not None else [])
-            staged = stager.stage(block, [block[r] for r in order])
-            staged_slot = stager.last_slot
+                hh = keys_for(self.hh_col)
+                distinct = keys_for(self.distinct_col)
+                dist = keys_for(self.dist_col)
+                w = arr[3]
+                w[:n] = 1
+                w[n:] = 0
+                vals = self._qt_value_lane(batch, arr, n) if self._qt_on else None
+                new_drops = batch.drops - self._drops_seen
+                self._drops_seen = batch.drops
+            with self._span("tpusketch/copy") as copy:
+                # one copy per distinct lane: shared columns stage once
+                order = list(rows.values()) + [3] + ([4] if vals is not None else [])
+                staged = stager.stage(block, [block[r] for r in order])
+                staged_slot = stager.last_slot
             by_row = dict(zip(order, staged))
             hh_d = by_row[rows[self.hh_col]]
             distinct_d = by_row[rows[self.distinct_col]]
             dist_d = by_row[rows[self.dist_col]]
             w_d = by_row[3]
             v_d = by_row.get(4) if vals is not None else None
-        t1 = time.perf_counter()
-        with self._span("tpusketch/update", events=n), device_annotation("ig:tpusketch_update"):
+        with self._span("tpusketch/update", label="ig:tpusketch_update", events=n) as update:
             if self._shard_on:
                 # the window and class planes stay on the instance's
                 # device: the lane's staged arrays are copied there
@@ -1056,28 +1113,37 @@ class TpuSketchInstance(OperatorInstance):
                 if self._inv_classes:
                     with self._bundle_mu:
                         self._inv_class_absorb(hh_d, self._padded_mntns(batch, n, len(hh)), w)
-                self._fence(stager, tok)
-        t2 = time.perf_counter()
-        self._m_h2d.observe(t1 - t0)
-        self._m_update.observe(t2 - t1)
-        self._m_events.inc(n)
-        self._m_steps.inc()
-        self._qt_count(vals, n)
-        if new_drops > 0:
-            self._m_drops.inc(new_drops)
-        self._stats.steps += 1
-        self._stats.events += n
-        self._stats.drops = batch.drops
-        oldest = batch.oldest_ts
-        if oldest <= 0.0:
-            tmin = float(batch.cols["ts"][:n].min())
-            if tmin > 0.0:
-                oldest = tmin / 1e9
-        self._note_watermarks(batch.pop_ts, oldest, lane)
-        self._shadow_feed(hh[:n])
-        self._label_sample(batch, hh, n)
-        if self.anomaly_on:
-            self._accumulate_container_dists(batch, n)
+                fence = self._fence(stager, tok)
+                t_dispatch = time.perf_counter()
+        if fence is not None and self._anchor is not None:
+            self._stamp(fence, t_dispatch)
+        with self._span("tpusketch/post") as post:
+            self._m_h2d.observe(h2d.duration)
+            self._m_update.observe(update.duration)
+            self._m_events.inc(n)
+            self._m_steps.inc()
+            self._qt_count(vals, n)
+            if new_drops > 0:
+                self._m_drops.inc(new_drops)
+            self._stats.steps += 1
+            self._stats.events += n
+            self._stats.drops = batch.drops
+            oldest = batch.oldest_ts
+            if oldest <= 0.0:
+                tmin = float(batch.cols["ts"][:n].min())
+                if tmin > 0.0:
+                    oldest = tmin / 1e9
+            self._note_watermarks(batch.pop_ts, oldest, lane)
+            self._shadow_feed(hh[:n])
+            self._label_sample(batch, hh, n)
+            if self.anomaly_on:
+                self._accumulate_container_dists(batch, n)
+        acc = self._acc
+        acc["batches"] += 1
+        acc["fold"] += fold.duration * 1e3
+        acc["copy"] += copy.duration * 1e3
+        acc["dispatch"] += update.duration * 1e3
+        acc["post"] += post.duration * 1e3
         self._after_batch()
 
     def ingest_folded(self, fb: FoldedBatch) -> None:
@@ -1091,8 +1157,7 @@ class TpuSketchInstance(OperatorInstance):
             return
         n = fb.count
         lane = self._next_lane if self._shard_on else 0
-        t0 = time.perf_counter()
-        with self._span("tpusketch/h2d", events=n, pad=fb.capacity):
+        with self._span("tpusketch/h2d", events=n, pad=fb.capacity) as h2d:
             _pool, stager = (self._lane_staging(fb.capacity) if self._shard_on
                              else self._staging_for(fb.capacity))
             block = fb.block if fb.block is not None else torch.from_numpy(fb.lanes)
@@ -1109,8 +1174,7 @@ class TpuSketchInstance(OperatorInstance):
             else:
                 (k_d, w_d), v_d = stager.stage(block, (block[0], block[1])), None
             staged_slot = stager.last_slot
-        t1 = time.perf_counter()
-        with self._span("tpusketch/update", events=n), device_annotation("ig:tpusketch_update"):
+        with self._span("tpusketch/update", label="ig:tpusketch_update", events=n) as update:
             if self._shard_on:
                 if self._hist_on:
                     k_i, w_i = k_d.to(self.device), w_d.to(self.device)
@@ -1134,9 +1198,8 @@ class TpuSketchInstance(OperatorInstance):
                     with self._bundle_mu:
                         self._inv_class_absorb(k_d, fb.mntns, fb.weights)
                 self._fence(stager, tok)
-        t2 = time.perf_counter()
-        self._m_h2d.observe(t1 - t0)
-        self._m_update.observe(t2 - t1)
+        self._m_h2d.observe(h2d.duration)
+        self._m_update.observe(update.duration)
         self._m_events.inc(n)
         self._m_steps.inc()
         self._qt_count(fvals, n)
@@ -1411,8 +1474,7 @@ class TpuSketchInstance(OperatorInstance):
     # -- harvest ---------------------------------------------------------------
 
     def harvest(self) -> SketchSummary:
-        with self._span("tpusketch/harvest", epoch=self._epoch + 1), \
-                device_annotation("ig:tpusketch_harvest"):
+        with self._span("tpusketch/harvest", epoch=self._epoch + 1):
             return self._harvest_traced()
 
     def _harvest_traced(self) -> SketchSummary:
@@ -1421,7 +1483,7 @@ class TpuSketchInstance(OperatorInstance):
         # device loop is queued before that copy, so the copy's wait is
         # the loop's time too
         inv_dev = qt_now = None
-        with self._bundle_mu:
+        with self._span("tpusketch/harvest/dispatch") as dispatch, self._bundle_mu:
             merged = self._merged_locked()
             digest = bundle_digest(merged)
             if self._inv_on and merged.inv is not None:
@@ -1433,77 +1495,73 @@ class TpuSketchInstance(OperatorInstance):
                 cls_snap = [(c, (s.count.cpu().numpy().astype(np.int64, copy=True),
                                  _lane_np(s.keysum), _lane_np(s.fpsum)))
                             for c, s in self._inv_classes]
-        events_f, drops_f, distinct, entropy_bits, approx, keys, counts = (
-            decode_digest(digest.cpu().numpy()))
-        t1 = time.perf_counter()
-        if approx and not self._overflow_counted:
-            self._overflow_counted = True
-            _tm_cand_overflow.labels(gadget=self.ctx.gadget).inc()
-        order = np.argsort(-counts)
-        hh = [(int(keys[i]), int(counts[i])) for i in order if keys[i] != 0]
-        decoded: list[tuple[int, int]] = []
-        decoded_only: list[tuple[int, int]] = []
-        inv_info = classes_out = None
-        if inv_dev is not None:
-            dec = inv_decode_finish(*inv_dev)
-            decoded = dec.keys
-            ring = {k for k, _ in hh}
-            decoded_only = [(k, c) for k, c in dec.keys if k not in ring]
-            inv_info = {"recovered": dec.recovered, "complete": dec.complete,
-                        "residual_events": dec.residual_events,
-                        "capacity": inv_capacity(self._inv_rows, self._inv_lb)}
-            if self._inv_classes:
-                classes_out = {}
-                for c, arrs in cls_snap:
-                    cdec = inv_decode(arrs)
-                    classes_out[c.name] = {
-                        "tenants": list(c.tenants) if c.tenants is not None else "*",
-                        "log2_buckets": c.log2_buckets,
-                        "capacity": inv_capacity(self._inv_rows, c.log2_buckets),
-                        "decoded": cdec.top(32),
-                        "recovered": cdec.recovered,
-                        "complete": cdec.complete,
-                        "residual_events": cdec.residual_events,
-                    }
-        qt_out = None
-        if qt_now is not None:
-            from ..ops.quantiles import dd_quantile_np
-            c, z, t = qt_now
-            ps = (dd_quantile_np(c, z, t, [0.50, 0.90, 0.99, 0.999], alpha=self._qt_alpha,
-                                 min_value=self._qt_minv) if t > 0 else np.zeros(4))
-            qt_out = {"p50": float(ps[0]), "p90": float(ps[1]), "p99": float(ps[2]),
-                      "p999": float(ps[3]), "zeros": int(z), "total": int(t),
-                      "underflow": int(c[0]), "alpha": float(self._qt_alpha)}
-        # one span a pipeline stage under the harvest's, the snapshot's
-        # watermarks as its attributes
-        pipe_out = self._pstats.snapshot()
-        for stage, row in pipe_out["stages"].items():
-            with self._span(f"tpusketch/stage/{stage}", watermark_s=row["watermark_s"],
-                            p50_s=row["p50_s"], p99_s=row["p99_s"], count=row["count"]):
-                pass
-        if pipe_out["starved"] or pipe_out["saturated"]:
-            with self._span("tpusketch/stage/stager", starved=pipe_out["starved"],
-                            saturated=pipe_out["saturated"],
-                            starved_ratio=pipe_out["starved_ratio"],
-                            stall_s=pipe_out["stall_s"]):
-                pass
-        acc_out = None
-        if self._shadow is not None:
-            from ..ops.accuracy import accuracy_block
-            b = self.bundle
-            acc_out = accuracy_block(
-                events=float(events_f), depth=b.cms.depth, width=1 << b.cms.log2_width,
-                hll_p=b.hll.p, ent_log2_width=b.entropy.log2_width,
-                distinct=float(distinct), entropy_bits=float(entropy_bits),
-                hh_keys=np.array([k for k, _ in hh], dtype=np.uint32),
-                hh_counts=np.array([c for _, c in hh], dtype=np.int64),
-                qt_alpha=float(self._qt_alpha) if self._qt_on else None,
-                shadow=self._shadow)
-            self._astats.observe_block(acc_out)
-        self._resolve_late([k for k, _ in hh[:32]])
-        t2 = time.perf_counter()
-        anomaly = self._score_containers()
-        t3 = time.perf_counter()
+        with self._span("tpusketch/harvest/wait") as wait:
+            digest_np = digest.cpu().numpy()
+        if self._anchor is not None:
+            # the copy waited for every step queued before it: book the
+            # stamps against the old anchor, then take a fresh one
+            self._book_stamps()
+            self._take_anchor()
+        acc, self._acc = self._acc, dict.fromkeys(_BATCH_PARTS, 0.0)
+        with self._span("tpusketch/harvest/read") as read:
+            events_f, drops_f, distinct, entropy_bits, approx, keys, counts = (
+                decode_digest(digest_np))
+        with self._span("tpusketch/harvest/finish") as finish:
+            if approx and not self._overflow_counted:
+                self._overflow_counted = True
+                _tm_cand_overflow.labels(gadget=self.ctx.gadget).inc()
+            order = np.argsort(-counts)
+            hh = [(int(keys[i]), int(counts[i])) for i in order if keys[i] != 0]
+            decoded: list[tuple[int, int]] = []
+            decoded_only: list[tuple[int, int]] = []
+            inv_info = classes_out = None
+            if inv_dev is not None:
+                dec = inv_decode_finish(*inv_dev)
+                decoded = dec.keys
+                ring = {k for k, _ in hh}
+                decoded_only = [(k, c) for k, c in dec.keys if k not in ring]
+                inv_info = {"recovered": dec.recovered, "complete": dec.complete,
+                            "residual_events": dec.residual_events,
+                            "capacity": inv_capacity(self._inv_rows, self._inv_lb)}
+                if self._inv_classes:
+                    classes_out = {}
+                    for c, arrs in cls_snap:
+                        cdec = inv_decode(arrs)
+                        classes_out[c.name] = {
+                            "tenants": list(c.tenants) if c.tenants is not None else "*",
+                            "log2_buckets": c.log2_buckets,
+                            "capacity": inv_capacity(self._inv_rows, c.log2_buckets),
+                            "decoded": cdec.top(32),
+                            "recovered": cdec.recovered,
+                            "complete": cdec.complete,
+                            "residual_events": cdec.residual_events,
+                        }
+            qt_out = None
+            if qt_now is not None:
+                from ..ops.quantiles import dd_quantile_np
+                c, z, t = qt_now
+                ps = (dd_quantile_np(c, z, t, [0.50, 0.90, 0.99, 0.999], alpha=self._qt_alpha,
+                                     min_value=self._qt_minv) if t > 0 else np.zeros(4))
+                qt_out = {"p50": float(ps[0]), "p90": float(ps[1]), "p99": float(ps[2]),
+                          "p999": float(ps[3]), "zeros": int(z), "total": int(t),
+                          "underflow": int(c[0]), "alpha": float(self._qt_alpha)}
+            pipe_out = self._pstats.snapshot()
+            acc_out = None
+            if self._shadow is not None:
+                from ..ops.accuracy import accuracy_block
+                b = self.bundle
+                acc_out = accuracy_block(
+                    events=float(events_f), depth=b.cms.depth, width=1 << b.cms.log2_width,
+                    hll_p=b.hll.p, ent_log2_width=b.entropy.log2_width,
+                    distinct=float(distinct), entropy_bits=float(entropy_bits),
+                    hh_keys=np.array([k for k, _ in hh], dtype=np.uint32),
+                    hh_counts=np.array([c for _, c in hh], dtype=np.int64),
+                    qt_alpha=float(self._qt_alpha) if self._qt_on else None,
+                    shadow=self._shadow)
+                self._astats.observe_block(acc_out)
+            self._resolve_late([k for k, _ in hh[:32]])
+        with self._span("tpusketch/harvest/anomaly") as anomaly_span:
+            anomaly = self._score_containers()
         self._epoch += 1
         summary = SketchSummary(
             events=int(events_f), drops=int(drops_f), distinct=distinct,
@@ -1521,9 +1579,15 @@ class TpuSketchInstance(OperatorInstance):
             # history-interval 0: one sealed window a harvest (the replay mode)
             self.seal_window()
         t5 = time.perf_counter()
-        self.last_harvest_ms = {"digest_decode": (t1 - t0) * 1e3, "finish": (t2 - t1) * 1e3,
-                                "anomaly": (t3 - t2) * 1e3, "seal": (t5 - t4) * 1e3,
-                                "total": (t5 - t0) * 1e3}
+        parts = {"digest_dispatch": dispatch.duration * 1e3, "digest_wait": wait.duration * 1e3,
+                 "digest_read": read.duration * 1e3}
+        self.last_harvest_ms = {
+            "digest_decode": parts["digest_dispatch"] + parts["digest_wait"]
+            + parts["digest_read"], **parts,
+            "finish": finish.duration * 1e3, "anomaly": anomaly_span.duration * 1e3,
+            "seal": (t5 - t4) * 1e3, "total": (t5 - t0) * 1e3, **acc}
+        if self._anchor is None:
+            del self.last_harvest_ms["device_lag"]
         return summary
 
     def post_gadget_run(self) -> None:
@@ -1630,8 +1694,7 @@ class TpuSketchInstance(OperatorInstance):
             return
         from ..utils.checkpoint import save_pytree
         base = _ckpt_dir / self._ckpt_key
-        with self._span("tpusketch/checkpoint", key=self._ckpt_key), \
-                device_annotation("ig:tpusketch_checkpoint"):
+        with self._span("tpusketch/checkpoint", key=self._ckpt_key):
             with self._bundle_mu:
                 bundle_host = bundle_to_numpy(self._merged_locked())
                 scorer_host = scorer_leaves(self.scorer) if self.scorer is not None else None

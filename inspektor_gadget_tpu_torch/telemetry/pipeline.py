@@ -3,7 +3,9 @@ starved and saturated stager ticks (the port's copy of
 ``inspektor_gadget_tpu/telemetry/pipeline.py``).
 
 - Watermark: a stage's lag for the most recent batch (host lag = pop -
-  oldest event, device lag = dispatch - pop), stamped once a batch.
+  oldest event, device lag = dispatch - pop), stamped once a batch; on
+  the card also the ``device`` stage, completion - dispatch end, stamped
+  once the batch's fence event has completed.
 - Starved tick: the H2D stager found its next ring slot empty, so the
   device had drained everything in flight and the host sets the pace.
 - Saturated tick: the slot was still occupied, so the host is a full
@@ -128,6 +130,12 @@ class PipelineStats:
         """dispatch − pop: how long a popped batch waited for staging +
         the device update to pick it up."""
         self.note_lag("h2d", lag_s, lane)
+
+    def note_completion_lag(self, lag_s: float, lane: int = 0) -> None:
+        """the step's completion on the card − the host's dispatch end:
+        how far the card ran behind the host (the ``device`` stage; fed
+        only on the card, once the batch's fence event has completed)."""
+        self.note_lag("device", lag_s, lane)
 
     def note_starved(self, lane: int = 0) -> None:
         with self._mu:

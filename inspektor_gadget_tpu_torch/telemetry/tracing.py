@@ -20,13 +20,19 @@ per event. An unsampled trace (head sampling, decided once at mint time)
 propagates context but records nothing.
 
 The port's copy of ``inspektor_gadget_tpu/telemetry/tracing.py``, as it
-is but for `device_annotation`, which opens a
-``torch.profiler.record_function`` range (the reference's is a JAX
-profiler annotation), and the tolerant JSON read `load_dump` uses.
+is but for three things. While a ``torch.profiler`` records, every
+ambient span is also a ``record_function`` range of the same name (or
+the `label` it is given), so program spans share the device trace's
+clock; with no profiler running no range is entered, which the check
+`profiling` costs nothing to make (no torch import, no dispatcher call).
+Ids come from a private `random.Random` (the reference calls `uuid4`, a
+syscall a span), in the same hex lengths. And `load_dump` reads its
+JSON tolerantly.
 """
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import dataclasses
 import json
@@ -38,7 +44,6 @@ import sys
 import threading
 import time
 import traceback
-import uuid
 from collections import deque
 from typing import Any, Callable, Iterable
 
@@ -108,21 +113,25 @@ class Span:
     context propagates."""
 
     __slots__ = ("_tracer", "name", "context", "parent_id", "attrs",
-                 "_t0", "_start", "_token", "_ambient", "error")
+                 "_t0", "_start", "_token", "_ambient", "error", "label",
+                 "duration", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, context: SpanContext,
                  parent_id: str, attrs: dict[str, Any] | None,
-                 ambient: bool = True):
+                 ambient: bool = True, label: str | None = None):
         self._tracer = tracer
         self.name = name
         self.context = context
         self.parent_id = parent_id
         self.attrs = dict(attrs) if attrs else {}
         self.error = ""
+        self.label = label  # the profiler range's name, if not `name`
+        self.duration = 0.0  # seconds, once exited
         self._t0 = 0.0
         self._start = 0.0
         self._ambient = ambient
         self._token: contextvars.Token | None = None
+        self._range = None
 
     def set_attr(self, key: str, value: Any) -> "Span":
         self.attrs[key] = value
@@ -130,13 +139,21 @@ class Span:
 
     def __enter__(self) -> "Span":
         self._start = time.time()
-        self._t0 = time.perf_counter()
         if self._ambient:
+            # a held-open (non-ambient) span may end on another thread, so
+            # only ambient spans open a profiler range
+            if profiling():
+                self._range = _record_function(self.label or self.name)
+                self._range.__enter__()
             self._token = self._tracer._current.set(self.context)
+        self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, _tb) -> None:
-        dur = time.perf_counter() - self._t0
+        dur = self.duration = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
         if self._token is not None:
             self._tracer._current.reset(self._token)
             self._token = None
@@ -153,12 +170,33 @@ class Span:
             _tm_unsampled.inc()
 
 
+# span and trace ids: a private generator (a global `random.seed` in the
+# process cannot make two runs' ids collide), seeded from the OS and
+# re-seeded in a forked child
+_ids = random.Random()
+if hasattr(os, "register_at_fork"):
+    os.register_at_fork(after_in_child=_ids.seed)
+
+
 def _new_trace_id() -> str:
-    return uuid.uuid4().hex
+    return f"{_ids.getrandbits(128):032x}"
 
 
 def _new_span_id() -> str:
-    return uuid.uuid4().hex[:16]
+    return f"{_ids.getrandbits(64):016x}"
+
+
+def profiling() -> bool:
+    """True while a ``torch.profiler`` (or the autograd profiler)
+    records: torch's own Python flag, read without importing torch (no
+    profiler runs before its module is loaded)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and getattr(prof, "_is_profiler_enabled", False)
+
+
+def _record_function(name: str):
+    """A ``record_function(name)`` range (torch is loaded: `profiling`)."""
+    return sys.modules["torch.autograd.profiler"].record_function(name)
 
 
 class Tracer:
@@ -179,23 +217,25 @@ class Tracer:
 
     def span(self, name: str, parent: SpanContext | None = None,
              attrs: dict[str, Any] | None = None,
-             ambient: bool = True) -> Span:
+             ambient: bool = True, label: str | None = None) -> Span:
         """Open a span. Parent resolution: explicit `parent` wins, else the
         thread's current span, else a new trace is minted (head-sampled).
         ambient=False skips the current-span contextvar entirely — for
         spans held open across yields, where a generator resumed on a
         different worker thread could otherwise strand a dead span as
-        that thread's ambient parent forever."""
+        that thread's ambient parent forever. While a profiler records,
+        an ambient span is also a profiler range named `label`, or the
+        span's own name."""
         if parent is None:
             parent = self._current.get()
         if parent is None:
             sampled = random.random() < self.sample_rate
             ctx = SpanContext(_new_trace_id(), _new_span_id(), sampled)
             return Span(self, name, ctx, parent_id="", attrs=attrs,
-                        ambient=ambient)
+                        ambient=ambient, label=label)
         ctx = SpanContext(parent.trace_id, _new_span_id(), parent.sampled)
         return Span(self, name, ctx, parent_id=parent.span_id, attrs=attrs,
-                    ambient=ambient)
+                    ambient=ambient, label=label)
 
     def start_trace(self, name: str,
                     attrs: dict[str, Any] | None = None) -> Span:
@@ -284,12 +324,10 @@ def export_chrome(spans: Iterable[dict | SpanRecord],
 
 
 def device_annotation(name: str):
-    """A ``torch.profiler.record_function(name)`` range, so device-plane
-    spans line up with the kernels in the same profiler timeline (the
-    names ``profile_step.py`` reads: ``ig:tpusketch_update`` and its
-    siblings)."""
-    from torch.profiler import record_function
-    return record_function(name)
+    """A ``torch.profiler.record_function(name)`` range while a profiler
+    records, so work outside any span lines up with the kernels in the
+    same profiler timeline; otherwise a no-op context."""
+    return _record_function(name) if profiling() else contextlib.nullcontext()
 
 
 # ---------------------------------------------------------------------------

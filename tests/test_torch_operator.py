@@ -36,6 +36,7 @@ from inspektor_gadget_tpu.operators.operators import get as get_op
 from inspektor_gadget_tpu.params import ParamError as RefParamError
 from inspektor_gadget_tpu.sources.batch import EventBatch as RefEventBatch
 from inspektor_gadget_tpu.sources.batch import FoldedBatch as RefFoldedBatch
+from inspektor_gadget_tpu.telemetry import pipeline as RefPipeline
 from inspektor_gadget_tpu_torch.history import HISTORY as PORT_HISTORY
 from inspektor_gadget_tpu_torch.models import vae as PV
 from inspektor_gadget_tpu_torch.models.params import (params_from_numpy, scorer_from_leaves,
@@ -43,6 +44,7 @@ from inspektor_gadget_tpu_torch.models.params import (params_from_numpy, scorer_
 from inspektor_gadget_tpu_torch.operators import tpusketch as P
 from inspektor_gadget_tpu_torch.ops.sketches import bundle_to_numpy
 from inspektor_gadget_tpu_torch.sources.batch import EventBatch, FoldedBatch
+from inspektor_gadget_tpu_torch.telemetry import pipeline as PortPipeline
 
 torch.set_num_threads(2)
 
@@ -59,9 +61,12 @@ def _release_instances():
     """Drop the instances a test built from both packages' live tables,
     drain their stagers and close the history writers both packages'
     instances opened, so no state (the active-store gauges included)
-    leaks into other tests."""
+    leaks into other tests. A constructor that raised after registering
+    its pipeline stats left no instance to drop: its stats are
+    unregistered by run id."""
     before_r, before_p = set(R._live), set(P._live)
     before_w = {id(h): set(h._writers) for h in (HISTORY, PORT_HISTORY)}
+    before_s = {id(m): set(m._live) for m in (RefPipeline, PortPipeline)}
     yield
     for h in (HISTORY, PORT_HISTORY):
         with h._mu:
@@ -79,6 +84,11 @@ def _release_instances():
             if inst._astats is not None:
                 inst._astats.unregister()
             inst._stats.unregister()
+    for m in (RefPipeline, PortPipeline):
+        with m._live_mu:
+            stray = [m._live[rid] for rid in m._live if rid not in before_s[id(m)]]
+        for ps in stray:
+            ps.unregister()
     R.set_checkpoint_dir(None)
     P.set_checkpoint_dir(None)
 
@@ -322,7 +332,12 @@ def test_summary_and_window_hooks_fire(tmp_path, monkeypatch):
     s = port.harvest()
     assert summaries == [s] and len(announced) == len(stores.port()) == 1
     assert announced[0]["digest"] == stores.port()[0][0]["digest"]
-    assert set(port.last_harvest_ms) == {"digest_decode", "finish", "anomaly", "seal", "total"}
+    # digest_decode is the sum of its three parts; the per-batch sums of
+    # the gadget path follow (device_lag only on the card)
+    assert set(port.last_harvest_ms) == {
+        "digest_decode", "digest_dispatch", "digest_wait", "digest_read", "finish", "anomaly",
+        "seal", "total", "batches", "fold", "copy", "dispatch", "post"}
+    assert port.last_harvest_ms["batches"] == 1
     assert set(port.last_seal_ms) == {"d2h", "encode", "append", "queries", "total"}
     port.seal_window()  # an empty window is skipped
     assert len(stores.port()) == 1

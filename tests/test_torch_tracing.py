@@ -128,3 +128,83 @@ def test_device_annotation_is_a_profiler_range():
         with P.device_annotation("ig:tpusketch_update"):
             torch.ones(4).sum()
     assert any(e.name == "ig:tpusketch_update" for e in prof.events())
+
+
+def _tree(tr) -> None:
+    with tr.span("run/trace/exec"):
+        with tr.span("op/tpusketch"):
+            with tr.span("tpusketch/h2d"):
+                with tr.span("tpusketch/fold"):
+                    torch.ones(4).sum()
+                with tr.span("tpusketch/copy"):
+                    pass
+            with tr.span("tpusketch/update", label="ig:tpusketch_update"):
+                torch.ones(4).sum()
+
+
+def test_spans_are_profiler_ranges_while_a_profiler_records():
+    """Each ambient span is a profiler range of its name (or label),
+    nested as the spans are; a held-open span is not."""
+    tr = P.Tracer(capacity=64)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        assert P.profiling()
+        _tree(tr)
+        with tr.span("agent/run/held", ambient=False):
+            pass
+    assert not P.profiling()
+    want = {"run/trace/exec": None, "op/tpusketch": "run/trace/exec",
+            "tpusketch/h2d": "op/tpusketch", "tpusketch/fold": "tpusketch/h2d",
+            "tpusketch/copy": "tpusketch/h2d", "ig:tpusketch_update": "op/tpusketch"}
+    got = {e.name: e for e in prof.events() if e.name in want or e.name.startswith("agent/")}
+    assert set(got) == set(want)
+    for name, parent in want.items():
+        if parent is None:
+            continue
+        inner, outer = got[name].time_range, got[parent].time_range
+        assert outer.start <= inner.start <= inner.end <= outer.end, name
+    # the ring holds the same tree, by span name
+    assert [r.name for r in tr.records()] == [
+        "tpusketch/fold", "tpusketch/copy", "tpusketch/h2d", "tpusketch/update",
+        "op/tpusketch", "run/trace/exec", "agent/run/held"]
+    assert all(r.duration >= 0.0 for r in tr.records())
+
+
+def test_no_profiler_range_without_a_profiler(monkeypatch):
+    """With no profiler running, neither spans nor `device_annotation`
+    enter `record_function`; under a profiler the same calls do."""
+    import torch.autograd.profiler as tap
+    calls = []
+    real = tap.record_function
+
+    def counting(name, *a, **k):
+        calls.append(name)
+        return real(name, *a, **k)
+    monkeypatch.setattr(tap, "record_function", counting)
+    tr = P.Tracer(capacity=64)
+    _tree(tr)
+    with P.device_annotation("ig:x"):
+        pass
+    assert calls == [] and len(tr.records()) == 6
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        _tree(tr)
+        with P.device_annotation("ig:x"):
+            pass
+    assert calls == ["run/trace/exec", "op/tpusketch", "tpusketch/h2d", "tpusketch/fold",
+                     "tpusketch/copy", "ig:tpusketch_update", "ig:x"]
+
+
+def test_ids_keep_their_lengths_and_ignore_the_global_seed():
+    import random
+    tr = P.Tracer()
+    ids = []
+    for _ in range(2):
+        random.seed(1234)
+        with tr.span("a") as a:
+            with tr.span("b") as b:
+                ids.append((a.context.trace_id, a.context.span_id, b.context.span_id))
+    for trace_id, *spans in ids:
+        assert len(trace_id) == 32 and all(len(s) == 16 for s in spans)
+        int(trace_id, 16)
+        assert R.parse_traceparent(P.SpanContext(trace_id, spans[0]).to_traceparent())
+    assert ids[0] != ids[1]
+    assert len({s for row in ids for s in row[1:]}) == 4
