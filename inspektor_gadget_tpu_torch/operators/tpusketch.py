@@ -43,12 +43,14 @@ span (each a ``torch.profiler`` range while a profiler records), but
 that the gadget path's batch is tiled finer: ``tpusketch/h2d`` holds
 ``tpusketch/fold`` and ``tpusketch/copy``, then come
 ``tpusketch/update`` and ``tpusketch/post``; the harvest's parts are
-``tpusketch/harvest/{dispatch,wait,read,finish,anomaly}``. On the card
-each gadget-path batch's fence event is a timing event: once it has
-completed, its completion less the host's dispatch end, mapped onto the
-host clock by an anchor event taken when the instance is built and
-re-taken at every harvest, is the batch's device lag (the pipeline's
-``device`` stage).
+``tpusketch/harvest/{dispatch,wait,read,finish,anomaly}``. The unsharded
+``tpusketch/update`` carries ``graph``, how the step ran: a CUDA graph's
+"replay" or "capture", or "eager" (`ops.sketches.bundle_ingest_step`).
+On the card each gadget-path batch's fence event is a timing event:
+once it has completed, its completion less the host's dispatch end,
+mapped onto the host clock by an anchor event taken when the instance
+is built and re-taken at every harvest, is the batch's device lag (the
+pipeline's ``device`` stage).
 """
 
 from __future__ import annotations
@@ -1106,6 +1108,7 @@ class TpuSketchInstance(OperatorInstance):
                 with self._bundle_mu:
                     _, tok = bundle_ingest_step(self.bundle, hh_d, distinct_d, dist_d, w_d,
                                                 float(max(new_drops, 0)), v_d)
+                    update.set_attr("graph", self.bundle.graphs.last)
                 if self._hist_on:
                     wcms_ingest_step(self._wcms, hh_d, w_d)
                     hll_ingest_step(self._win_hll, distinct_d, w_d)
@@ -1191,6 +1194,7 @@ class TpuSketchInstance(OperatorInstance):
                     # lands in the zero bucket and totals stay honest
                     _, tok = bundle_ingest_step(self.bundle, k_d, k_d, k_d, w_d,
                                                 float(max(new_drops, 0)), v_d)
+                    update.set_attr("graph", self.bundle.graphs.last)
                 if self._hist_on:
                     wcms_ingest_step(self._wcms, k_d, w_d)
                     hll_ingest_step(self._win_hll, k_d, w_d)

@@ -10,8 +10,9 @@ Key streams per batch (uint32 lanes, fixed length, integer weights):
 `bundle_update` is the plain composition of the sketch ops;
 `bundle_update_fused` takes every plane's delta from one K2 pass (the
 CUDA kernel on the card, its plain version on the CPU) and is what
-`bundle_ingest_step`, the staged-ingest step, runs. Both give
-bit-identical state on either device, and both equal the JAX package's
+`bundle_ingest_step`, the staged-ingest step, runs (on the card as one
+replayed CUDA graph, below). Both give bit-identical state on either
+device, the graph's too, and both equal the JAX package's
 within the regimes of PERF.md §1: `cms.total` wraps its int32 sum as the
 reference does; `events` adds the batch's exact weight sum rounded to
 float32 once, where the reference sums in float32 in XLA's order (equal
@@ -23,22 +24,36 @@ a device lane and merges them only at harvest (below).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..telemetry import counter
 from .countmin import CountMin, cms_init, cms_merge, cms_update
 from .entropy import EntropySketch, entropy_estimate, entropy_init, entropy_merge, entropy_update
 from .hashing import MASK32, bits32, sum_wrap32, u32
 from .hll import HLL, hll_estimate, hll_init, hll_merge, hll_update
 from .invertible import InvSketch, inv_init, inv_merge, inv_update
-from .kernels import FusedGeometry, fused_planes, split_planes
+from .kernels import (FusedGeometry, _device_table, fused_planes, launch_plan, sm_count,
+                      split_planes)
 from .quantiles import DDSketch, dd_init, dd_merge, dd_update
 from .topk import TopK, topk_init, topk_merge, topk_update
+
+
+class StepGraphs:
+    """A bundle's CUDA graphs of its ingest step (`bundle_ingest_step`)
+    and the outcome of its last step: "replay", "capture" or "eager"."""
+
+    def __init__(self) -> None:
+        self.graphs: collections.OrderedDict = collections.OrderedDict()
+        self.warm: set = set()  # keys without leaf addresses that have run eagerly
+        self.last: str | None = None
+
 
 # The production geometry: the reference benchmark's accelerator shapes
 # (bench.py:58) with the optional planes on at the tpusketch operator's
@@ -60,6 +75,8 @@ class SketchBundle:
     drops: torch.Tensor   # () float32, upstream loss carried along
     inv: InvSketch | None = None
     quantiles: DDSketch | None = None
+    # not state: the CUDA graphs of this bundle's ingest step (below)
+    graphs: StepGraphs = field(default_factory=StepGraphs, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -104,8 +121,13 @@ def _values_or_zero(values, like: torch.Tensor) -> torch.Tensor:
 
 
 def _add_drops(bundle: SketchBundle, drops) -> None:
-    if drops is not None:
-        bundle.drops.add_(torch.as_tensor(drops, dtype=torch.float32, device=bundle.device))
+    """Add the upstream loss as a float32 scalar: the float32 sum a 0-d
+    float32 tensor would give, without a copy from the host (which
+    would wait for the device). A 0 adds nothing: drops are never -0."""
+    if isinstance(drops, torch.Tensor):
+        bundle.drops.add_(drops.to(bundle.device, torch.float32))
+    elif drops:
+        bundle.drops.add_(float(np.float32(drops)))
 
 
 def bundle_update(bundle: SketchBundle, hh_keys: torch.Tensor, distinct_keys: torch.Tensor,
@@ -126,14 +148,13 @@ def bundle_update(bundle: SketchBundle, hh_keys: torch.Tensor, distinct_keys: to
     return bundle
 
 
-def bundle_update_fused(bundle: SketchBundle, hh_keys: torch.Tensor,
-                        distinct_keys: torch.Tensor, dist_keys: torch.Tensor,
-                        mask: torch.Tensor, drops=None,
-                        values: torch.Tensor | None = None) -> SketchBundle:
-    """Every plane's delta from one K2 pass (counterpart of the
-    reference's ``_bundle_update_pallas``), then the same top-k refresh
-    against the updated CMS. Takes every shape. In place."""
-    w = mask.to(torch.int32)
+def _fold_planes(bundle: SketchBundle, hh_keys: torch.Tensor, distinct_keys: torch.Tensor,
+                 dist_keys: torch.Tensor, w: torch.Tensor,
+                 values: torch.Tensor | None) -> TopK:
+    """Every plane's delta from one K2 pass, added in place, and events;
+    returns the top-k table refreshed against the updated CMS, which the
+    caller keeps (the eager step takes the new table, the graph copies
+    it into the bundle's own)."""
     geom = bundle.geometry()
     vals = _values_or_zero(values, w) if geom.qt_buckets else None
     cms_d, ent_d, ranks, inv_d, qt_d = split_planes(
@@ -144,9 +165,7 @@ def bundle_update_fused(bundle: SketchBundle, hh_keys: torch.Tensor,
     bundle.cms.total.add_(wrapped.to(torch.float32))
     torch.maximum(bundle.hll.registers, ranks, out=bundle.hll.registers)
     bundle.entropy.counts.add_(ent_d)
-    bundle.topk = topk_update(bundle.topk, bundle.cms, hh_keys, w)
     bundle.events.add_(wsum.to(torch.float32))
-    _add_drops(bundle, drops)
     if bundle.inv is not None:
         inv = bundle.inv
         inv.count.add_(bits32(inv_d[:, 0]))
@@ -157,7 +176,133 @@ def bundle_update_fused(bundle: SketchBundle, hh_keys: torch.Tensor,
         qt.counts.add_(qt_d)
         qt.zeros.add_(torch.where(u32(vals) == 0, w, torch.zeros_like(w)).sum().to(torch.int32))
         qt.total.add_(wrapped.to(torch.int32))
+    return topk_update(bundle.topk, bundle.cms, hh_keys, w)
+
+
+def bundle_update_fused(bundle: SketchBundle, hh_keys: torch.Tensor,
+                        distinct_keys: torch.Tensor, dist_keys: torch.Tensor,
+                        mask: torch.Tensor, drops=None,
+                        values: torch.Tensor | None = None) -> SketchBundle:
+    """Every plane's delta from one K2 pass (counterpart of the
+    reference's ``_bundle_update_pallas``), then the same top-k refresh
+    against the updated CMS. Takes every shape. In place."""
+    bundle.topk = _fold_planes(bundle, hh_keys, distinct_keys, dist_keys,
+                               mask.to(torch.int32), values)
+    _add_drops(bundle, drops)
     return bundle
+
+
+# -- the staged-ingest step as one CUDA graph ----------------------------------
+# Eager, the step is one K2 launch among ~260 small torch ops (the plane
+# adds, the top-k refresh's count-min query and three stable sorts): on
+# the card the host's dispatch of them takes several times the device's
+# half millisecond. Its shapes are fixed for a bundle, a geometry and a
+# padded batch length, so on the card the step is captured once and
+# replayed with one launch. A bundle keeps its graphs by key: the device,
+# the geometry, each lane's shape, dtype and device and which lanes share
+# one tensor (the operator stages one keys lane for all three key
+# streams), and the address of every leaf, which the graph reads and
+# writes in place. The first step at a key runs eagerly: it loads K2,
+# copies K2's block table from the host and sets its shared memory,
+# which a capture may not do. The next step captures, on a stream of the
+# bundle's device, and later ones replay. New leaves (a resumed or
+# merged bundle is a new bundle, with no graphs) capture again. Each
+# step copies its distinct lanes into the graph's own inputs on the
+# current stream, so the replay reads them after the stager's copy; the
+# top-k table is copied into the bundle's own tensors, so the leaves
+# keep their addresses and a harvest on the same stream reads the live
+# state. The drops' add stays outside the graph. State is bit-identical
+# to the eager step's (tests/test_torch_step_graph.py).
+
+GRAPHS_PER_BUNDLE = 4  # least recently used first out: pad growth cannot pile up pools
+
+_tm_step_graph = counter(
+    "ig_tpusketch_step_graph_total",
+    "Staged-ingest steps by how they ran: replay of a CUDA graph, capture of one "
+    "(then its replay), or eager dispatch (the CPU, a key's first step)", ("outcome",))
+_OUTCOMES = {o: _tm_step_graph.labels(outcome=o) for o in ("replay", "capture", "eager")}
+
+
+@dataclass
+class _StepGraph:
+    graph: torch.cuda.CUDAGraph
+    firsts: tuple[int, ...]           # the lanes the inputs stand for, one a distinct tensor
+    inputs: tuple[torch.Tensor, ...]  # the graph's copies of those lanes
+    table: torch.Tensor | None        # K2's block table, which the graph reads
+
+
+def _leaves(b: SketchBundle) -> list[torch.Tensor]:
+    """The bundle's tensors in the reference's leaf order."""
+    out = [b.cms.table, b.cms.total, b.hll.registers, b.entropy.counts, b.topk.keys,
+           b.topk.counts, b.topk.overflow, b.events, b.drops]
+    if b.inv is not None:
+        out += [b.inv.count, b.inv.keysum, b.inv.fpsum]
+    if b.quantiles is not None:
+        out += [b.quantiles.counts, b.quantiles.zeros, b.quantiles.total]
+    return out
+
+
+def _alias(lanes) -> tuple[int, ...]:
+    """For each lane the index of the first lane holding the same tensor
+    (its storage, dtype and shape), -1 for an absent lane."""
+    def same(y, x):
+        return (y is not None and y.data_ptr() == x.data_ptr() and y.dtype == x.dtype
+                and y.shape == x.shape)
+
+    return tuple(-1 if x is None else next(j for j in range(i + 1) if same(lanes[j], x))
+                 for i, x in enumerate(lanes))
+
+
+def _capture(bundle: SketchBundle, lanes, alias) -> _StepGraph:
+    dev = bundle.device
+    firsts = tuple(i for i, a in enumerate(alias) if a == i)
+    inputs = tuple(torch.empty(lanes[i].shape, dtype=lanes[i].dtype, device=dev)
+                   for i in firsts)
+    static = [inputs[firsts.index(a)] if a >= 0 else None for a in alias]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev), capture_error_mode="thread_local"):
+        topk = _fold_planes(bundle, *static)
+        bundle.topk.keys.copy_(topk.keys)
+        bundle.topk.counts.copy_(topk.counts)
+        bundle.topk.overflow.copy_(topk.overflow)
+    n = lanes[0].shape[0]
+    plan = launch_plan(bundle.geometry().planes, n, sm_count(dev)) if n else None
+    return _StepGraph(graph, firsts, inputs, _device_table(plan, dev) if n else None)
+
+
+def _graph_step(bundle: SketchBundle, lanes, drops) -> str:
+    """One step on the card: eager at a new key, else a graph's replay
+    (captured first where the key has none). Returns the outcome."""
+    cache = bundle.graphs
+    alias = _alias(lanes)
+    shape = (bundle.device, bundle.geometry(), alias,
+             tuple(None if x is None else (x.device, x.dtype, x.shape) for x in lanes))
+    if shape not in cache.warm:
+        bundle_update_fused(bundle, *lanes[:4], drops, lanes[4])
+        cache.warm.add(shape)
+        return "eager"
+    key = (shape, tuple(t.data_ptr() for t in _leaves(bundle)))
+    entry = cache.graphs.get(key)
+    if entry is None:
+        entry = cache.graphs[key] = _capture(bundle, lanes, alias)  # counts K2's launch
+        while len(cache.graphs) > GRAPHS_PER_BUNDLE:
+            cache.graphs.popitem(last=False)
+        outcome = "capture"
+    else:
+        cache.graphs.move_to_end(key)
+        if lanes[0].shape[0]:
+            fused_planes.launches += 1
+        outcome = "replay"
+    for dst, i in zip(entry.inputs, entry.firsts):
+        dst.copy_(lanes[i])
+    # torch.profiler books a kernel to the op whose correlation id its
+    # launch carries, and a record_function range pushes none: inside
+    # this op the graph's kernels count in the caller's range, as the
+    # eager step's do
+    with torch._C._profiler._RecordFunctionFast("step_graph_replay"):
+        entry.graph.replay()
+    _add_drops(bundle, drops)
+    return outcome
 
 
 def bundle_ingest_step(bundle: SketchBundle, hh_keys: torch.Tensor,
@@ -169,18 +314,24 @@ def bundle_ingest_step(bundle: SketchBundle, hh_keys: torch.Tensor,
     more than 1 (count-min, entropy, invertible, DDSketch and events take
     the magnitude; HLL and top-k look only at nonzero).
 
-    Returns (bundle, fence). On the card the fence is a CUDA event
-    recorded on the current stream after the step: the stager waits on
-    it before a staged host block goes back to the pool. On the CPU the
-    step has finished when it returns and the fence is a fresh copy of
-    the events counter, as in the reference."""
-    out = bundle_update_fused(bundle, hh_keys, distinct_keys, dist_keys,
-                              weights.to(torch.int32), drops, values)
-    if out.device.type == "cuda":
+    Returns (bundle, fence). On the card the step replays the bundle's
+    CUDA graph of it (above), and the fence is a CUDA event recorded on
+    the current stream after the step: the stager waits on it before a
+    staged host block goes back to the pool. On the CPU the step runs
+    eagerly, has finished when it returns, and the fence is a fresh copy
+    of the events counter, as in the reference. `bundle.graphs.last`
+    says how the step ran; ``ig_tpusketch_step_graph_total`` counts it."""
+    w = weights.to(torch.int32)
+    if bundle.device.type == "cuda":
+        outcome = _graph_step(bundle, (hh_keys, distinct_keys, dist_keys, w, values), drops)
         fence = torch.cuda.Event()
-        fence.record(torch.cuda.current_stream(out.device))
-        return out, fence
-    return out, out.events.clone()
+        fence.record(torch.cuda.current_stream(bundle.device))
+    else:
+        bundle_update_fused(bundle, hh_keys, distinct_keys, dist_keys, w, drops, values)
+        outcome, fence = "eager", bundle.events.clone()
+    bundle.graphs.last = outcome
+    _OUTCOMES[outcome].inc()
+    return bundle, fence
 
 
 def _merge_optional(x, y, merge):
